@@ -6,7 +6,10 @@ the port never carries on on the CPU behind the caller's back.
 
 The precision policy mirrors s2r_tpu/core/precision.py: parameters stay
 float32, activations and conv inputs run in the compute dtype ('f32' or
-'bf16'), BatchNorm statistics and interpolation in float32.
+'bf16'), BatchNorm statistics and interpolation in float32.  The port adds
+'f64' for reference runs on the CPU (every plain version computes in
+float64 then; the kernels take float32 and bfloat16 only), which show how
+far float32 rounding alone moves a result.
 """
 
 from __future__ import annotations
@@ -15,7 +18,8 @@ from typing import Optional, Union
 
 import torch
 
-_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16,
+           "f64": torch.float64}
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None
@@ -34,12 +38,13 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
 
 
 def resolve_dtype(dtype: Union[str, torch.dtype]) -> torch.dtype:
-    """Compute dtype from a policy name ('f32', 'bf16') or a torch dtype."""
+    """Compute dtype from a policy name ('f32', 'bf16', 'f64') or a torch
+    dtype."""
     if isinstance(dtype, str):
         if dtype not in _DTYPES:
             raise ValueError(f"unknown precision policy: {dtype!r}")
         return _DTYPES[dtype]
     if dtype not in _DTYPES.values():
-        raise ValueError(f"compute dtype must be float32 or bfloat16, "
-                         f"got {dtype}")
+        raise ValueError(f"compute dtype must be float32, bfloat16 or "
+                         f"float64, got {dtype}")
     return dtype

@@ -1,9 +1,11 @@
 // 3x3 depthwise convolution, stride 1, zero padding = dilation, NHWC.
 //
 // Replaces the TPU kernel s2r_tpu/ops/pallas/depthwise.py::depthwise_conv3x3
-// (_dw_forward), forward only.  y[n,h,w,c] = sum_{dy,dx} x[n, h+(dy-1)d,
-// w+(dx-1)d, c] * k[dy,dx,c], taps outside the image read as zero, the sum
-// kept in float32 and written in x's type.
+// (_dw_forward) and its VJP (_dw_bwd).  Forward: y[n,h,w,c] = sum_{dy,dx}
+// x[n, h+(dy-1)d, w+(dx-1)d, c] * k[dy,dx,c], taps outside the image read as
+// zero, the sum kept in float32 and written in x's type.  The VJP's dx is the
+// same kernel on the cotangent with the taps flipped (the wrapper flips
+// them); its dk is the second kernel below, dw3x3_dk.
 //
 // What bounds it on an H100: device-memory bytes.  Each output costs 9
 // multiply-adds against 2 * sizeof(T) bytes of compulsory traffic (read x
@@ -24,6 +26,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "slab_fold.cuh"
 
 namespace {
 
@@ -116,7 +120,117 @@ int launch(const void* x, const void* k, void* y, int64_t n, int64_t h, int64_t 
   return (int)cudaGetLastError();
 }
 
+// dk[dy,dx,c] = sum_{n,h,w} x[n, h+(dy-1)d, w+(dx-1)d, c] * g[n,h,w,c]
+// (zero outside the image), in float32.  The two-pass reduction of
+// slab_fold.cuh, as the BatchNorm sums (batchnorm.cu): pass 1 here, block
+// (channel chunk, pixel slab), each thread keeping the nine taps' sums of
+// one channel vector over every by-th pixel of the slab, reading g once
+// and the nine x taps through L1/L2; the block folds its rows tap by tap
+// with a fixed tree in shared memory and writes [slab][9][C] partials.
+// Pass 2 is the shared fold.  No atomics: deterministic.  Bound by
+// device-memory bytes (x and g read once, 18 flops per element pair).
+template <typename T, int V>
+__global__ void dw3x3_dk_partial(const T* __restrict__ x, const T* __restrict__ g,
+                                 float* __restrict__ part, int h, int w, int c, int d,
+                                 unsigned pixels, unsigned pix_per_slab) {
+  __shared__ float sh[kSlabThreads * V];
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int nvec = c / V;
+  const int vec = blockIdx.x * blockDim.x + tx;
+  const int ch = vec * V;
+  const unsigned p0 = blockIdx.y * pix_per_slab;
+  const unsigned p1 = min(p0 + pix_per_slab, pixels);
+  float acc[9][V];
+#pragma unroll
+  for (int t = 0; t < 9; ++t)
+#pragma unroll
+    for (int v = 0; v < V; ++v) acc[t][v] = 0.0f;
+  if (vec < nvec) {
+    for (unsigned p = p0 + ty; p < p1; p += blockDim.y) {
+      const int col = (int)(p % w);
+      const int row = (int)(p / w);  // over N*H
+      const int r0 = row % h;
+      float gv[V];
+      load<T, V>(g + (size_t)p * c + ch, gv);
+#pragma unroll
+      for (int dy = 0; dy < 3; ++dy) {
+        const int off = (dy - 1) * d;
+        if (r0 + off < 0 || r0 + off >= h) continue;
+        const T* xr = x + (size_t)(row + off) * w * c + ch;
+#pragma unroll
+        for (int dx = 0; dx < 3; ++dx) {
+          const int cc = col + (dx - 1) * d;
+          if (cc < 0 || cc >= w) continue;
+          float xv[V];
+          load<T, V>(xr + (size_t)cc * c, xv);
+#pragma unroll
+          for (int v = 0; v < V; ++v) acc[dy * 3 + dx][v] += xv[v] * gv[v];
+        }
+      }
+    }
+  }
+  float* mine = sh + (ty * blockDim.x + tx) * V;
+#pragma unroll
+  for (int t = 0; t < 9; ++t) {
+#pragma unroll
+    for (int v = 0; v < V; ++v) mine[v] = acc[t][v];
+    __syncthreads();
+    for (int s = blockDim.y / 2; s > 0; s >>= 1) {
+      if (ty < s) {
+        const float* other = sh + ((ty + s) * blockDim.x + tx) * V;
+#pragma unroll
+        for (int v = 0; v < V; ++v) mine[v] += other[v];
+      }
+      __syncthreads();
+    }
+    if (ty == 0 && vec < nvec) {
+      float* out = part + ((size_t)blockIdx.y * 9 + t) * c + ch;
+#pragma unroll
+      for (int v = 0; v < V; ++v) out[v] = mine[v];
+    }
+    __syncthreads();
+  }
+}
+
+template <typename T, int V>
+int launch_dk_v(const void* x, const void* g, float* part, float* dk, int64_t n,
+                int64_t h, int64_t w, int64_t c, int64_t d, cudaStream_t stream) {
+  const int64_t pixels = n * h * w;
+  const SlabPlan p = slab_plan(pixels, (int)(c / V));
+  dw3x3_dk_partial<T, V><<<dim3(p.chunks, (unsigned)p.slabs), dim3(p.bx, p.by), 0, stream>>>(
+      (const T*)x, (const T*)g, part, (int)h, (int)w, (int)c, (int)d, (unsigned)pixels,
+      (unsigned)p.per_slab);
+  launch_slab_fold(part, dk, 9 * c, p.slabs, stream);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_dk(const void* x, const void* g, void* part, void* dk, int64_t n, int64_t h,
+              int64_t w, int64_t c, int64_t d, void* stream) {
+  constexpr int V = 16 / sizeof(T);
+  const bool vec = c % V == 0 && aligned16(x) && aligned16(g);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (vec) return launch_dk_v<T, V>(x, g, (float*)part, (float*)dk, n, h, w, c, d, s);
+  return launch_dk_v<T, 1>(x, g, (float*)part, (float*)dk, n, h, w, c, d, s);
+}
+
 }  // namespace
+
+// The dk scratch `part` holds s2r_dw3x3_dk_max_slabs() * 9 * C floats.
+extern "C" int s2r_dw3x3_dk_max_slabs() { return kMaxSlabs; }
+
+// x, g [N,H,W,C] of one type; dk [3,3,C] float32.  N*H*W*C below 2^31.
+extern "C" int s2r_dw3x3_dk_f32(const void* x, const void* g, void* part, void* dk,
+                                int64_t n, int64_t h, int64_t w, int64_t c, int64_t d,
+                                void* stream) {
+  return launch_dk<float>(x, g, part, dk, n, h, w, c, d, stream);
+}
+
+extern "C" int s2r_dw3x3_dk_bf16(const void* x, const void* g, void* part, void* dk,
+                                 int64_t n, int64_t h, int64_t w, int64_t c, int64_t d,
+                                 void* stream) {
+  return launch_dk<__nv_bfloat16>(x, g, part, dk, n, h, w, c, d, stream);
+}
 
 // N*H*W*C must be below 2^31 (the wrapper checks).
 extern "C" int s2r_dw3x3_f32(const void* x, const void* k, void* y, int64_t n, int64_t h,

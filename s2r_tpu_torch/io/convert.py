@@ -1,4 +1,5 @@
-"""JAX/flax variables of DeepLab (MobileNetV2) -> the port's state_dict.
+"""JAX/flax variables of DeepLab (MobileNetV2) and of the FCDiscriminator ->
+the port's state_dicts, and the JAX package's parameter order.
 
 ``from_jax_variables(params, batch_stats)`` takes the flax-style nested dicts
 of numpy arrays that ``DeepLab.init`` produces (or a checkpoint holds) and
@@ -7,6 +8,13 @@ returns the reference torch key schema, the one s2r_tpu/io/torch_export.py
 ``low_level_features``/``high_level_features`` aliases, ``aspp.aspp{k}``,
 ``aspp.global_avg_pool.{1,2}``, ``decoder.last_conv.{0,1,4,5,8}``.  The
 result loads into ``models.deeplab.DeepLab`` with ``strict=True``.
+``from_jax_discriminator(params)`` does the same for the discriminator's
+``conv1``..``conv4`` and ``classifier`` (s2r_tpu/io/torch_import.py:265).
+
+``deeplab_param_order`` and ``discriminator_param_order`` list the port's
+parameter names in the order jax.tree flattens the JAX parameters (dict
+keys sorted at every level), the order of the JAX package's flat optimizer
+buffers (s2r_tpu/train/optim.py FusedOptimizer).
 
 Layouts: conv kernels HWIO -> OIHW (a depthwise [3,3,1,C] becomes
 [C,1,3,3]); BatchNorm scale/bias/mean/var -> weight/bias/running_mean/
@@ -15,11 +23,12 @@ running_var, plus the num_batches_tracked buffer torch expects.
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, List, Mapping, Tuple
 
 import numpy as np
 import torch
 
+from s2r_tpu_torch.models.discriminator import NAMES as DISC_NAMES
 from s2r_tpu_torch.models.mobilenet import LOW_LEVEL_SPLIT, block_plan
 
 
@@ -42,48 +51,51 @@ def _bn(out: Dict, key: str, p: Mapping, s: Mapping) -> None:
     out[f"{key}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
 
 
-def _backbone(out: Dict, p: Mapping, s: Mapping, output_stride: int) -> None:
-    feats: Dict = {}
-    _conv(feats, "features.0.0", p["features_0_conv"])
-    _bn(feats, "features.0.1", p["features_0_bn"], s["features_0_bn"])
+def _layout(output_stride: int) -> List[Tuple[Tuple[str, ...], str, str]]:
+    """(JAX path, torch key, kind) of every conv and BatchNorm of DeepLab;
+    kind is 'conv', 'conv_bias' (a conv with a bias) or 'bn'."""
+    out = [(("backbone", "features_0_conv"), "backbone.features.0.0", "conv"),
+           (("backbone", "features_0_bn"), "backbone.features.0.1", "bn")]
     for i, (_, _, _, _, t) in enumerate(block_plan(output_stride)):
-        name, key = f"features_{i + 1}", f"features.{i + 1}.conv"
         subs = ("dw_conv", "dw_bn", None, "project_conv", "project_bn")
         if t != 1:
             subs = ("expand_conv", "expand_bn", None) + subs
         for j, sub in enumerate(subs):
-            if sub is None:  # ReLU6: no parameters
-                continue
-            if sub.endswith("_bn"):
-                _bn(feats, f"{key}.{j}", p[name][sub], s[name][sub])
-            else:
-                _conv(feats, f"{key}.{j}", p[name][sub])
-    for k, v in feats.items():
-        idx, rest = k[len("features."):].split(".", 1)
-        alias = ("low_level_features" if int(idx) <= LOW_LEVEL_SPLIT
-                 else "high_level_features")
-        out[f"backbone.{k}"] = v
-        out[f"backbone.{alias}.{idx}.{rest}"] = v
-
-
-def _aspp(out: Dict, p: Mapping, s: Mapping) -> None:
+            if sub is not None:  # None: ReLU6, no parameters
+                out.append((("backbone", f"features_{i + 1}", sub),
+                            f"backbone.features.{i + 1}.conv.{j}",
+                            "bn" if sub.endswith("_bn") else "conv"))
     for k in range(1, 5):
-        _conv(out, f"aspp.aspp{k}.atrous_conv", p[f"aspp{k}"]["atrous_conv"])
-        _bn(out, f"aspp.aspp{k}.bn", p[f"aspp{k}"]["bn"], s[f"aspp{k}"]["bn"])
-    _conv(out, "aspp.global_avg_pool.1", p["gap_conv"])
-    _bn(out, "aspp.global_avg_pool.2", p["gap_bn"], s["gap_bn"])
-    _conv(out, "aspp.conv1", p["conv1"])
-    _bn(out, "aspp.bn1", p["bn1"], s["bn1"])
+        out.append((("aspp", f"aspp{k}", "atrous_conv"),
+                    f"aspp.aspp{k}.atrous_conv", "conv"))
+        out.append((("aspp", f"aspp{k}", "bn"), f"aspp.aspp{k}.bn", "bn"))
+    out += [(("aspp", "gap_conv"), "aspp.global_avg_pool.1", "conv"),
+            (("aspp", "gap_bn"), "aspp.global_avg_pool.2", "bn"),
+            (("aspp", "conv1"), "aspp.conv1", "conv"),
+            (("aspp", "bn1"), "aspp.bn1", "bn"),
+            (("decoder", "conv1"), "decoder.conv1", "conv"),
+            (("decoder", "bn1"), "decoder.bn1", "bn"),
+            (("decoder", "last_conv_0"), "decoder.last_conv.0", "conv"),
+            (("decoder", "last_bn_0"), "decoder.last_conv.1", "bn"),
+            (("decoder", "last_conv_1"), "decoder.last_conv.4", "conv"),
+            (("decoder", "last_bn_1"), "decoder.last_conv.5", "bn"),
+            (("decoder", "classifier"), "decoder.last_conv.8", "conv_bias")]
+    return out
 
 
-def _decoder(out: Dict, p: Mapping, s: Mapping) -> None:
-    _conv(out, "decoder.conv1", p["conv1"])
-    _bn(out, "decoder.bn1", p["bn1"], s["bn1"])
-    _conv(out, "decoder.last_conv.0", p["last_conv_0"])
-    _bn(out, "decoder.last_conv.1", p["last_bn_0"], s["last_bn_0"])
-    _conv(out, "decoder.last_conv.4", p["last_conv_1"])
-    _bn(out, "decoder.last_conv.5", p["last_bn_1"], s["last_bn_1"])
-    _conv(out, "decoder.last_conv.8", p["classifier"])
+def _get(tree: Mapping, path: Tuple[str, ...]) -> Mapping:
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _alias(key: str) -> str:
+    """backbone.features.N.rest -> the same key under low_level_features
+    (N <= LOW_LEVEL_SPLIT) or high_level_features."""
+    idx, rest = key[len("backbone.features."):].split(".", 1)
+    alias = ("low_level_features" if int(idx) <= LOW_LEVEL_SPLIT
+             else "high_level_features")
+    return f"backbone.{alias}.{idx}.{rest}"
 
 
 def from_jax_variables(params: Mapping, batch_stats: Mapping,
@@ -91,7 +103,41 @@ def from_jax_variables(params: Mapping, batch_stats: Mapping,
     """{'backbone','aspp','decoder'} params and batch_stats (nested dicts of
     numpy arrays) -> float32 CPU state_dict in the reference schema."""
     out: Dict[str, torch.Tensor] = {}
-    _backbone(out, params["backbone"], batch_stats["backbone"], output_stride)
-    _aspp(out, params["aspp"], batch_stats["aspp"])
-    _decoder(out, params["decoder"], batch_stats["decoder"])
+    for path, key, kind in _layout(output_stride):
+        if kind == "bn":
+            _bn(out, key, _get(params, path), _get(batch_stats, path))
+        else:
+            _conv(out, key, _get(params, path))
+    for k in [k for k in out if k.startswith("backbone.features.")]:
+        out[_alias(k)] = out[k]
     return out
+
+
+def from_jax_discriminator(params: Mapping) -> Dict[str, torch.Tensor]:
+    """FCDiscriminator params {'conv1'..'conv4','classifier': {'kernel',
+    'bias'}} (numpy arrays) -> float32 CPU state_dict of
+    models.discriminator.FCDiscriminator."""
+    out: Dict[str, torch.Tensor] = {}
+    for name in DISC_NAMES:
+        _conv(out, name, params[name])
+    return out
+
+
+_LEAVES = {"conv": (("kernel", "weight"),),
+           "conv_bias": (("bias", "bias"), ("kernel", "weight")),
+           "bn": (("bias", "bias"), ("scale", "weight"))}
+
+
+def deeplab_param_order(output_stride: int = 16) -> List[str]:
+    """DeepLab's parameter names (the canonical ``backbone.features`` ones)
+    in the order jax.tree flattens the JAX params."""
+    leaves = [(path + (jname,), f"{key}.{tname}")
+              for path, key, kind in _layout(output_stride)
+              for jname, tname in _LEAVES[kind]]
+    return [k for _, k in sorted(leaves)]
+
+
+def discriminator_param_order() -> List[str]:
+    """The FCDiscriminator's parameter names in JAX flatten order."""
+    return [f"{name}.{tname}" for name in sorted(DISC_NAMES)
+            for _, tname in _LEAVES["conv_bias"]]

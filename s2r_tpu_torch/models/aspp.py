@@ -1,18 +1,20 @@
-"""Atrous Spatial Pyramid Pooling, eval forward (s2r_tpu/models/aspp.py).
+"""Atrous Spatial Pyramid Pooling (s2r_tpu/models/aspp.py).
 
 Four branches (1x1 and three 3x3 atrous convs, dilations 1/6/12/18 at output
 stride 16, 1/12/24/36 at 8), each conv -> BN -> ReLU; a global-average-pool
 branch (GAP -> 1x1 -> BN -> ReLU) broadcast back to the feature size (an
 align-corners resize from 1x1 is a broadcast); concat -> 1x1 to 256 -> BN ->
-ReLU.  Dropout is the identity in eval.
+ReLU -> Dropout(0.5), the identity in eval.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn as nn
 
-from s2r_tpu_torch.models.layers import BatchNorm, Conv2d, relu
+from s2r_tpu_torch.models.layers import BatchNorm, Conv2d, Dropout, relu
 
 _DILATIONS = {16: (1, 6, 12, 18), 8: (1, 12, 24, 36)}
 
@@ -45,13 +47,17 @@ class ASPP(nn.Module):
             BatchNorm(256), nn.ReLU())
         self.conv1 = Conv2d(1280, 256, 1)
         self.bn1 = BatchNorm(256)
+        self.dropout = Dropout(0.5)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x [N,320,h,w] -> [N,256,h,w]."""
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """x [N,320,h,w] -> [N,256,h,w]; `generator` draws the dropout
+        mask in train mode."""
         branches = [self.aspp1(x), self.aspp2(x), self.aspp3(x), self.aspp4(x)]
         gap = self.global_avg_pool
-        g = x.float().mean(dim=(2, 3), keepdim=True).to(x.dtype)
+        g = x.to(torch.promote_types(x.dtype, torch.float32)).mean(
+            dim=(2, 3), keepdim=True).to(x.dtype)
         g = relu(gap[2](gap[1](g)))
         branches.append(g.expand(-1, -1, x.shape[2], x.shape[3]))
         y = torch.cat(branches, dim=1)
-        return relu(self.bn1(self.conv1(y)))
+        return self.dropout(relu(self.bn1(self.conv1(y))), generator)

@@ -1,8 +1,14 @@
 """DeepLab-V3+ on MobileNetV2: backbone -> ASPP -> decoder -> upsample.
 
-The port of s2r_tpu/models/deeplab.py, eval forward, MobileNetV2 backbone.
+The port of s2r_tpu/models/deeplab.py, MobileNetV2 backbone, in eval and in
+train mode (``module.train()``: batch-statistics BatchNorm and dropout).
 Parameters live under ``backbone.``, ``aspp.`` and ``decoder.`` with the
-reference torch key names (io/convert.py fills them from JAX variables).
+reference torch key names (io/convert.py fills them from JAX variables);
+the 1x/10x learning-rate groups follow those prefixes (train/setup.py).
+
+``freeze_bn`` (deeplab.py:35-40) keeps every submodule in eval while the
+model trains, as the JAX package does by handing ``train and not
+freeze_bn`` to every layer: running-statistics BatchNorm and no dropout.
 """
 
 from __future__ import annotations
@@ -21,7 +27,7 @@ from s2r_tpu_torch.ops.resize import resize_bilinear_align_corners
 
 
 class DeepLab(nn.Module):
-    """Eval-mode DeepLab-V3+ (MobileNetV2, output stride 16 or 8).
+    """DeepLab-V3+ (MobileNetV2, output stride 16 or 8), built in eval mode.
 
     Weights are drawn from `generator` (seed 0 when None) on the CPU, then
     the module moves to `device` (``cuda`` when None; raises without a GPU).
@@ -32,12 +38,14 @@ class DeepLab(nn.Module):
     def __init__(self, num_classes: int = 19, output_stride: int = 16, *,
                  dtype: Union[str, torch.dtype] = torch.float32,
                  device: Optional[Union[str, torch.device]] = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 freeze_bn: bool = False):
         super().__init__()
         device = resolve_device(device)
         self.num_classes = num_classes
         self.output_stride = output_stride
         self.compute_dtype = resolve_dtype(dtype)
+        self.freeze_bn = bool(freeze_bn)
         self.backbone = MobileNetV2(output_stride)
         self.aspp = ASPP(output_stride)
         self.decoder = Decoder(num_classes)
@@ -51,21 +59,34 @@ class DeepLab(nn.Module):
     def device(self) -> torch.device:
         return self.decoder.conv1.weight.device
 
-    def taps(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    def train(self, mode: bool = True) -> "DeepLab":
+        """Train mode for every submodule, unless `freeze_bn` holds them in
+        eval; ``self.training`` follows `mode` either way."""
+        super().train(mode and not self.freeze_bn)
+        self.training = bool(mode)
+        return self
+
+    def taps(self, x: torch.Tensor,
+             generator: Optional[torch.Generator] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
         """x [N,3,H,W] -> (ASPP feature [N,256,H/os,W/os], low-level
         feature [N,24,H/4,W/4]) in the compute dtype."""
         high, low = self.backbone(x.to(self.compute_dtype))
-        return self.aspp(high), low
+        return self.aspp(high, generator), low
 
-    def forward(self, x: torch.Tensor, upsample_logits: bool = True
+    def forward(self, x: torch.Tensor, upsample_logits: bool = True,
+                generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """x [N,3,H,W] -> (logits, ASPP feature).  Logits are float32 at the
-        input's size, or decoder-resolution (stride 4) in the compute dtype
-        when `upsample_logits` is False."""
-        feat, low = self.taps(x)
-        logits = self.decoder(feat, low)
+        """x [N,3,H,W] -> (logits, ASPP feature).  Logits are float32 (float64
+        under 'f64') at the input's size, or decoder-resolution (stride 4)
+        in the compute dtype
+        when `upsample_logits` is False.  In train mode `generator` draws
+        the dropout masks."""
+        feat, low = self.taps(x, generator)
+        logits = self.decoder(feat, low, generator)
         if upsample_logits:
             logits = resize_bilinear_align_corners(
-                logits, x.shape[-2:],
-                dtype=torch.promote_types(x.dtype, torch.float32))
+                logits, x.shape[-2:], dtype=torch.promote_types(
+                    x.dtype, torch.promote_types(self.compute_dtype,
+                                                 torch.float32)))
         return logits, feat

@@ -1,4 +1,4 @@
-"""MobileNetV2 backbone with atrous depthwise-separable convs, eval forward.
+"""MobileNetV2 backbone with atrous depthwise-separable convs.
 
 The port of s2r_tpu/models/mobilenet.py.  Module names follow the reference
 torch schema (``features.N.conv.j``, with ``low_level_features`` and
@@ -6,10 +6,13 @@ torch schema (``features.N.conv.j``, with ``low_level_features`` and
 features[4:], as the reference does), so s2r_tpu/io/torch_export.py's keys
 load with ``strict=True``.
 
-The eval ring: the reference zero-pads each block's input by its dilation
+The ring: the reference zero-pads each block's input by its dilation
 before the expand 1x1 conv, so the depthwise conv's padding ring holds the
-ring's post-BN/ReLU6 value relu6(expand_bn shift), not zero.  It enters the
-depthwise conv through Conv2d's ``fill`` identity, never materialized.
+ring's post-BN/ReLU6 value relu6(expand_bn shift), not zero, and in train
+mode the expand BN's statistics count the ring's zeros.  Both are
+analytic, never materialized: the ring value enters the depthwise conv
+through Conv2d's ``fill`` identity, and BatchNorm(zero_pad_width=d) counts
+the ring (the JAX package's default pad_stats=True).
 """
 
 from __future__ import annotations
@@ -72,7 +75,7 @@ class InvertedResidual(nn.Module):
         hidden = int(round(in_ch * expand_ratio))
         self.use_res = stride == 1 and in_ch == out_ch
         self.expand = expand_ratio != 1
-        d = dilation
+        self.dilation = d = dilation
         layers = [Conv2d(in_ch, hidden, 1), BatchNorm(hidden), nn.ReLU6()] \
             if self.expand else []
         layers += [Conv2d(hidden, hidden, 3, stride=stride, padding=d,
@@ -85,7 +88,7 @@ class InvertedResidual(nn.Module):
         c = self.conv
         y, fill, i = x, None, 0
         if self.expand:
-            y, shift = c[1](c[0](y), ring=True)
+            y, shift = c[1](c[0](y), ring=True, zero_pad_width=self.dilation)
             fill = relu6(shift)
             y = relu6(y)
             i = 3
@@ -108,5 +111,11 @@ class MobileNetV2(nn.Module):
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """x [N,3,H,W] -> (high [N,320,H/os,W/os], low [N,24,H/4,W/4])."""
-        low = self.low_level_features(x)
-        return self.high_level_features(low), low
+        stem = self.features[0]
+        low = relu6(stem[1](stem[0](x)))
+        for block in self.features[1:LOW_LEVEL_SPLIT + 1]:
+            low = block(low)
+        high = low
+        for block in self.features[LOW_LEVEL_SPLIT + 1:]:
+            high = block(high)
+        return high, low

@@ -2,12 +2,13 @@
 
 Each source in ``s2r_tpu_torch/csrc/<name>.cu`` exposes a C interface (raw
 pointers, int64 sizes, a ``cudaStream_t``) and compiles on its own into
-``s2r_tpu_torch/_build/<name>-<hash>.so``, where the hash covers the source
-and the flags, so an edited source builds anew and an unchanged one is
-reused.  The build directory is the only place the package writes, and git
-ignores it.  Nothing here runs at import time: a kernel is built at its first
-use, or ahead of time by ``build_all``, which starts one nvcc per source at
-once.  A failed build raises.
+``s2r_tpu_torch/_build/<name>-<hash>.so``, where the hash covers the source,
+the shared headers (``csrc/*.cuh``) and the flags, so an edited source or
+header builds anew and an unchanged one is reused.  The build directory is
+the only place the package writes, and git ignores it.  Nothing here runs at
+import time: a kernel is built at its first use, or ahead of time by
+``build_all``, which starts one nvcc per source at once.  A failed build
+raises.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
-SOURCES = ("depthwise", "requant")
+SOURCES = ("depthwise", "requant", "batchnorm", "disc_conv")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -45,7 +46,9 @@ def nvcc_path() -> str:
 
 def _target(name: str) -> Path:
     src = (SRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    headers = b"".join(h.read_bytes() for h in sorted(SRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha256(src + headers
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 

@@ -15,6 +15,7 @@ multiply and the add as two rounded operations, so both agree bit for bit.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -40,7 +41,9 @@ def _fold(m, b, inv_a, device) -> tuple:
     return mf.contiguous(), bf.contiguous()
 
 
+@functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
+    """The kernel's library with its entries' types set, once."""
     lib = build.load("requant")
     lib.s2r_requant_s32_s8.argtypes = ([ctypes.c_void_p] * 4
                                        + [ctypes.c_int64] * 2

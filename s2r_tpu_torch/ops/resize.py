@@ -40,8 +40,12 @@ def _interp_matrix(in_size: int, out_size: int) -> np.ndarray:
 @functools.lru_cache(maxsize=64)
 def _matrix(in_size: int, out_size: int, dtype: torch.dtype,
             device: torch.device) -> torch.Tensor:
-    """_interp_matrix as a tensor, kept on the device between calls."""
-    return torch.from_numpy(_interp_matrix(in_size, out_size)).to(device, dtype)
+    """_interp_matrix as a tensor, kept on the device between calls.  Made
+    outside inference mode, so a training step can save it for backward
+    after a serving call filled the cache."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(_interp_matrix(in_size, out_size)).to(
+            device, dtype)
 
 
 def resize_bilinear_align_corners(x: torch.Tensor, out_hw,

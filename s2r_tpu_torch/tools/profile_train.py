@@ -1,0 +1,88 @@
+"""Where an output-space adaptation train step's device time goes, by
+kernel, on one GPU.
+
+    python -m s2r_tpu_torch.tools.profile_train [--batch 8] [--height 512]
+        [--width 1024] [--dtype bf16] [--steps 3] [--rows 30]
+
+Builds the step with s2r_tpu_torch.train.setup.build_method (DeepLab-V3+
+MobileNetV2 os 16 and the FCDiscriminator, seeded weights, the bench.py
+train configuration), and after two warm-up steps profiles `steps` steps
+with torch.profiler.  Prints the wall time per step (host clock around
+synchronized steps), the summed device time of all kernels, the device's
+idle share (1 - device / wall), the hand-written kernels' share, and the
+kernels that take the most device time.
+"""
+
+from __future__ import annotations
+
+import argparse
+import subprocess
+import time
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from s2r_tpu_torch.config import Config
+from s2r_tpu_torch.train.setup import build_method
+
+# Substrings of the hand-written kernels' names (s2r_tpu_torch/csrc).
+OWN_KERNELS = ("dw3x3", "pair_sums", "disc_conv1", "requant")
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--height", type=int, default=512)
+    ap.add_argument("--width", type=int, default=1024)
+    ap.add_argument("--dtype", default="bf16")
+    ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--rows", type=int, default=30)
+    a = ap.parse_args()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True).stdout.strip()
+    print(f"[card] {smi}; torch {torch.__version__}")
+    cfg = Config(precision=a.dtype)
+    method = build_method(cfg, iters_per_epoch=1000,
+                          generator=torch.Generator().manual_seed(0))
+    state = method.init_state()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    hw = (a.height, a.width)
+    batch = {"src_image": torch.randn((a.batch,) + hw + (3,), device="cuda",
+                                      generator=gen),
+             "src_label": torch.randint(0, cfg.num_classes, (a.batch,) + hw,
+                                        device="cuda", generator=gen),
+             "tgt_image": torch.randn((a.batch,) + hw + (3,), device="cuda",
+                                      generator=gen)}
+    print(f"[setup] {a.height}x{a.width} batch {a.batch}, {a.dtype}")
+    for _ in range(2):
+        state, _ = method.step_fn(state, batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(a.steps):
+            state, _ = method.step_fn(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0) / a.steps
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        print(f"[train] wall {wall_ms:.3f} ms/step; the profiler saw no "
+              "device events")
+        return
+    dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / a.steps
+    own_ms = sum(e.self_device_time_total for e in kernels
+                 if any(s in e.key for s in OWN_KERNELS)) / 1e3 / a.steps
+    print(f"[train] wall {wall_ms:.3f} ms/step, device {dev_ms:.3f} ms/step, "
+          f"idle share {max(0.0, 1 - dev_ms / wall_ms):.3f}, hand-written "
+          f"kernels {own_ms:.3f} ms ({100 * own_ms / dev_ms:.1f}%)")
+    kernels.sort(key=lambda e: -e.self_device_time_total)
+    for e in kernels[:a.rows]:
+        ms = e.self_device_time_total / 1e3 / a.steps
+        print(f"[train] {ms:9.3f} ms {100 * ms / dev_ms:5.1f}% "
+              f"x{e.count // a.steps:<5d} {e.key[:110]}")
+
+
+if __name__ == "__main__":
+    main()

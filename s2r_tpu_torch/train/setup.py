@@ -1,0 +1,80 @@
+"""Method assembly (s2r_tpu/train/setup.py:93-118): models, optimizers, the
+initial TrainState and the step function of a training method.
+
+Only the output-space adaptation method on MobileNetV2 is ported;
+'feature_adapt' and 'source_only' raise NotImplementedError.  Weights are drawn at build time
+from `generator` (seeded with ``cfg.seed`` when None) on the CPU, and the
+models then move to `device` (``cuda`` when None).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional, Union
+
+import torch
+
+from s2r_tpu_torch.config import Config
+from s2r_tpu_torch.core.device import resolve_device
+from s2r_tpu_torch.models.deeplab import DeepLab
+from s2r_tpu_torch.models.discriminator import FCDiscriminator
+from s2r_tpu_torch.train.losses import build_seg_loss
+from s2r_tpu_torch.train.lr_schedule import make_lr_schedule
+from s2r_tpu_torch.train.optim import SGD, Adam, FusedOptimizer
+from s2r_tpu_torch.train.state import TrainState
+from s2r_tpu_torch.train.steps import (discriminator_params,
+                                       make_output_adapt_step,
+                                       segmenter_params)
+
+
+@dataclasses.dataclass
+class Method:
+    """A wired training method."""
+    name: str
+    deeplab: DeepLab
+    step_fn: Callable          # (TrainState, batch) -> (TrainState, metrics)
+    init_state: Callable       # () -> TrainState
+    aux_model: Optional[torch.nn.Module] = None  # the discriminator
+
+
+def build_method(cfg: Config, iters_per_epoch: int,
+                 class_weights: Optional[torch.Tensor] = None,
+                 method: str = "output_adapt",
+                 device: Optional[Union[str, torch.device]] = None,
+                 generator: Optional[torch.Generator] = None) -> Method:
+    if method != "output_adapt":
+        raise NotImplementedError(f"method {method!r}: only 'output_adapt' "
+                                  "is ported")
+    device = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator().manual_seed(cfg.seed)
+    deeplab = DeepLab(num_classes=cfg.num_classes,
+                      output_stride=cfg.out_stride, dtype=cfg.precision,
+                      device=device, generator=generator,
+                      freeze_bn=cfg.freeze_bn)
+    discr = FCDiscriminator(num_classes=cfg.num_classes, dtype=cfg.precision,
+                            device=device, generator=generator)
+    seg_loss_fn = build_seg_loss(cfg.loss_type, class_weights)
+    lr_fn = make_lr_schedule(cfg.lr_scheduler, cfg.lr, cfg.epochs,
+                             iters_per_epoch, cfg.lr_step, cfg.warmup_epochs)
+    # train_adapt.py:58-60: G = SGD(momentum, wd, nesterov), D = Adam with
+    # betas (0.9, 0.99); the shared scheduler sets both rates.
+    g_opt = SGD(momentum=cfg.momentum, weight_decay=cfg.weight_decay,
+                nesterov=cfg.nesterov)
+    d_opt = Adam(b1=0.9, b2=0.99)
+    step_fn = make_output_adapt_step(deeplab, discr, g_opt, d_opt, lr_fn,
+                                     seg_loss_fn, cfg.adv_softmax_axis)
+
+    def init_state() -> TrainState:
+        """Step 0, zero optimizer state over the models' current weights,
+        and a dropout generator on their device seeded with cfg.seed."""
+        g_params, _ = segmenter_params(deeplab)
+        d_params = discriminator_params(discr)
+        return TrainState(
+            step=0, G=deeplab, D=discr,
+            opt_state={"G": FusedOptimizer(g_opt, g_params).init(g_params),
+                       "D": FusedOptimizer(d_opt, d_params).init(d_params)},
+            generator=torch.Generator(device=device).manual_seed(cfg.seed))
+
+    return Method("output_adapt", deeplab, step_fn, init_state,
+                  aux_model=discr)

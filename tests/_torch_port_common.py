@@ -6,6 +6,8 @@ from a numpy seed (mean != 0, var != 1), and the port's DeepLab on the CPU
 holding the same weights.  Inputs are made with numpy and handed to both.
 """
 
+import contextlib
+
 import numpy as np
 
 import jax
@@ -61,3 +63,119 @@ def port_deeplab(params, stats, dtype=torch.float32) -> DeepLab:
 def images(n: int = 2, hw: int = HW, seed: int = 0) -> np.ndarray:
     """Normalized-looking float32 NHWC images."""
     return np.random.RandomState(seed).randn(n, hw, hw, 3).astype(np.float32)
+
+
+@contextlib.contextmanager
+def torch_threads():
+    """Run torch's CPU ops on 2 threads: the test runner puts several test
+    files on one machine at once, and torch's default of one thread per
+    core in each of them makes the heavy step fixtures crawl (9 minutes
+    instead of one)."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(old)
+
+
+def step_batches(steps: int, hw: int, batch: int, seed: int = 7):
+    """`steps` numpy train batches: NHWC float32 source and target images
+    and [N,H,W] int32 source labels with the top rows ignored (255)."""
+    rs = np.random.RandomState(seed)
+    out = []
+    for _ in range(steps):
+        lbl = rs.randint(0, 19, (batch, hw, hw)).astype(np.int32)
+        lbl[:, :4] = 255
+        out.append({"src_image": rs.randn(batch, hw, hw, 3).astype(np.float32),
+                    "src_label": lbl,
+                    "tgt_image": rs.randn(batch, hw, hw, 3).astype(np.float32)})
+    return out
+
+
+def perturb_affine(tree, seed: int = 2):
+    """Copy of a params tree with every BatchNorm scale ~ U(0.5, 1.5) and
+    every bias ~ N(0, 0.1).  At the initial scale 1 and bias 0 each block's
+    input has a batch mean of exactly 0, so every expand BatchNorm's shift
+    is 0 in exact arithmetic and fill = relu6(shift) sits on the kink:
+    the gradient of those channels is then decided by the sign of rounding
+    error, in either framework.  Away from that point the step is smooth."""
+    rs = np.random.RandomState(seed)
+
+    def walk(d):
+        out = {}
+        for k in sorted(d):
+            v = d[k]
+            if isinstance(v, dict):
+                out[k] = walk(v)
+            elif k == "scale":
+                out[k] = rs.uniform(0.5, 1.5, v.shape).astype(np.float32)
+            elif k == "bias":
+                out[k] = (rs.randn(*v.shape) * 0.1).astype(np.float32)
+            else:
+                out[k] = v
+        return out
+
+    return walk(tree)
+
+
+def flat_to_port(flat, tree, convert, order):
+    """A JAX FusedOptimizer buffer (float32, leaves in jax.tree order, each
+    in JAX's layout) -> the port's flat buffer (the same leaf order, each
+    leaf in the port's layout: conv kernels HWIO -> OIHW).  `tree` gives
+    the leaves' shapes, `convert` maps a tree of them to a state_dict, and
+    `order` lists the state_dict's keys in flatten order."""
+    leaves, treedef = jax.tree_util.tree_flatten(tree)
+    sizes = np.cumsum([np.asarray(leaf).size for leaf in leaves])[:-1]
+    parts = np.split(np.asarray(flat, np.float32), sizes)
+    sd = convert(jax.tree_util.tree_unflatten(
+        treedef, [q.reshape(np.shape(leaf)) for q, leaf in zip(parts, leaves)]))
+    return torch.cat([sd[k].reshape(-1) for k in order])
+
+
+def port_step_from_jax(params, stats, opt_state, step: int, batch,
+                       precision: str):
+    """One step of the port's output_adapt method started from a JAX
+    TrainState's contents (numpy trees: params {'G','D'}, batch_stats,
+    opt_state {'G': {'momentum'}, 'D': {'m','v','count'}}, step), dropout
+    off, on the CPU.  Returns (metrics as floats, G state_dict, D
+    state_dict, opt_state), tensors as float64 copies."""
+    from s2r_tpu_torch.config import Config
+    from s2r_tpu_torch.io.convert import (deeplab_param_order,
+                                          discriminator_param_order,
+                                          from_jax_discriminator)
+    from s2r_tpu_torch.models.layers import set_dropout
+    from s2r_tpu_torch.train.setup import build_method
+
+    pm = build_method(Config(precision=precision), iters_per_epoch=10,
+                      device="cpu")
+    pm.deeplab.load_state_dict(from_jax_variables(params["G"], stats),
+                               strict=True)
+    pm.aux_model.load_state_dict(from_jax_discriminator(params["D"]),
+                                 strict=True)
+    set_dropout(pm.deeplab, False)
+
+    def g_buf(flat):
+        return flat_to_port(flat, params["G"],
+                            lambda t: from_jax_variables(t, stats),
+                            deeplab_param_order())
+
+    def d_buf(flat):
+        return flat_to_port(flat, params["D"], from_jax_discriminator,
+                            discriminator_param_order())
+
+    state = pm.init_state()
+    state.step = int(step)
+    state.opt_state = {
+        "G": {"momentum": g_buf(opt_state["G"]["momentum"])},
+        "D": {"m": d_buf(opt_state["D"]["m"]), "v": d_buf(opt_state["D"]["v"]),
+              "count": int(opt_state["D"]["count"])}}
+    state, met = pm.step_fn(state, batch)
+    return ({k: float(v) for k, v in met.items()},
+            {k: v.detach().double().clone()
+             for k, v in pm.deeplab.state_dict().items()},
+            {k: v.detach().double().clone()
+             for k, v in pm.aux_model.state_dict().items()},
+            {net: {k: v.double().clone() if torch.is_tensor(v) else v
+                   for k, v in s.items()}
+             for net, s in state.opt_state.items()})

@@ -48,7 +48,12 @@ def test_port_imports_no_jax_flax_or_jax_package():
     for mod in ("s2r_tpu_torch.ops.kernels.depthwise",
                 "s2r_tpu_torch.ops.kernels.requant",
                 "s2r_tpu_torch.io.serving", "s2r_tpu_torch.io.quant",
-                "s2r_tpu_torch.io.convert", "s2r_tpu_torch.models.deeplab"):
+                "s2r_tpu_torch.io.convert", "s2r_tpu_torch.models.deeplab",
+                "s2r_tpu_torch.ops.kernels.batchnorm",
+                "s2r_tpu_torch.ops.kernels.disc_conv",
+                "s2r_tpu_torch.models.discriminator",
+                "s2r_tpu_torch.train.steps", "s2r_tpu_torch.train.setup",
+                "s2r_tpu_torch.tools.profile_train"):
         assert mod in result["modules"]
     leaked = [m for m in FORBIDDEN if m in result["loaded"]]
     assert not leaked, leaked

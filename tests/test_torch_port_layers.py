@@ -85,7 +85,7 @@ def test_eval_batchnorm_and_ring_match_jax():
     want_y, want_ring = JaxBatchNorm().apply(
         {"params": p, "batch_stats": s}, jnp.asarray(x), True,
         zero_pad_width=2)
-    bn = BatchNorm(c)
+    bn = BatchNorm(c).eval()  # a new torch module starts in train mode
     state = {}
     convert._bn(state, "bn", p, s)
     bn.load_state_dict({k[3:]: v for k, v in state.items()})
@@ -126,7 +126,7 @@ def test_inverted_residual_matches_jax(in_ch, out_ch, stride, dilation, t):
             convert._bn(state, f"conv.{j}", params[sub], stats[sub])
         else:
             convert._conv(state, f"conv.{j}", params[sub])
-    block = InvertedResidual(in_ch, out_ch, stride, dilation, t)
+    block = InvertedResidual(in_ch, out_ch, stride, dilation, t).eval()
     block.load_state_dict(state, strict=True)
     with torch.no_grad():
         got = block(_nchw(x))
