@@ -14,13 +14,21 @@ Phases, each of which must pass:
    function (library_ms, a yardstick only).  Tolerances: depthwise
    forward and dx float32 max|diff| <= 1e-5 * max(1, max|ref|), bfloat16
    |diff| <= 1e-2 * max(1, |ref|) elementwise; depthwise dk max|diff| <=
-   1e-4 * max|ref| (a reduction over ~1e7 terms in another order);
-   pair_sums float32 1e-5 * max|ref|, bfloat16 inputs 1e-4 * max|ref|;
-   disc_conv1 as the depthwise forward; requant bit-exact; pair_sums and
-   dk, which fold in a fixed order, bit-identical on a repeated call.
+   1e-4 * max|ref| (a reduction over ~1e7 terms in another order); the
+   four BatchNorm entries (statistics with the running statistics, y, the
+   backward sums, dx; phase 2d) max|diff| <= 1e-5 (float32) and 1e-4
+   (bfloat16) of max|ref| for each per-channel row and each output, and
+   the whole composite timed against native_batch_norm + its backward;
+   disc_conv1 (bfloat16 on the tensor cores, float32 on the CUDA cores) as
+   the depthwise forward; requant bit-exact; the BatchNorm entries and dk,
+   which fold in a fixed order, bit-identical on a repeated call.
    bound_ms is the larger of the bytes over 3.35 TB/s and the flops over
-   the published peak for the operand type (bfloat16 989 TFLOP/s on the
-   tensor cores, float32 67 TFLOP/s).
+   the published peak for the operands' arithmetic (bfloat16 989 TFLOP/s
+   on the tensor cores, float32 67 TFLOP/s).  Phase 2f runs each kernel
+   that indexed in 32 bits on one input of more than 2^31 elements (the
+   depthwise forward and requant split the batch, dk and disc_conv1 index
+   in 64 bits) and compares the batch items at each side of the split and
+   the last with the plain version.
 3. Serve DeepLab-V3+ MobileNetV2 (output stride 16, 19 classes, full width,
    weights from a seeded torch.Generator, BatchNorm statistics perturbed):
    batch-1 513x513 float32 logits against the same model on the CPU through
@@ -47,7 +55,7 @@ Phases, each of which must pass:
    JAX package's leaf by leaf).  (b) 512x1024 batch 8 bfloat16, the
    bench.py train configuration: 2 warm-up and 5 timed steps
    (CUDA events), ms/step, source images/s and peak memory, finite losses,
-   and the launch counts of one step.
+   and the launch counts of one step, with the BatchNorm layout copies.
 5. Print the kernels line, the card's name and power limit, and as the last
    line {"ok": true, "device": {...}}.
 
@@ -56,6 +64,7 @@ non-zero and prints no result.  Float32 convs run with TF32 off.  It writes
 only the kernel build directory.
 """
 
+import functools
 import json
 import os
 import statistics
@@ -406,9 +415,9 @@ def serve_full(counted):
     torch.cuda.synchronize()
     launches = {fn.__name__: fn.launches for fn in counted}
     log(f"[serve 2048x1024] launches in one exact + one int8 call: {launches}")
-    require(launches == {"depthwise_conv3x3": 28, "requant_s32_to_s8": 1,
-                         "depthwise_dk": 0, "pair_sums": 0, "disc_conv1": 0},
-            f"unexpected launch counts {launches}")
+    want = dict.fromkeys(launches, 0)
+    want.update(depthwise_conv3x3=28, requant_s32_to_s8=1)
+    require(launches == want, f"unexpected launch counts {launches}")
     return ms, launches
 
 
@@ -537,120 +546,260 @@ def bn_input_shapes():
     return shapes
 
 
-def check_pair_sums(bn):
-    """Phase 2d: pair_sums at every train-mode BatchNorm input shape of one
-    512x1024 batch-8 forward, bf16, and float32 at three of them; forward
-    statistics pair_sums(x, x) and backward sums pair_sums(g, x).  Returns
-    the entry for one train step: 60 BNs x (src, tgt) x (fwd, bwd) = 240
-    launches."""
+def bn_rel(got, ref):
+    """max|got - ref| / max|ref| per row of [rows, C] results, in float64."""
+    got, ref = got.double(), ref.double()
+    return [float((g - r).abs().max() / r.abs().max().clamp(min=1e-30))
+            for g, r in zip(got.reshape(len(got), -1), ref.reshape(len(ref), -1))]
+
+
+def check_batchnorm(bn):
+    """Phase 2d: the four BatchNorm entries at every train-mode BatchNorm
+    input shape of one 512x1024 batch-8 forward, bfloat16 and float32: the
+    statistics (with the running statistics), y, the backward sums (with a
+    cotangent of shift) and dx, each against its plain version on the same
+    inputs, and each bit-identical on a repeated call.  Times (bf16): each
+    entry, its plain version and its one-call PyTorch counterpart; the
+    composite (all four, as one BatchNorm's forward and backward) against
+    native_batch_norm + native_batch_norm_backward.  Returns the four
+    entries for one train step (60 BNs x (src, tgt) = 120 calls each) and
+    the composite's row."""
     from collections import Counter
 
     shapes = bn_input_shapes()
     require(len(shapes) == 60, f"expected 60 BatchNorms, got {len(shapes)}")
     counts = Counter(shapes)
     gen = torch.Generator(device=DEV).manual_seed(SEED + 4)
-    totals = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    names = ("batch_norm_stats", "batch_norm_apply", "batch_norm_grad_sums",
+             "batch_norm_dx")
+    totals = {k: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                  "bound_ms": 0.0, "max_abs_err": 0.0} for k in names}
+    comp = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    sums_lib = 0.0
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
-    max_abs = 0.0
-    by_ops = False
-    log("[pair_sums] N C H W dtype x count: rel err fwd, bwd | fwd kernel "
-        "plain library bound | bwd kernel plain library bound (ms)")
-    for i, ((c, h, w), mult) in enumerate(sorted(counts.items())):
-        dtypes = (torch.bfloat16, torch.float32) if i < 3 else (torch.bfloat16,)
-        for dtype in dtypes:
-            m = BATCH * h * w
-            x = randn((m, c), dtype, gen)
-            g = randn((m, c), dtype, gen)
+    eps, mom = 1e-5, 0.1
+    log("[batchnorm] N C H W x count: worst rel err f32, bf16 | bf16 ms "
+        "kernel/plain/library: stats, apply, grad_sums, dx | composite "
+        "kernel plain native bound")
+    for (c, h, w), mult in sorted(counts.items()):
+        errs = {}
+        for dtype in (torch.float32, torch.bfloat16):
             tol = 1e-5 if dtype == torch.float32 else 1e-4
-            errs = []
-            for a, b in ((x, x), (g, x)):
-                got = bn.pair_sums(a, b)
-                ref = bn.pair_sums_plain(a, b)
-                again = bn.pair_sums(a, b)
-                torch.cuda.synchronize()
-                require(all(torch.equal(u, v) for u, v in zip(got, again)),
-                        f"pair_sums {(m, c)} {dtype}: a repeated call differs")
-                for gt, rf in zip(got, ref):
-                    errs.append(rel_err(gt, rf))
-                    max_abs = max(max_abs, float((gt - rf).abs().max()))
-            err_f, err_b = max(errs[:2]), max(errs[2:])
-            require(max(errs) <= tol, f"pair_sums {(m, c)} {dtype}: rel errs "
-                    f"{errs} > {tol}")
-            worst[dtype] = max(worst[dtype], max(errs))
-            x4 = x.view(BATCH, h, w, c).permute(0, 3, 1, 2)
-            g4 = g.view(BATCH, h, w, c).permute(0, 3, 1, 2)
-            mean = torch.zeros(c, device=DEV)
-            invstd = torch.ones(c, device=DEV)
-            weight = torch.ones(c, device=DEV)
-            t = [cuda_ms(lambda: bn.pair_sums(x, x)),
-                 cuda_ms(lambda: bn.pair_sums_plain(x, x)),
-                 cuda_ms(lambda: torch.batch_norm_stats(x4, 1e-5)),
-                 cuda_ms(lambda: bn.pair_sums(g, x)),
-                 cuda_ms(lambda: bn.pair_sums_plain(g, x)),
-                 cuda_ms(lambda: torch.batch_norm_backward_reduce(
-                     g4, x4, mean, invstd, weight, True, False, False))]
+            x4 = randn((BATCH, h, w, c), dtype, gen).permute(0, 3, 1, 2)
+            g4 = randn((BATCH, h, w, c), dtype, gen).permute(0, 3, 1, 2)
+            x = x4.permute(0, 2, 3, 1).reshape(-1, c)
+            g = g4.permute(0, 2, 3, 1).reshape(-1, c)
+            weight = 1 + 0.1 * torch.randn(c, device=DEV, generator=gen)
+            bias = 0.1 * torch.randn(c, device=DEV, generator=gen)
+            gshift = torch.randn(c, device=DEV, generator=gen)
+            rm0 = 0.1 * torch.randn(c, device=DEV, generator=gen)
+            rv0 = 0.5 + torch.rand(c, device=DEV, generator=gen)
+            count = BATCH * (h + 2) * (w + 2)   # the ring's count
+            rm, rv = rm0.clone(), rv0.clone()
+            rm_p, rv_p = rm0.clone(), rv0.clone()
+            st = bn.batch_norm_stats(x, weight, bias, count, eps, rm, rv, mom)
+            st_p = bn.batch_norm_stats_plain(x, weight, bias, count, eps,
+                                             rm_p, rv_p, mom)
+            inv, shift = st[bn.INV], st[bn.SHIFT]
+            gr = bn.batch_norm_grad_sums(g, x, st, gshift, count)
+            coef = (gr[bn.COEF_B], gr[bn.COEF_C0])
+            # each entry's inputs; the plain versions get the kernels'
+            # statistics, so each kernel is held against its own function
+            args = {"batch_norm_stats": (x, weight, bias, count, eps, rm, rv,
+                                         mom),
+                    "batch_norm_apply": (x, inv, shift),
+                    "batch_norm_grad_sums": (g, x, st, gshift, count),
+                    "batch_norm_dx": (g, x, inv, *coef)}
+            y = bn.batch_norm_apply(*args["batch_norm_apply"])
+            y_p = bn.batch_norm_apply_plain(*args["batch_norm_apply"])
+            gr_p = bn.batch_norm_grad_sums_plain(*args["batch_norm_grad_sums"])
+            dx = bn.batch_norm_dx(*args["batch_norm_dx"])
+            dx_p = bn.batch_norm_dx_plain(*args["batch_norm_dx"])
+            again = (bn.batch_norm_stats(x, weight, bias, count, eps),
+                     bn.batch_norm_apply(*args["batch_norm_apply"]),
+                     bn.batch_norm_grad_sums(*args["batch_norm_grad_sums"]),
+                     bn.batch_norm_dx(*args["batch_norm_dx"]))
+            torch.cuda.synchronize()
+            require(all(torch.equal(u, v) for u, v in
+                        zip(again, (st, y, gr, dx))),
+                    f"batchnorm {(BATCH, c, h, w)} {dtype}: a repeated call "
+                    "differs")
+            require(y.dtype == dx.dtype == dtype
+                    and st.dtype == gr.dtype == torch.float32,
+                    f"batchnorm {(BATCH, c, h, w)} {dtype}: output types")
+            e = {"stats": max(bn_rel(st, st_p)),
+                 "running": max(bn_rel(torch.stack([rm, rv]),
+                                       torch.stack([rm_p, rv_p]))),
+                 "apply": max(bn_rel(y.view(1, -1), y_p.view(1, -1))),
+                 "grad_sums": max(bn_rel(gr, gr_p)),
+                 "dx": max(bn_rel(dx.view(1, -1), dx_p.view(1, -1)))}
+            require(max(e.values()) <= tol, f"batchnorm {(BATCH, c, h, w)} "
+                    f"{dtype}: rel errs {e} > {tol}")
+            errs[dtype] = max(e.values())
+            worst[dtype] = max(worst[dtype], errs[dtype])
+            if dtype != torch.bfloat16:
+                del x4, g4, x, g, y, y_p, dx, dx_p, again, args
+                continue
+            abs_err = dict(zip(names, (
+                float((u.float() - v.float()).abs().max())
+                for u, v in ((st, st_p), (y, y_p), (gr, gr_p), (dx, dx_p)))))
+            mean, invstd = st[bn.MEAN], st[bn.RSTD]
+            cnt = torch.full((1,), count, dtype=torch.int32, device=DEV)
+            library = {
+                "batch_norm_stats": lambda: torch.batch_norm_stats(x4, eps),
+                "batch_norm_apply": lambda: torch.batch_norm_elemt(
+                    x4, weight, bias, mean, invstd, eps),
+                "batch_norm_grad_sums":
+                    lambda: torch.batch_norm_backward_reduce(
+                        g4, x4, mean, invstd, weight, True, True, True),
+                "batch_norm_dx": lambda: torch.batch_norm_backward_elemt(
+                    g4, x4, mean, invstd, weight, gr[bn.SUM_G],
+                    gr[bn.SUM_GX], cnt)}
+            t = {name: (functools.partial(getattr(bn, name), *args[name]),
+                        functools.partial(getattr(bn, name + "_plain"),
+                                          *args[name]),
+                        library[name]) for name in names}
             isz = x.element_size()
-            bf, byf = bound_ms(m * c * isz + 8 * c, 3 * m * c, dtype)
-            bb, byb = bound_ms(2 * m * c * isz + 8 * c, 3 * m * c, dtype)
-            by_ops |= "operations" in (byf, byb)
-            log(f"[pair_sums] {BATCH} {c} {h} {w} {str(dtype)[6:]} x{mult}: "
-                f"{err_f:.3g}, {err_b:.3g} | {t[0]:.4f} {t[1]:.4f} "
-                f"{t[2]:.4f} {bf:.4f} | {t[3]:.4f} {t[4]:.4f} {t[5]:.4f} "
-                f"{bb:.4f}")
-            if dtype == torch.bfloat16:
-                k = 2 * mult  # src and tgt
-                totals["ms"] += k * (t[0] + t[3])
-                totals["plain_ms"] += k * (t[1] + t[4])
-                totals["library_ms"] += k * (t[2] + t[5])
-                totals["bound_ms"] += k * (bf + bb)
-            del x, g, x4, g4
-    entry = {"name": "pair_sums", "route": "cuda",
-             "source": "s2r_tpu_torch/csrc/batchnorm.cu",
-             "replaces": "s2r_tpu/ops/pallas/batchnorm.py:77",
-             "launches": None, "max_abs_err": max_abs, **totals,
-             "bound_by": "operations" if by_ops else "bytes",
-             "ms_covers": "one 512x1024 batch-8 bf16 train step: 60 "
-                          "BatchNorms x (src, tgt) x (stats, backward sums) "
-                          "= 240 launches"}
-    log(f"[pair_sums] all checks passed; worst rel err f32 "
+            mc = x.numel()
+            # bytes (each input read once, each output written once) and
+            # flops of each entry; per-channel vectors are float32
+            work = {"batch_norm_stats": (mc * isz + 4 * 4 * c + 9 * 4 * c,
+                                         3 * mc),
+                    "batch_norm_apply": (2 * mc * isz + 8 * c, 2 * mc),
+                    "batch_norm_grad_sums": (2 * mc * isz + 40 * c, 3 * mc),
+                    "batch_norm_dx": (3 * mc * isz + 12 * c, 4 * mc)}
+            row = []
+            k = 2 * mult  # src and tgt
+            for name, fns in t.items():
+                ms = [cuda_ms(f) for f in fns]
+                # float32 math on the CUDA cores: the float32 peak
+                bnd, _ = bound_ms(*work[name], torch.float32)
+                tot = totals[name]
+                tot["ms"] += k * ms[0]
+                tot["plain_ms"] += k * ms[1]
+                tot["library_ms"] += k * ms[2]
+                tot["bound_ms"] += k * bnd
+                tot["max_abs_err"] = max(tot["max_abs_err"], abs_err[name])
+                row.append("/".join(f"{v:.4f}" for v in ms))
+            sums_lib += k * (cuda_ms(library["batch_norm_stats"])
+                             + cuda_ms(lambda: torch.batch_norm_backward_reduce(
+                                 g4, x4, mean, invstd, weight, True, False,
+                                 False)))
+
+            def composite(stats, apply, grad_sums, dxf, rm_, rv_):
+                s_ = stats(x, weight, bias, count, eps, rm_, rv_, mom)
+                apply(x, s_[bn.INV], s_[bn.SHIFT])
+                r_ = grad_sums(g, x, s_, gshift, count)
+                dxf(g, x, s_[bn.INV], r_[bn.COEF_B], r_[bn.COEF_C0])
+
+            def native():
+                out = torch.ops.aten.native_batch_norm(
+                    x4, weight, bias, rm_p, rv_p, True, mom, eps)
+                torch.ops.aten.native_batch_norm_backward(
+                    g4, x4, weight, rm_p, rv_p, out[1], out[2], True, eps,
+                    [True, True, True])
+
+            cm = [cuda_ms(lambda: composite(
+                      bn.batch_norm_stats, bn.batch_norm_apply,
+                      bn.batch_norm_grad_sums, bn.batch_norm_dx, rm, rv)),
+                  cuda_ms(lambda: composite(
+                      bn.batch_norm_stats_plain, bn.batch_norm_apply_plain,
+                      bn.batch_norm_grad_sums_plain, bn.batch_norm_dx_plain,
+                      rm_p, rv_p)),
+                  cuda_ms(native)]
+            # x and g read once, y and dx written once
+            cb, _ = bound_ms(4 * mc * isz + 56 * c, 12 * mc, torch.float32)
+            for key, v in zip(("ms", "plain_ms", "library_ms"), cm):
+                comp[key] += k * v
+            comp["bound_ms"] += k * cb
+            log(f"[batchnorm] {BATCH} {c} {h} {w} x{mult}: "
+                f"{errs[torch.float32]:.3g}, {errs[torch.bfloat16]:.3g} | "
+                f"{' '.join(row)} | {cm[0]:.4f} {cm[1]:.4f} {cm[2]:.4f} "
+                f"{cb:.4f}")
+            del x4, g4, x, g, y, y_p, dx, dx_p, again, args, t, library
+    entries = []
+    for name in names:
+        tot = totals[name]
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "s2r_tpu_torch/csrc/batchnorm.cu",
+            "replaces": ("s2r_tpu/ops/pallas/batchnorm.py:77"
+                         if name in ("batch_norm_stats", "batch_norm_grad_sums")
+                         else "s2r_tpu/ops/pallas/batchnorm.py:111"),
+            "launches": None, "max_abs_err": tot["max_abs_err"],
+            "ms": tot["ms"], "plain_ms": tot["plain_ms"],
+            "bound_ms": tot["bound_ms"], "bound_by": "bytes",
+            "library_ms": tot["library_ms"],
+            "ms_covers": "one 512x1024 batch-8 bf16 train step: 60 "
+                         "BatchNorms x (src, tgt) = 120 calls"})
+    composite_row = dict(comp, sums_ms=totals["batch_norm_stats"]["ms"]
+                         + totals["batch_norm_grad_sums"]["ms"],
+                         sums_library_ms=sums_lib)
+    log(f"[batchnorm] all checks passed; worst rel err f32 "
         f"{worst[torch.float32]:.3g}, bf16 {worst[torch.bfloat16]:.3g}; one "
-        f"train step (240 launches): kernel {entry['ms']:.3f} ms, plain "
-        f"{entry['plain_ms']:.3f}, batch_norm_stats/backward_reduce "
-        f"{entry['library_ms']:.3f}, bound {entry['bound_ms']:.3f}")
-    return entry
+        f"train step (bf16, 120 BatchNorm calls): sums (stats + grad_sums) "
+        f"{composite_row['sums_ms']:.3f} ms against batch_norm_stats + "
+        f"backward_reduce {sums_lib:.3f}; composite {comp['ms']:.3f} ms, "
+        f"plain {comp['plain_ms']:.3f}, native_batch_norm + backward "
+        f"{comp['library_ms']:.3f}, bound {comp['bound_ms']:.3f}; "
+        + "; ".join(f"{n} {totals[n]['ms']:.3f} (plain "
+                    f"{totals[n]['plain_ms']:.3f}, library "
+                    f"{totals[n]['library_ms']:.3f}, bound "
+                    f"{totals[n]['bound_ms']:.3f})" for n in names))
+    return entries, composite_row
+
+
+def disc_check(dc, x, k, b):
+    """disc_conv1 against its plain version; returns (output, max_abs_err)
+    or raises.  Tolerances as the depthwise forward's."""
+    got = dc.disc_conv1(x, k, b)
+    ref = dc.disc_conv1_plain(x, k, b)
+    torch.cuda.synchronize()
+    n, h, c, w = x.shape
+    require(got.shape == (n, h // 2, w // 2, k.shape[3])
+            and got.dtype == x.dtype and got.is_contiguous(),
+            f"disc_conv1 output {tuple(got.shape)} {got.dtype}")
+    diff = (got.float() - ref.float()).abs()
+    scale = ref.float().abs().clamp(min=1.0)
+    if x.dtype == torch.float32:
+        ok = float(diff.max()) <= 1e-5 * float(scale.max())
+    else:
+        ok = bool((diff <= 1e-2 * scale).all())
+    err = float(diff.max())
+    require(ok, f"disc_conv1 {tuple(x.shape)} {x.dtype}: max_abs_err {err}")
+    return got, err
+
+
+def disc_inputs(n, c, h, w, ndf, dtype, gen, nchw=True):
+    """A softmax map as the step makes it (NCHW, seen as [N,H,C,W]; or a
+    contiguous [N,H,C,W] tensor), an HWIO kernel and a bias."""
+    logits = torch.randn((n, c, h, w), device=DEV, generator=gen)
+    x_nchw = torch.softmax(logits, dim=0).to(dtype)
+    del logits
+    x = x_nchw.permute(0, 2, 1, 3)
+    if not nchw:
+        x = x.contiguous()
+    k = (torch.rand((4, 4, c, ndf), device=DEV, generator=gen) * 2 - 1
+         ).mul_(1 / (16 * c) ** 0.5).to(dtype)
+    b = (torch.rand((ndf,), device=DEV, generator=gen) * 0.2 - 0.1).to(dtype)
+    return x_nchw, x, k, b
 
 
 def check_disc_conv1(dc):
     """Phase 2e: disc_conv1 at the step's shape, 8x19x512x1024 (the NCHW
-    softmax map seen as [N,H,C,W]) -> 8x256x512x64, bf16 and float32.
-    Returns the entry for one train step (3 launches)."""
+    softmax map seen as [N,H,C,W]) -> 8x256x512x64: bfloat16 on the tensor
+    cores and float32 on the CUDA cores; then bfloat16 at edge shapes (a
+    width off the 16-byte grid, a partial column strip and an odd number of
+    output rows; three input channels).  Returns the bf16 entry for one
+    train step (3 launches), with the f32 row beside it."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device=DEV).manual_seed(SEED + 5)
     n, c, (h, w), ndf = BATCH, 19, TRAIN_HW, 64
     rows = {}
     for dtype in (torch.float32, torch.bfloat16):
-        logits = torch.randn((n, c, h, w), device=DEV, generator=gen)
-        x_nchw = torch.softmax(logits, dim=0).to(dtype)
-        del logits
-        x = x_nchw.permute(0, 2, 1, 3)
-        k = (torch.rand((4, 4, c, ndf), device=DEV, generator=gen) * 2 - 1
-             ).mul_(1 / (16 * c) ** 0.5).to(dtype)
-        b = (torch.rand((ndf,), device=DEV, generator=gen) * 0.2 - 0.1
-             ).to(dtype)
-        got = dc.disc_conv1(x, k, b)
-        ref = dc.disc_conv1_plain(x, k, b)
-        torch.cuda.synchronize()
-        require(got.shape == (n, h // 2, w // 2, ndf) and got.dtype == dtype,
-                f"disc_conv1 output {tuple(got.shape)} {got.dtype}")
-        diff = (got.float() - ref.float()).abs()
-        scale = ref.float().abs().clamp(min=1.0)
-        if dtype == torch.float32:
-            ok = float(diff.max()) <= 1e-5 * float(scale.max())
-        else:
-            ok = bool((diff <= 1e-2 * scale).all())
-        err = float(diff.max())
-        require(ok, f"disc_conv1 {dtype}: max_abs_err {err}")
+        x_nchw, x, k, b = disc_inputs(n, c, h, w, ndf, dtype, gen)
+        got, err = disc_check(dc, x, k, b)
         w_oihw = k.permute(3, 2, 0, 1).contiguous()
         kern = cuda_ms(lambda: dc.disc_conv1(x, k, b))
         plain = cuda_ms(lambda: dc.disc_conv1_plain(x, k, b))
@@ -660,26 +809,115 @@ def check_disc_conv1(dc):
         nbytes = (x.numel() + got.numel() + k.numel() + ndf) * isz
         flops = 2 * got.numel() * 16 * c
         bnd, by = bound_ms(nbytes, flops, dtype)
-        rows[dtype] = (kern, plain, lib, bnd, by, err)
-        # The kernel multiplies on the CUDA cores in float32: its own floor
-        # is the float32 peak, a design note beside the bound.
-        f32_floor = 1e3 * flops / PEAK_FLOP_PER_S[torch.float32]
-        log(f"[disc_conv1] {str(dtype)[6:]}: max_abs_err {err:.3g} | kernel "
-            f"{kern:.4f} ms, plain {plain:.4f}, F.conv2d {lib:.4f}, bound "
-            f"{bnd:.4f} ({by}; bytes {1e3 * nbytes / HBM_BYTES_PER_S:.4f} ms "
-            f"for {nbytes / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP at the "
-            f"{str(dtype)[6:]} peak {1e3 * flops / PEAK_FLOP_PER_S[dtype]:.4f}"
-            f" ms; float32 CUDA-core floor of this design {f32_floor:.4f} ms)")
-        del x_nchw, x, got, ref, diff, scale
-    kern, plain, lib, bnd, by, err = rows[torch.bfloat16]
+        rows[dtype] = {"ms": kern, "plain_ms": plain, "library_ms": lib,
+                       "bound_ms": bnd, "bound_by": by, "max_abs_err": err}
+        log(f"[disc_conv1] {str(dtype)[6:]} "
+            f"({'tensor cores' if dtype == torch.bfloat16 else 'CUDA cores'})"
+            f": max_abs_err {err:.3g} | kernel {kern:.4f} ms, plain "
+            f"{plain:.4f}, F.conv2d {lib:.4f}, bound {bnd:.4f} ({by}; bytes "
+            f"{1e3 * nbytes / HBM_BYTES_PER_S:.4f} ms for {nbytes / 1e6:.1f} "
+            f"MB, {flops / 1e9:.1f} GFLOP at the {str(dtype)[6:]} peak "
+            f"{1e3 * flops / PEAK_FLOP_PER_S[dtype]:.4f} ms)")
+        del x_nchw, x, got
+    for (en, ec, eh, ew), nchw in (((2, 19, 18, 1030), False),
+                                   ((1, 3, 22, 256), True),
+                                   ((3, 19, 6, 300), True)):
+        _, x, k, b = disc_inputs(en, ec, eh, ew, ndf, torch.bfloat16, gen,
+                                 nchw)
+        disc_check(dc, x, k, b)
+    log("[disc_conv1] bf16 edge shapes (W=1030 staged element by element, "
+        "C=3, 3 output rows, partial strips) pass")
+    r = rows[torch.bfloat16]
+    f32 = {key: 3 * v if key.endswith("ms") else v
+           for key, v in rows[torch.float32].items()}
     return {"name": "disc_conv1", "route": "cuda",
             "source": "s2r_tpu_torch/csrc/disc_conv.cu",
             "replaces": "s2r_tpu/ops/pallas/disc_conv.py:174",
-            "launches": None, "max_abs_err": err, "ms": 3 * kern,
-            "plain_ms": 3 * plain, "bound_ms": 3 * bnd, "bound_by": by,
-            "library_ms": 3 * lib,
+            "launches": None, "max_abs_err": r["max_abs_err"],
+            "ms": 3 * r["ms"], "plain_ms": 3 * r["plain_ms"],
+            "bound_ms": 3 * r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": 3 * r["library_ms"], "float32": f32,
             "ms_covers": "one 512x1024 batch-8 bf16 train step: D's three "
-                         "forwards = 3 launches"}
+                         "forwards = 3 launches (bf16, tensor cores); "
+                         "float32: the CUDA-core kernel at the same shape"}
+
+
+def check_index_limits(dw, rq, dc):
+    """Phase 2f: each kernel that indexed in 32 bits on one input just over
+    2^31 elements: the depthwise forward and requant split the batch (two
+    launches), dk and disc_conv1 index in 64 bits (one launch).  Each is
+    compared with its plain version on the batch items at each side of the
+    split, or of element 2^31, and on the last."""
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 7)
+    lim = 2 ** 31
+
+    # depthwise bf16 [114, 256, 512, 144]: 113 images a launch
+    x = randn((114, 256, 512, 144), torch.bfloat16, gen)
+    k = (randn((3, 3, 144), torch.float32, gen) / 3).to(torch.bfloat16)
+    require(x.numel() >= lim, "depthwise input under 2^31")
+    before = dw.depthwise_conv3x3.launches
+    y = dw.depthwise_conv3x3(x, k, 1)
+    torch.cuda.synchronize()
+    made = dw.depthwise_conv3x3.launches - before
+    require(made == 2, f"depthwise over 2^31: {made} launches, not 2")
+    for i in (112, 113):
+        ref = dw.depthwise_conv3x3_plain(x[i:i + 1], k, 1)
+        diff = (y[i:i + 1].float() - ref.float()).abs()
+        require(bool((diff <= 1e-2 * ref.float().abs().clamp(min=1.0)).all()),
+                f"depthwise over 2^31, image {i}: max_abs_err "
+                f"{float(diff.max())}")
+    del y
+    # dk on the same x and a cotangent: one launch; the plain version
+    # summed over runs of 16 images in float64
+    g = randn((114, 256, 512, 144), torch.bfloat16, gen)
+    before = dw.depthwise_dk.launches
+    dk = dw.depthwise_dk(x, g, 1)
+    torch.cuda.synchronize()
+    require(dw.depthwise_dk.launches - before == 1, "dk over 2^31: launches")
+    ref = sum(dw.depthwise_dk_plain(x[a:a + 16], g[a:a + 16], 1).double()
+              for a in range(0, 114, 16))
+    dk_err = rel_err(dk, ref)
+    require(dk_err <= 1e-4, f"dk over 2^31: rel err {dk_err}")
+    log(f"[limits] depthwise bf16 {tuple(x.shape)} ({x.numel()} elements): "
+        f"2 launches, images 112 and 113 match; dk 1 launch, rel err "
+        f"{dk_err:.3g}")
+    del x, g, dk, ref
+
+    # requant int32 [65, 256, 512, 256]: rows split at (2^31 - 1) // 256
+    xq, m, b = requant_inputs((65, 256, 512, 256), gen)
+    require(xq.numel() >= lim, "requant input under 2^31")
+    before = rq.requant_s32_to_s8.launches
+    yq = rq.requant_s32_to_s8(xq, m, b)
+    torch.cuda.synchronize()
+    made = rq.requant_s32_to_s8.launches - before
+    require(made == 2, f"requant over 2^31: {made} launches, not 2")
+    for i in (63, 64):  # the split row lies in image 63; 64 is the last
+        require(torch.equal(yq[i], rq.requant_plain(xq[i], m, b)),
+                f"requant over 2^31, image {i}: not bit-exact")
+    log(f"[limits] requant int32 {tuple(xq.shape)} ({xq.numel()} elements): "
+        "2 launches, images 63 and 64 bit-exact")
+    del xq, yq
+
+    # disc_conv1 at batch 256 of 512x1024 bf16: input element 2^31 lies in
+    # image 215, the output has exactly 2^31 elements
+    _, xd, kd, bd = disc_inputs(256, 19, 512, 1024, 64, torch.bfloat16, gen)
+    before = dc.disc_conv1.launches
+    yd = dc.disc_conv1(xd, kd, bd)
+    torch.cuda.synchronize()
+    require(dc.disc_conv1.launches - before == 1, "disc_conv1: launches")
+    require(yd.numel() >= lim, "disc_conv1 output under 2^31")
+    worst = 0.0
+    for i in (215, 216, 255):
+        ref = dc.disc_conv1_plain(xd[i:i + 1], kd, bd)
+        diff = (yd[i:i + 1].float() - ref.float()).abs()
+        require(bool((diff <= 1e-2 * ref.float().abs().clamp(min=1.0)).all()),
+                f"disc_conv1 at batch 256, image {i}: max_abs_err "
+                f"{float(diff.max())}")
+        worst = max(worst, float(diff.max()))
+    log(f"[limits] disc_conv1 bf16 batch 256 ({xd.numel()} input, "
+        f"{yd.numel()} output elements): 1 launch, images 215, 216, 255 "
+        f"match (max_abs_err {worst:.3g})")
+    del xd, yd
 
 
 def train_method(precision, device, affine=False):
@@ -827,16 +1065,23 @@ def train_full(counted):
         f"memory {peak:.2f} GiB; losses after {state.step} steps {losses}")
 
     # The main-path run that the kernels line counts: one step.
+    from s2r_tpu_torch.ops.kernels.batchnorm import channels_last_rows
+
     reset(counted)
+    channels_last_rows.copies = 0
     state, metrics = method.step_fn(state, batch)
     torch.cuda.synchronize()
     launches = {fn.__name__: fn.launches for fn in counted}
-    log(f"[train 512x1024] launches in one step: {launches}")
+    copies = channels_last_rows.copies
+    log(f"[train 512x1024] launches in one step: {launches}; BatchNorm "
+        f"layout copies (an NCHW tensor made channels-last for the kernels):"
+        f" {copies}")
     require(launches == {"depthwise_conv3x3": 56, "requant_s32_to_s8": 0,
-                         "depthwise_dk": 28, "pair_sums": 240,
-                         "disc_conv1": 3},
+                         "depthwise_dk": 28, "batch_norm_stats": 120,
+                         "batch_norm_apply": 120, "batch_norm_grad_sums": 120,
+                         "batch_norm_dx": 120, "disc_conv1": 3},
             f"unexpected launch counts {launches}")
-    return ms, launches
+    return ms, launches, copies
 
 
 def main():
@@ -857,7 +1102,8 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     counted = (dw.depthwise_conv3x3, rq.requant_s32_to_s8, dw.depthwise_dk,
-               bn.pair_sums, dc.disc_conv1)
+               bn.batch_norm_stats, bn.batch_norm_apply,
+               bn.batch_norm_grad_sums, bn.batch_norm_dx, dc.disc_conv1)
     t_start = time.perf_counter()
     try:
         t0 = time.perf_counter()
@@ -870,7 +1116,10 @@ def main():
         dw_entry = check_depthwise(dw)
         kernels = [dw_entry, check_requant(rq)]
         dk_entry, dw_train = check_depthwise_bwd(dw)
-        kernels += [dk_entry, check_pair_sums(bn), check_disc_conv1(dc)]
+        bn_entries, bn_composite = check_batchnorm(bn)
+        kernels += [dk_entry, *bn_entries, check_disc_conv1(dc)]
+        torch.cuda.empty_cache()
+        check_index_limits(dw, rq, dc)
         torch.cuda.empty_cache()
         serve_check_513(dw, rq)
         torch.cuda.empty_cache()
@@ -878,7 +1127,15 @@ def main():
         torch.cuda.empty_cache()
         train_check_small(counted)
         torch.cuda.empty_cache()
-        step_ms, train_launches = train_full(counted)
+        step_ms, train_launches, bn_copies = train_full(counted)
+        bn_entries[0]["composite"] = dict(
+            bn_composite, ms_covers="one 512x1024 batch-8 bf16 train step: "
+            "all four entries of 120 BatchNorm calls; library_ms: "
+            "native_batch_norm + native_batch_norm_backward; sums_ms: "
+            "batch_norm_stats + batch_norm_grad_sums against "
+            "sums_library_ms: torch.batch_norm_stats + "
+            "batch_norm_backward_reduce")
+        bn_entries[2]["layout_copies_per_step"] = bn_copies
         for k in kernels:
             paths = {"serve": serve_launches[k["name"]],
                      "train_step": train_launches[k["name"]]}

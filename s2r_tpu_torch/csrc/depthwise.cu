@@ -14,7 +14,9 @@
 // vector (8 bf16 or 4 f32), channel fastest, so a warp reads 512 contiguous
 // bytes of one tap.  The nine taps of neighbouring pixels overlap and the
 // re-reads are served by L1/L2, so device memory sees each input about
-// once.  Index arithmetic is 32-bit (the wrapper keeps N*H*W*C below 2^31).
+// once.  Index arithmetic is 32-bit: the wrapper launches the forward once
+// per run of whole images of fewer than 2^31 elements (ops/kernels/
+// depthwise.py over_batch).
 // Unlike the TPU kernel (C % 128, W % 8) it takes any C, H, W and dilation:
 // a C that is not a multiple of the vector, or an unaligned pointer, takes
 // the same kernel one channel at a time.  Tiling the halo through shared
@@ -129,27 +131,29 @@ int launch(const void* x, const void* k, void* y, int64_t n, int64_t h, int64_t 
 // with a fixed tree in shared memory and writes [slab][9][C] partials.
 // Pass 2 is the shared fold.  No atomics: deterministic.  Bound by
 // device-memory bytes (x and g read once, 18 flops per element pair).
-template <typename T, int V>
+// Pixels are indexed in I: 32 bits while N*H*W fits them, 64 bits beyond
+// (one launch takes any batch; memory offsets are 64-bit either way).
+template <typename T, int V, typename I>
 __global__ void dw3x3_dk_partial(const T* __restrict__ x, const T* __restrict__ g,
                                  float* __restrict__ part, int h, int w, int c, int d,
-                                 unsigned pixels, unsigned pix_per_slab) {
+                                 I pixels, I pix_per_slab) {
   __shared__ float sh[kSlabThreads * V];
   const int tx = threadIdx.x, ty = threadIdx.y;
   const int nvec = c / V;
   const int vec = blockIdx.x * blockDim.x + tx;
   const int ch = vec * V;
-  const unsigned p0 = blockIdx.y * pix_per_slab;
-  const unsigned p1 = min(p0 + pix_per_slab, pixels);
+  const I p0 = (I)blockIdx.y * pix_per_slab;
+  const I p1 = p0 + pix_per_slab < pixels ? p0 + pix_per_slab : pixels;
   float acc[9][V];
 #pragma unroll
   for (int t = 0; t < 9; ++t)
 #pragma unroll
     for (int v = 0; v < V; ++v) acc[t][v] = 0.0f;
   if (vec < nvec) {
-    for (unsigned p = p0 + ty; p < p1; p += blockDim.y) {
-      const int col = (int)(p % w);
-      const int row = (int)(p / w);  // over N*H
-      const int r0 = row % h;
+    for (I p = p0 + ty; p < p1; p += blockDim.y) {
+      const int col = (int)(p % (I)w);
+      const I row = p / (I)w;  // over N*H
+      const int r0 = (int)(row % (I)h);
       float gv[V];
       load<T, V>(g + (size_t)p * c + ch, gv);
 #pragma unroll
@@ -197,9 +201,15 @@ int launch_dk_v(const void* x, const void* g, float* part, float* dk, int64_t n,
                 int64_t h, int64_t w, int64_t c, int64_t d, cudaStream_t stream) {
   const int64_t pixels = n * h * w;
   const SlabPlan p = slab_plan(pixels, (int)(c / V));
-  dw3x3_dk_partial<T, V><<<dim3(p.chunks, (unsigned)p.slabs), dim3(p.bx, p.by), 0, stream>>>(
-      (const T*)x, (const T*)g, part, (int)h, (int)w, (int)c, (int)d, (unsigned)pixels,
-      (unsigned)p.per_slab);
+  const dim3 grid(p.chunks, (unsigned)p.slabs), block(p.bx, p.by);
+  if (pixels < ((int64_t)1 << 32))
+    dw3x3_dk_partial<T, V, unsigned><<<grid, block, 0, stream>>>(
+        (const T*)x, (const T*)g, part, (int)h, (int)w, (int)c, (int)d, (unsigned)pixels,
+        (unsigned)p.per_slab);
+  else
+    dw3x3_dk_partial<T, V, uint64_t><<<grid, block, 0, stream>>>(
+        (const T*)x, (const T*)g, part, (int)h, (int)w, (int)c, (int)d, (uint64_t)pixels,
+        (uint64_t)p.per_slab);
   launch_slab_fold(part, dk, 9 * c, p.slabs, stream);
   return (int)cudaGetLastError();
 }
@@ -219,7 +229,7 @@ int launch_dk(const void* x, const void* g, void* part, void* dk, int64_t n, int
 // The dk scratch `part` holds s2r_dw3x3_dk_max_slabs() * 9 * C floats.
 extern "C" int s2r_dw3x3_dk_max_slabs() { return kMaxSlabs; }
 
-// x, g [N,H,W,C] of one type; dk [3,3,C] float32.  N*H*W*C below 2^31.
+// x, g [N,H,W,C] of one type; dk [3,3,C] float32.  Any size.
 extern "C" int s2r_dw3x3_dk_f32(const void* x, const void* g, void* part, void* dk,
                                 int64_t n, int64_t h, int64_t w, int64_t c, int64_t d,
                                 void* stream) {
@@ -232,7 +242,7 @@ extern "C" int s2r_dw3x3_dk_bf16(const void* x, const void* g, void* part, void*
   return launch_dk<__nv_bfloat16>(x, g, part, dk, n, h, w, c, d, stream);
 }
 
-// N*H*W*C must be below 2^31 (the wrapper checks).
+// N*H*W*C must be below 2^31 (the wrapper splits the batch).
 extern "C" int s2r_dw3x3_f32(const void* x, const void* k, void* y, int64_t n, int64_t h,
                              int64_t w, int64_t c, int64_t d, void* stream) {
   return launch<float>(x, k, y, n, h, w, c, d, stream);

@@ -15,7 +15,7 @@
 // element.  Design: one thread per 4 consecutive channels (a 16-byte load
 // of x, one 4-byte store of y, m and b as float4 from L1), neighbouring
 // threads on neighbouring elements, 32-bit index arithmetic (the wrapper
-// keeps the size below 2^31).  A C that is not a multiple of 4, or an
+// launches once per run of rows of fewer than 2^31 elements).  A C that is not a multiple of 4, or an
 // unaligned pointer, takes the same kernel one element at a time.
 //
 // Built by plain nvcc into a shared library with a C interface and loaded
@@ -59,7 +59,7 @@ bool aligned(const void* p, uintptr_t a) { return ((uintptr_t)p & (a - 1)) == 0;
 
 }  // namespace
 
-// total = number of elements, below 2^31 (the wrapper checks).
+// total = number of elements, below 2^31 (the wrapper splits the rows).
 extern "C" int s2r_requant_s32_s8(const void* x, const void* m, const void* b, void* y,
                                   int64_t total, int64_t c, void* stream) {
   const bool vec = c % 4 == 0 && aligned(x, 16) && aligned(m, 16) && aligned(b, 16) &&

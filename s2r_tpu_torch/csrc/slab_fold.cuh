@@ -1,5 +1,5 @@
-// The deterministic two-pass reduction shared by batchnorm.cu (pair_sums)
-// and depthwise.cu (dw3x3_dk).
+// The deterministic two-pass reduction of depthwise.cu (dw3x3_dk), and the
+// slab sizing that batchnorm.cu (bn_sums) shares with it.
 //
 // Pass 1 (in each source): block (chunk, slab) covers up to 32 channel
 // vectors of a slab of rows, each thread summing every by-th row in float32

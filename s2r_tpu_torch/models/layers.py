@@ -13,11 +13,12 @@ follow torch's own layers, so the reference torch key schema loads with
   leaves them to XLA.
 - ``BatchNorm``: in eval, x * inv + shift with inv = rsqrt(var + eps) *
   scale and shift = bias - mean * inv from the running statistics, in
-  float32, and the affine in the compute dtype.  In train mode, the batch
-  statistics through the hand-written pair-sums kernel
-  (ops/kernels/batchnorm.py), with the zero-padding-ring statistics and
-  the running-statistics update of torch.  Either can return ``shift``,
-  the value a zero padding ring takes after normalization.
+  float32, and the affine in the compute dtype.  In train mode, both
+  directions on the hand-written BatchNorm kernels
+  (ops/kernels/batchnorm.py): the batch statistics with the
+  zero-padding-ring count, the running-statistics update of torch, y and
+  dx.  Either can return ``shift``, the value a zero padding ring takes
+  after normalization.
 - ``Dropout``: elementwise, kept values scaled by 1/keep, the mask drawn
   from a caller's ``torch.Generator``; the identity in eval.
 - ``relu``, ``relu6``, ``leaky_relu`` with the JAX package's subgradients
@@ -107,15 +108,10 @@ class BatchNorm(nn.BatchNorm2d):
             shift = self.bias - self.running_mean * inv
             y = x * _col(inv.to(x.dtype)) + _col(shift.to(x.dtype))
             return (y, shift) if ring else y
-        d = int(zero_pad_width)
-        y, shift, mean, var = BatchNormTrain.apply(x, self.weight, self.bias,
-                                                   self.eps, d)
-        count = x.shape[0] * (x.shape[2] + 2 * d) * (x.shape[3] + 2 * d)
-        m = self.momentum
+        y, shift, _, _ = BatchNormTrain.apply(
+            x, self.weight, self.bias, self.eps, int(zero_pad_width),
+            self.running_mean, self.running_var, float(self.momentum))
         with torch.no_grad():
-            unbiased = var * (count / max(count - 1, 1))
-            self.running_mean.copy_((1 - m) * self.running_mean + m * mean)
-            self.running_var.copy_((1 - m) * self.running_var + m * unbiased)
             self.num_batches_tracked.add_(1)
         return (y, shift) if ring else y
 

@@ -8,7 +8,8 @@ header builds anew and an unchanged one is reused.  The build directory is
 the only place the package writes, and git ignores it.  Nothing here runs at
 import time: a kernel is built at its first use, or ahead of time by
 ``build_all``, which starts one nvcc per source at once.  A failed build
-raises.
+raises.  ``batch_chunks`` cuts a batch into runs of whole items that a
+kernel indexing in 32 bits can take in one launch.
 """
 
 from __future__ import annotations
@@ -20,7 +21,9 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable, List
+from typing import Dict, Iterable, List, Tuple
+
+import torch
 
 _PKG = Path(__file__).resolve().parents[2]
 SRC_DIR = _PKG / "csrc"
@@ -28,6 +31,9 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 SOURCES = ("depthwise", "requant", "batchnorm", "disc_conv")
+
+# Kernels that index in 32 bits take fewer elements than this per launch.
+INDEX_LIMIT = 2 ** 31
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -105,7 +111,26 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
+def stream(t: torch.Tensor) -> int:
+    """The raw handle of the current CUDA stream on t's device (what
+    torch.cuda.current_stream().cuda_stream gives, without building a
+    Stream object: a few microseconds a launch)."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
+
+
 def check(err: int, what: str) -> None:
     """Raise if a kernel's C entry returned a CUDA error (cudaGetLastError)."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError {err}")
+
+
+def batch_chunks(n: int, per_item: int, limit: int = INDEX_LIMIT
+                 ) -> List[Tuple[int, int]]:
+    """[(start, stop), ...] cutting n items of per_item elements each into
+    the fewest runs of whole items that each hold fewer than `limit`
+    elements, in order.  Raises if one item alone reaches `limit`."""
+    if per_item >= limit:
+        raise ValueError(f"one batch item holds {per_item} elements, at or "
+                         f"over the kernels' per-launch limit of {limit}")
+    step = (limit - 1) // per_item if per_item else max(n, 1)
+    return [(a, min(a + step, n)) for a in range(0, n, step)]

@@ -10,6 +10,11 @@ PyTorch versions only for CPU tensors.  There is no fallback: anything the
 kernels do not take raises.  ``DepthwiseConv3x3`` is the autograd Function
 that ties them together.
 
+The forward kernel indexes in 32 bits, so the wrapper launches it once per
+run of whole images of fewer than 2^31 elements (``over_batch``); only a
+single image of 2^31 or more elements raises.  dk indexes its pixels in 64
+bits where it must and takes any batch in one launch.
+
 MobileNetV2 runs its 14 stride-1 depthwise convs through here
 (models/layers.py); the ``fill`` ring of the reference's padding quirk stays
 outside, in the Conv2d identity, as in the JAX package.
@@ -76,7 +81,7 @@ def _lib() -> ctypes.CDLL:
 
 def _check_cuda(what: str, x: torch.Tensor, other: torch.Tensor) -> None:
     """Raise unless x and other can go to the kernels: one CUDA device, one
-    of the kernels' types, contiguous, 32-bit indexable."""
+    of the kernels' types, contiguous."""
     if x.device.type != "cuda":
         raise ValueError(f"{what}: no kernel for {x.device}")
     if x.dtype not in _DTYPES or other.dtype != x.dtype:
@@ -86,9 +91,6 @@ def _check_cuda(what: str, x: torch.Tensor, other: torch.Tensor) -> None:
         raise ValueError(f"{what}: inputs must be contiguous")
     if x.device.index != torch.cuda.current_device():
         raise ValueError(f"{what}: input is not on the current device")
-    if x.numel() >= 2 ** 31:
-        raise ValueError(f"{what}: the kernel indexes in 32 bits; split the "
-                         f"batch ({x.numel()} elements)")
 
 
 def depthwise_conv3x3(x: torch.Tensor, k: torch.Tensor,
@@ -110,16 +112,36 @@ def depthwise_conv3x3(x: torch.Tensor, k: torch.Tensor,
     y = torch.empty_like(x)
     if x.numel() == 0:
         return y
-    n, h, w, c = x.shape
-    fn = getattr(_lib(), _DTYPES[x.dtype])
-    err = fn(x.data_ptr(), k.data_ptr(), y.data_ptr(), n, h, w, c,
-             int(dilation), torch.cuda.current_stream().cuda_stream)
-    build.check(err, "depthwise_conv3x3")
-    depthwise_conv3x3.launches += 1
+    over_batch(x, k, y, int(dilation), _launch_dw3x3)
     return y
 
 
 depthwise_conv3x3.launches = 0
+
+
+def over_batch(x: torch.Tensor, k: torch.Tensor, y: torch.Tensor,
+               dilation: int, launch, limit: int = build.INDEX_LIMIT) -> None:
+    """Fill y from x by launch(x[a:b], k, y[a:b], dilation) over runs of
+    whole images of fewer than `limit` elements each (the forward kernel
+    indexes in 32 bits; images are independent, so the split changes
+    nothing)."""
+    if x.numel() < limit:
+        launch(x, k, y, dilation)
+        return
+    for a, b in build.batch_chunks(x.shape[0], x.numel() // x.shape[0],
+                                   limit):
+        launch(x[a:b], k, y[a:b], dilation)
+
+
+def _launch_dw3x3(x: torch.Tensor, k: torch.Tensor, y: torch.Tensor,
+                  dilation: int) -> None:
+    """One launch of the forward kernel on contiguous CUDA x, y."""
+    n, h, w, c = x.shape
+    fn = getattr(_lib(), _DTYPES[x.dtype])
+    err = fn(x.data_ptr(), k.data_ptr(), y.data_ptr(), n, h, w, c, dilation,
+             build.stream(x))
+    build.check(err, "depthwise_conv3x3")
+    depthwise_conv3x3.launches += 1
 
 
 def depthwise_dk(x: torch.Tensor, g: torch.Tensor,
@@ -146,7 +168,7 @@ def depthwise_dk(x: torch.Tensor, g: torch.Tensor,
                        dtype=torch.float32, device=x.device)
     err = getattr(lib, _DK[x.dtype])(
         x.data_ptr(), g.data_ptr(), part.data_ptr(), dk.data_ptr(), n, h, w, c,
-        int(dilation), torch.cuda.current_stream().cuda_stream)
+        int(dilation), build.stream(x))
     build.check(err, "depthwise_dk")
     depthwise_dk.launches += 1
     return dk

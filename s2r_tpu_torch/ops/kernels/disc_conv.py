@@ -9,10 +9,14 @@ output NHWC ``[N, H/2, W/2, ndf]`` (the channels-last memory the next conv
 reads as is).  ``disc_conv1`` launches the hand-written CUDA kernel
 ``s2r_tpu_torch/csrc/disc_conv.cu`` for CUDA tensors and takes the plain
 PyTorch version ``disc_conv1_plain`` only for CPU tensors; there is no
-fallback.  ``DiscConv1`` is the autograd Function: its backward is plain
-PyTorch in float32 (a transposed conv for dx, the weight gradient of the
-conv for dK, a sum for db), as the JAX package leaves it to XLA
-(disc_conv.py:186-213).
+fallback.  In bfloat16 the kernel is an implicit GEMM on the tensor cores
+whose weight operand is ``pack_kernel``'s ``[16C, ndf]`` matrix, rows in
+``(kh, ci, kw)`` order (the counterpart of the TPU kernel's
+``pack_kernel``, in another row order); float32 keeps a CUDA-core loop on
+the HWIO kernel.  One launch takes any batch.  ``DiscConv1`` is the
+autograd Function: its backward is plain PyTorch in float32 (a transposed
+conv for dx, the weight gradient of the conv for dK, a sum for db), as the
+JAX package leaves it to XLA (disc_conv.py:186-213).
 """
 
 from __future__ import annotations
@@ -42,6 +46,17 @@ def disc_conv1_plain(x: torch.Tensor, kernel: torch.Tensor,
     return y.permute(0, 2, 3, 1).to(x.dtype).contiguous()
 
 
+def pack_kernel(kernel: torch.Tensor) -> torch.Tensor:
+    """HWIO [4, 4, C, ndf] -> the bfloat16 kernel's [16*C, ndf] operand,
+    row k = (kh*C + ci)*4 + kw holding kernel[kh, kw, ci]: a permute and a
+    reshape, in the kernel's type and on its device."""
+    kh, kw, c, ndf = kernel.shape
+    if (kh, kw) != (4, 4):
+        raise ValueError(f"pack_kernel: kernel {tuple(kernel.shape)} must be "
+                         "[4,4,C,ndf]")
+    return kernel.permute(0, 2, 1, 3).reshape(16 * c, ndf).contiguous()
+
+
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     """The kernel's library with its entries' types set, once."""
@@ -50,6 +65,8 @@ def _lib() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 9 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    lib.s2r_disc_conv1_bf16_smem.argtypes = [ctypes.c_int64]
+    lib.s2r_disc_conv1_bf16_smem.restype = ctypes.c_int64
     return lib
 
 
@@ -78,24 +95,31 @@ def disc_conv1(x: torch.Tensor, kernel: torch.Tensor,
                         f"bias {bias.dtype} must all be float32 or bfloat16")
     if not (kernel.is_contiguous() and bias.is_contiguous()):
         raise ValueError("disc_conv1: kernel and bias must be contiguous")
-    if ndf % 8 or ndf > 256:
-        raise ValueError(f"disc_conv1: ndf {ndf} must be a multiple of 8, "
-                         "at most 256")
-    if (16 * c * ndf + ndf) * 4 > _SMEM_LIMIT:
-        raise ValueError(f"disc_conv1: C={c} x ndf={ndf} weights exceed the "
-                         "kernel's shared memory")
     if x.device.index != torch.cuda.current_device():
         raise ValueError("disc_conv1: x is not on the current device")
+    lib = _lib()
+    if x.dtype == torch.bfloat16:
+        if ndf != 64:
+            raise ValueError(f"disc_conv1: the bfloat16 kernel takes ndf 64, "
+                             f"not {ndf}")
+        if lib.s2r_disc_conv1_bf16_smem(c) > _SMEM_LIMIT:
+            raise ValueError(f"disc_conv1: C={c} input tile and weights "
+                             "exceed the kernel's shared memory")
+        operand = pack_kernel(kernel)
+    else:
+        if ndf % 8 or ndf > 256:
+            raise ValueError(f"disc_conv1: ndf {ndf} must be a multiple of "
+                             "8, at most 256")
+        if (16 * c * ndf + ndf) * 4 > _SMEM_LIMIT:
+            raise ValueError(f"disc_conv1: C={c} x ndf={ndf} weights exceed "
+                             "the kernel's shared memory")
+        operand = kernel
     y = torch.empty((n, h // 2, w // 2, ndf), dtype=x.dtype, device=x.device)
-    if y.numel() >= 2 ** 31:
-        raise ValueError("disc_conv1: the kernel indexes rows in 32 bits; "
-                         f"split the batch ({y.numel()} outputs)")
     if y.numel() == 0:
         return y
-    fn = getattr(_lib(), _DTYPES[x.dtype])
-    err = fn(x.data_ptr(), kernel.data_ptr(), bias.data_ptr(), y.data_ptr(),
-             n, h, c, w, *x.stride(), ndf,
-             torch.cuda.current_stream().cuda_stream)
+    err = getattr(lib, _DTYPES[x.dtype])(
+        x.data_ptr(), operand.data_ptr(), bias.data_ptr(), y.data_ptr(),
+        n, h, c, w, *x.stride(), ndf, build.stream(x))
     build.check(err, "disc_conv1")
     disc_conv1.launches += 1
     return y

@@ -10,6 +10,9 @@ The port of the TPU kernel ``s2r_tpu/ops/pallas/requant.py``
 ``s2r_tpu_torch/csrc/requant.cu`` for a CUDA tensor and takes the plain
 PyTorch chain ``requant_plain`` only for a CPU tensor.  The kernel keeps the
 multiply and the add as two rounded operations, so both agree bit for bit.
+The kernel indexes in 32 bits, so the wrapper launches it once per run of
+whole rows of the ``[M, C]`` matrix of fewer than 2^31 elements
+(``over_rows``).
 """
 
 from __future__ import annotations
@@ -72,18 +75,33 @@ def requant_s32_to_s8(x: torch.Tensor, m, b,
         raise ValueError("requant_s32_to_s8: x must be contiguous")
     if x.device.index != torch.cuda.current_device():
         raise ValueError("requant_s32_to_s8: x is not on the current device")
-    if x.numel() >= 2 ** 31:
-        raise ValueError("requant_s32_to_s8: the kernel indexes in 32 bits; "
-                         f"split the batch ({x.numel()} elements)")
     y = torch.empty(x.shape, dtype=torch.int8, device=x.device)
     if x.numel() == 0:
         return y
-    err = _lib().s2r_requant_s32_s8(x.data_ptr(), mf.data_ptr(), bf.data_ptr(),
-                                    y.data_ptr(), x.numel(), c,
-                                    torch.cuda.current_stream().cuda_stream)
-    build.check(err, "requant_s32_to_s8")
-    requant_s32_to_s8.launches += 1
+    over_rows(x.view(-1, c), mf, bf, y.view(-1, c), _launch_requant)
     return y
 
 
 requant_s32_to_s8.launches = 0
+
+
+def over_rows(x: torch.Tensor, m: torch.Tensor, b: torch.Tensor,
+              y: torch.Tensor, launch, limit: int = build.INDEX_LIMIT) -> None:
+    """Fill y [M, C] from x [M, C] by launch(x[r0:r1], m, b, y[r0:r1]) over
+    runs of whole rows of fewer than `limit` elements each (the kernel
+    indexes in 32 bits; rows are independent)."""
+    if x.numel() < limit:
+        launch(x, m, b, y)
+        return
+    for r0, r1 in build.batch_chunks(x.shape[0], x.shape[1], limit):
+        launch(x[r0:r1], m, b, y[r0:r1])
+
+
+def _launch_requant(x: torch.Tensor, m: torch.Tensor, b: torch.Tensor,
+                    y: torch.Tensor) -> None:
+    """One launch of the kernel on contiguous CUDA x [M, C], y [M, C]."""
+    err = _lib().s2r_requant_s32_s8(x.data_ptr(), m.data_ptr(), b.data_ptr(),
+                                    y.data_ptr(), x.numel(), x.shape[-1],
+                                    build.stream(x))
+    build.check(err, "requant_s32_to_s8")
+    requant_s32_to_s8.launches += 1

@@ -6,16 +6,21 @@ kernel, on one GPU.
 
 Builds the step with s2r_tpu_torch.train.setup.build_method (DeepLab-V3+
 MobileNetV2 os 16 and the FCDiscriminator, seeded weights, the bench.py
-train configuration), and after two warm-up steps profiles `steps` steps
-with torch.profiler.  Prints the wall time per step (host clock around
-synchronized steps), the summed device time of all kernels, the device's
-idle share (1 - device / wall), the hand-written kernels' share, and the
-kernels that take the most device time.
+train configuration) and runs two warm-up steps.  Then it times `steps` +
+2 unprofiled steps (host clock around each synchronized step; the median
+and the source images/s), and profiles `steps` steps with torch.profiler:
+the wall time per step, the summed device time of all kernels, the
+device's idle share (1 - device / wall), the number of device kernels a
+step, the hand-written kernels' share, and the kernels that take the most
+device time.  It reads only the package on the import path, so it also
+profiles another checkout of the port: ``PYTHONPATH=<checkout> python
+s2r_tpu_torch/tools/profile_train.py``.
 """
 
 from __future__ import annotations
 
 import argparse
+import statistics
 import subprocess
 import time
 
@@ -25,8 +30,10 @@ from torch.profiler import ProfilerActivity, profile
 from s2r_tpu_torch.config import Config
 from s2r_tpu_torch.train.setup import build_method
 
-# Substrings of the hand-written kernels' names (s2r_tpu_torch/csrc).
-OWN_KERNELS = ("dw3x3", "pair_sums", "disc_conv1", "requant")
+# Substrings of the hand-written kernels' names (s2r_tpu_torch/csrc), and
+# pair_sums, the BatchNorm sums of checkouts before bn_sums.
+OWN_KERNELS = ("dw3x3", "slab_fold", "bn_sums", "bn_fold", "bn_elementwise",
+               "disc_conv1", "requant", "pair_sums")
 
 
 def main():
@@ -58,6 +65,16 @@ def main():
     for _ in range(2):
         state, _ = method.step_fn(state, batch)
     torch.cuda.synchronize()
+    runs = []
+    for _ in range(a.steps + 2):
+        t0 = time.perf_counter()
+        state, _ = method.step_fn(state, batch)
+        torch.cuda.synchronize()
+        runs.append(1e3 * (time.perf_counter() - t0))
+    ms = statistics.median(runs)
+    print(f"[train] unprofiled: {ms:.3f} ms/step (median of {len(runs)}: "
+          f"{', '.join(f'{r:.3f}' for r in runs)}), "
+          f"{a.batch * 1e3 / ms:.2f} source images/s")
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -74,9 +91,11 @@ def main():
     dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / a.steps
     own_ms = sum(e.self_device_time_total for e in kernels
                  if any(s in e.key for s in OWN_KERNELS)) / 1e3 / a.steps
+    n_kernels = sum(e.count for e in kernels) / a.steps
     print(f"[train] wall {wall_ms:.3f} ms/step, device {dev_ms:.3f} ms/step, "
-          f"idle share {max(0.0, 1 - dev_ms / wall_ms):.3f}, hand-written "
-          f"kernels {own_ms:.3f} ms ({100 * own_ms / dev_ms:.1f}%)")
+          f"idle share {max(0.0, 1 - dev_ms / wall_ms):.3f}, "
+          f"{n_kernels:.0f} device kernels/step, hand-written kernels "
+          f"{own_ms:.3f} ms ({100 * own_ms / dev_ms:.1f}%)")
     kernels.sort(key=lambda e: -e.self_device_time_total)
     for e in kernels[:a.rows]:
         ms = e.self_device_time_total / 1e3 / a.steps

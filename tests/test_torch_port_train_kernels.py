@@ -31,7 +31,8 @@ from s2r_tpu.ops.pallas.disc_conv import disc_conv1 as jax_disc_conv1
 from s2r_tpu_torch.io import convert
 from s2r_tpu_torch.models.layers import BatchNorm
 from s2r_tpu_torch.ops.kernels import build
-from s2r_tpu_torch.ops.kernels.batchnorm import BatchNormTrain, pair_sums
+from s2r_tpu_torch.ops.kernels import batchnorm as bnk
+from s2r_tpu_torch.ops.kernels.batchnorm import BatchNormTrain
 from s2r_tpu_torch.ops.kernels.depthwise import (DepthwiseConv3x3,
                                                  depthwise_dk)
 from s2r_tpu_torch.ops.kernels.disc_conv import DiscConv1, disc_conv1
@@ -53,11 +54,21 @@ def test_new_sources_are_registered_for_the_build():
 
 @pytest.mark.parametrize("same", [True, False])
 def test_pair_sums_matches_pallas(same):
+    """The per-channel pair sums the BatchNorm entries fold: (sum x, sum
+    x^2) of batch_norm_stats when a is b, else (sum g, sum g*x) of
+    batch_norm_grad_sums."""
     rng = np.random.RandomState(0)
     a = rng.randn(2, 8, 16, 32).astype(np.float32)
     b = a if same else rng.randn(2, 8, 16, 32).astype(np.float32)
     want = jax_pair_sums(jnp.asarray(a), jnp.asarray(b), interpret=True)
-    got = pair_sums(torch.from_numpy(a), torch.from_numpy(b))
+    at, bt = (torch.from_numpy(v).view(-1, 32) for v in (a, b))
+    stats = bnk.batch_norm_stats(bt, torch.ones(32), torch.zeros(32),
+                                 at.shape[0], 1e-5)
+    if same:
+        got = stats[bnk.SUM_X], stats[bnk.SUM_XX]
+    else:
+        grads = bnk.batch_norm_grad_sums(at, bt, stats, None, at.shape[0])
+        got = grads[bnk.SUM_G], grads[bnk.SUM_GX]
     for g, w in zip(got, want):
         assert g.dtype == torch.float32 and g.shape == (32,)
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5,
@@ -65,8 +76,10 @@ def test_pair_sums_matches_pallas(same):
 
 
 def test_pair_sums_rejects_mismatched_shapes():
+    stats = torch.zeros(bnk.STAT_ROWS, 5)
     with pytest.raises(ValueError):
-        pair_sums(torch.zeros(4, 3), torch.zeros(4, 5))
+        bnk.batch_norm_grad_sums(torch.zeros(4, 3), torch.zeros(4, 5), stats,
+                                 None, 4)
 
 
 def test_batch_norm_train_forward_and_vjp_match_pallas():
