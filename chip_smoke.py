@@ -21,7 +21,14 @@ Phases, each of which must pass:
    the whole composite timed against native_batch_norm + its backward;
    disc_conv1 (bfloat16 on the tensor cores, float32 on the CUDA cores) as
    the depthwise forward; requant bit-exact; the BatchNorm entries and dk,
-   which fold in a fixed order, bit-identical on a repeated call.
+   which fold in a fixed order, bit-identical on a repeated call.  The
+   depthwise tile sweeps are also held at edge shapes (phases 2a, 2c:
+   tiles wider than the image, H = W = 1, odd H at dilation 2, dilations
+   4 and 40, tile edges inside a halo, blocks streaming many tiny images,
+   C = 7 and unaligned inputs), and their kernels-line entries list each
+   path's shapes (per_shape: C, H, W, d, launches, ms, library_ms,
+   bound_ms a launch) with the count of shapes where the kernel is slower
+   than its cuDNN call (slower_than_library).
    bound_ms is the larger of the bytes over 3.35 TB/s and the flops over
    the published peak for the operands' arithmetic (bfloat16 989 TFLOP/s
    on the tensor cores, float32 67 TFLOP/s).  Phase 2f runs each kernel
@@ -169,6 +176,35 @@ def randn(shape, dtype, gen, offset=0):
     return buf[offset:].view(shape)
 
 
+# Edge shapes (N, C, H, W, d) of the depthwise tile sweeps, phases 2a and
+# 2c (the layouts each takes: tests/test_torch_port_depthwise_plan.py).
+EDGE_SHAPES = [(2, 64, 5, 3, 1), (1, 16, 1, 1, 1), (1, 16, 1, 1, 3),
+               (1, 24, 13, 11, 2), (1, 3, 5, 5, 2), (1, 960, 33, 33, 2),
+               (2, 40, 9, 37, 4), (1, 256, 45, 90, 40), (2, 48, 12, 70, 2),
+               (1, 144, 40, 200, 2), (2500, 16, 2, 3, 1)]
+
+
+def slower(per_shape):
+    """How many shapes of a per_shape list the kernel loses to its library
+    call at."""
+    return sum(r["ms"] > r["library_ms"] for r in per_shape)
+
+
+def dk_check(dw, x, g, d):
+    """dk kernel against its plain version (max|diff| <= 1e-4 * max|ref|)
+    and bit-identical on a repeated call; returns (dk, ref, rel err)."""
+    dk = dw.depthwise_dk(x, g, d)
+    ref = dw.depthwise_dk_plain(x, g, d)
+    require(torch.equal(dk, dw.depthwise_dk(x, g, d)),
+            f"depthwise_dk {tuple(x.shape)} d={d} {x.dtype}: a repeated "
+            "call differs")
+    torch.cuda.synchronize()
+    err = rel_err(dk, ref)
+    require(dk.dtype == torch.float32 and err <= 1e-4,
+            f"depthwise_dk {tuple(x.shape)} d={d} {x.dtype}: rel err {err}")
+    return dk, ref, err
+
+
 def check_depthwise(dw):
     """Phase 2a.  Returns the kernels-line entry for one batch-8 2048x1024
     bfloat16 forward (14 launches)."""
@@ -204,18 +240,29 @@ def check_depthwise(dw):
             log(f"[depthwise] {n} {c} {h} {w} {d} {str(dtype)[6:]}: {err:.3g} "
                 f"| {kern:.4f} {plain:.4f} {lib:.4f} {bnd:.4f}")
             del x, k, xv
-    # The one-channel-at-a-time path: C off the 16-byte vector, and an
-    # unaligned (but contiguous) input.
-    for (n, c, h, w, d), offset in (((2, 7, 33, 65, 2), 0),
-                                    ((2, 20, 17, 19, 1), 0),
-                                    ((1, 24, 17, 19, 2), 1)):
+    # Edge shapes of the tile sweep (N, C, H, W, d, element offset): W and
+    # H under one tile, H = W = 1, odd H at d = 2 (ROADMAP C.1's shapes),
+    # d = 4, a halo wider than the tile (d = 40), tile boundaries inside a
+    # dilation-2 halo, blocks that stream several images shorter than the
+    # rows staged ahead (N = 2500), and the one-channel path: C off the
+    # vector (7, 20) and an unaligned (but contiguous) input.
+    edges = [(n, c, h, w, d, 0) for n, c, h, w, d in EDGE_SHAPES]
+    edges += [(2, 7, 33, 65, 2, 0), (2, 20, 17, 19, 1, 0), (1, 24, 17, 19, 2, 1),
+              (2, 7, 9, 37, 4, 1)]
+    for n, c, h, w, d, offset in edges:
         for dtype in (torch.float32, torch.bfloat16):
             x = randn((n, h, w, c), dtype, gen, offset)
             k = (randn((3, 3, c), torch.float32, gen) / 3).to(dtype)
             err = dw_check(dw, x, k, d)
             worst[dtype] = max(worst[dtype], err)
-    log("[depthwise] scalar-path cases (C=7, C=20, unaligned input) pass")
+    log(f"[depthwise] {len(edges)} edge shapes pass (tiles, halos, C=7, C=20, "
+        "unaligned input)")
     rows = [per_shape[(BATCH,) + s + (torch.bfloat16,)] for s in main]
+    serve = [{"C": c, "H": h, "W": w, "d": d, "launches": main.count((c, h, w, d)),
+              "ms": per_shape[(BATCH, c, h, w, d, torch.bfloat16)][0],
+              "library_ms": per_shape[(BATCH, c, h, w, d, torch.bfloat16)][2],
+              "bound_ms": per_shape[(BATCH, c, h, w, d, torch.bfloat16)][3]}
+             for c, h, w, d in sorted(set(main))]
     entry = {"name": "depthwise_conv3x3", "route": "cuda",
              "source": "s2r_tpu_torch/csrc/depthwise.cu",
              "replaces": "s2r_tpu/ops/pallas/depthwise.py:155",
@@ -228,12 +275,17 @@ def check_depthwise(dw):
              else "operations",
              "library_ms": sum(r[2] for r in rows),
              "ms_covers": "one 2048x1024 batch-8 bf16 serving forward: 14 "
-                          "launches; by_path.train_step: one train step"}
+                          "launches; by_path.train_step: one train step; "
+                          "per_shape: ms, library_ms and bound_ms a launch",
+             "per_shape": {"serve": serve},
+             "slower_than_library": {"serve": slower(serve)}}
     log(f"[depthwise] all checks passed; worst max_abs_err f32 "
         f"{worst[torch.float32]:.3g}, bf16 {worst[torch.bfloat16]:.3g}; one "
         f"2048x1024 batch-8 bf16 forward (14 launches): kernel "
         f"{entry['ms']:.3f} ms, plain {entry['plain_ms']:.3f} ms, cuDNN "
-        f"{entry['library_ms']:.3f} ms, bound {entry['bound_ms']:.3f} ms")
+        f"{entry['library_ms']:.3f} ms, bound {entry['bound_ms']:.3f} ms; "
+        f"slower than cuDNN at {entry['slower_than_library']['serve']} of "
+        f"{len(serve)} shapes")
     return entry
 
 
@@ -452,16 +504,7 @@ def check_depthwise_bwd(dw):
             k = (randn((3, 3, c), torch.float32, gen) / 3).to(dtype)
             kf = k.flip((0, 1)).contiguous()
             dx_err = dw_check(dw, g, kf, d)
-            dk = dw.depthwise_dk(x, g, d)
-            dk_ref = dw.depthwise_dk_plain(x, g, d)
-            require(torch.equal(dk, dw.depthwise_dk(x, g, d)),
-                    f"depthwise_dk {(BATCH, h, w, c)} d={d} {dtype}: a "
-                    "repeated call differs")
-            torch.cuda.synchronize()
-            dk_err = rel_err(dk, dk_ref)
-            require(dk.dtype == torch.float32 and dk_err <= 1e-4,
-                    f"depthwise_dk {(BATCH, h, w, c)} d={d} {dtype}: "
-                    f"rel err {dk_err}")
+            dk, dk_ref, dk_err = dk_check(dw, x, g, d)
             xv, gv = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
             kern = cuda_ms(lambda: dw.depthwise_dk(x, g, d))
             plain = cuda_ms(lambda: dw.depthwise_dk_plain(x, g, d))
@@ -491,7 +534,30 @@ def check_depthwise_bwd(dw):
                 f"{lib:.4f} {bnd:.4f} | {fx[0]:.4f} {fx[1]:.4f} {fx[2]:.4f} "
                 f"{fx_bnd:.4f}")
             del x, g, xv, gv
+    # the edge shapes of phase 2a, dk and dx, and dk on the one-channel
+    # path (C off the vector, an unaligned input)
+    edges = [(n, c, h, w, d, 0) for n, c, h, w, d in EDGE_SHAPES]
+    edges += [(2, 7, 33, 65, 2, 0), (1, 24, 17, 19, 2, 1), (2, 7, 9, 37, 4, 1)]
+    for n, c, h, w, d, offset in edges:
+        for dtype in (torch.float32, torch.bfloat16):
+            x = randn((n, h, w, c), dtype, gen, offset)
+            g = randn((n, h, w, c), dtype, gen, offset)
+            k = (randn((3, 3, c), torch.float32, gen) / 3).to(dtype)
+            dw_check(dw, g, k.flip((0, 1)).contiguous(), d)
+            dk_check(dw, x, g, d)
+    log(f"[depthwise bwd] {len(edges)} edge shapes pass (dx, and dk "
+        "bit-identical on a repeated call)")
     rows = [per_shape[s + (torch.bfloat16,)] for s in main]
+    # per launch: dk one a layer and image set; forward + dx two
+    dk_rows, fx_rows = [], []
+    for c, h, w, d in sorted(set(main)):
+        r = per_shape[(c, h, w, d, torch.bfloat16)]
+        mult = 2 * main.count((c, h, w, d))  # src and tgt
+        dk_rows.append({"C": c, "H": h, "W": w, "d": d, "launches": mult,
+                        "ms": r[0], "library_ms": r[2], "bound_ms": r[3]})
+        fx_rows.append({"C": c, "H": h, "W": w, "d": d, "launches": 2 * mult,
+                        "ms": r[6][0] / 2, "library_ms": r[6][2] / 2,
+                        "bound_ms": r[7] / 2})
     entry = {"name": "depthwise_dk", "route": "cuda",
              "source": "s2r_tpu_torch/csrc/depthwise.cu",
              "replaces": "s2r_tpu/ops/pallas/depthwise.py:165",
@@ -504,7 +570,10 @@ def check_depthwise_bwd(dw):
              else "operations",
              "library_ms": 2 * sum(r[2] for r in rows),
              "ms_covers": "one 512x1024 batch-8 bf16 train step: 14 layers "
-                          "x (src, tgt) = 28 launches"}
+                          "x (src, tgt) = 28 launches; per_shape: ms, "
+                          "library_ms and bound_ms a launch",
+             "per_shape": {"train_step": dk_rows},
+             "slower_than_library": {"train_step": slower(dk_rows)}}
     train = {"ms": 2 * sum(r[6][0] for r in rows),
              "plain_ms": 2 * sum(r[6][1] for r in rows),
              "library_ms": 2 * sum(r[6][2] for r in rows),
@@ -513,14 +582,18 @@ def check_depthwise_bwd(dw):
              else "operations",
              "max_abs_err": max(r[9] for r in rows),
              "ms_covers": "one 512x1024 batch-8 bf16 train step: 14 layers "
-                          "x (src, tgt) x (forward, dx) = 56 launches"}
+                          "x (src, tgt) x (forward, dx) = 56 launches",
+             "per_shape": fx_rows, "slower_than_library": slower(fx_rows)}
     log(f"[depthwise bwd] all checks passed; one train step (bf16): dk (28 "
         f"launches) kernel {entry['ms']:.3f} ms, plain "
         f"{entry['plain_ms']:.3f}, cuDNN weight grad "
         f"{entry['library_ms']:.3f}, bound {entry['bound_ms']:.3f}; forward "
         f"+ dx (56 launches) kernel {train['ms']:.3f} ms, plain "
         f"{train['plain_ms']:.3f}, cuDNN {train['library_ms']:.3f}, bound "
-        f"{train['bound_ms']:.3f}")
+        f"{train['bound_ms']:.3f}; slower than cuDNN at "
+        f"{entry['slower_than_library']['train_step']} (dk) and "
+        f"{train['slower_than_library']} (forward + dx) of {len(dk_rows)} "
+        "shapes")
     return entry, train
 
 
@@ -1141,6 +1214,9 @@ def main():
                      "train_step": train_launches[k["name"]]}
             k["launches"] = paths["serve"] + paths["train_step"]
             k["launches_by_path"] = paths
+        dw_entry["per_shape"]["train_step"] = dw_train.pop("per_shape")
+        dw_entry["slower_than_library"]["train_step"] = dw_train.pop(
+            "slower_than_library")
         dw_entry["by_path"] = {
             "serve": {key: dw_entry[key] for key in
                       ("ms", "plain_ms", "bound_ms", "library_ms")},
