@@ -8,12 +8,14 @@ Phases, each of which must pass:
 1. Build the hand-written kernels (s2r_tpu_torch/csrc/*.cu) with plain nvcc,
    one process per source, all at once, into s2r_tpu_torch/_build/.
 2. Hold each kernel against its plain PyTorch version on the card, at every
-   shape the serving path (2048x1024 batch 8, 513x513 batch 1) and the
-   train step (512x1024 batch 8) give it, and time kernel, plain version
-   and, where one exists, the one PyTorch call that computes the same
-   function (library_ms, a yardstick only).  Tolerances: depthwise
-   forward and dx float32 max|diff| <= 1e-5 * max(1, max|ref|), bfloat16
-   |diff| <= 1e-2 * max(1, |ref|) elementwise; depthwise dk max|diff| <=
+   shape the serving path (2048x1024 batch 8, 513x513 batch 1), the train
+   step (512x1024 batch 8) and the train_adapt driver of phase 5 (512x512:
+   the step and validation at batch 8, image logging at batch 3) give it,
+   and time kernel, plain version and, where one exists, the one PyTorch
+   call that computes the same function (library_ms, a yardstick only).
+   Tolerances: depthwise forward and dx float32 max|diff| <= 1e-5 *
+   max(1, max|ref|), bfloat16 |diff| <= 1e-2 * max(1, |ref|) elementwise;
+   depthwise dk max|diff| <=
    1e-4 * max|ref| (a reduction over ~1e7 terms in another order); the
    four BatchNorm entries (statistics with the running statistics, y, the
    backward sums, dx; phase 2d) max|diff| <= 1e-5 (float32) and 1e-4
@@ -63,20 +65,39 @@ Phases, each of which must pass:
    bench.py train configuration: 2 warm-up and 5 timed steps
    (CUDA events), ms/step, source images/s and peak memory, finite losses,
    and the launch counts of one step, with the BatchNorm layout copies.
-5. Print the kernels line, the card's name and power limit, and as the last
+5. The train_adapt driver: ``s2r_tpu_torch.cli.train_adapt.main`` in this
+   process, --dataset synthetic --device-aug, 512x512 batch 8 bf16, two
+   epochs (8 steps and 4 validation batches each), in a temporary run
+   root.  Finite losses, mIoU in [0, 1], checkpoint.ckpt, best_pred.txt
+   and model_best.ckpt on disk, and each kernel's launches in the run
+   equal to what the step count and the eval forwards predict.  Then a
+   checkpoint of the final state (timed: the save's hold on the loop, and
+   saver.wait()), a Trainer resumed from it with ft off (weights,
+   BatchNorm statistics, optimizer buffers, step, dropout generator and
+   start_epoch bit-equal to the live state) and one more epoch with
+   finite losses; val_adapt on model_best.ckpt within 1e-4 of the
+   Trainer's best mIoU; the device augmentation on the card against the
+   CPU on the same sampled parameters (images within 1e-4, labels equal);
+   validation ms/image and the step-only images/s at 512x512 beside each
+   epoch's images/s.
+6. Print the kernels line, the card's name and power limit, and as the last
    line {"ok": true, "device": {...}}.
 
 Without a CUDA device, or outside a checkout holding s2r_tpu_torch, it exits
 non-zero and prints no result.  Float32 convs run with TF32 off.  It writes
-only the kernel build directory.
+the kernel build directory, and phase 5's run root in the temporary
+directory, which it removes.
 """
 
+import dataclasses
 import functools
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -93,6 +114,16 @@ BATCH = 8
 CHECK_HW = (513, 513)
 TRAIN_HW = (512, 1024)      # bench.py's train crop
 TRAIN_CHECK_HW = (128, 128)
+# phase 5: the train_adapt driver (8 steps and 4 validation batches an
+# epoch).  Phases 2a-2e also hold the kernels at the shapes it gives them:
+# its crop at its batch (the step and validation), and the image-logging
+# forward on the first ADAPT_LOG_BATCH images of a batch (train/trainer.py
+# _log_train_images).
+ADAPT_HW, ADAPT_BATCH, ADAPT_LOG_BATCH = (512, 512), 8, 3
+ADAPT_ARGV = ["--dataset", "synthetic", "--device-aug",
+              "--crop-size", str(ADAPT_HW[0]), "--base-size", str(ADAPT_HW[0]),
+              "--batch-size", str(ADAPT_BATCH), "--epochs", "2",
+              "--precision", "bf16", "--workers", "4"]
 LEAF_BOUND = 3e-2           # phase 4a, per leaf of G's gradient (float32)
 DEV = "cuda"
 
@@ -249,14 +280,20 @@ def check_depthwise(dw):
     edges = [(n, c, h, w, d, 0) for n, c, h, w, d in EDGE_SHAPES]
     edges += [(2, 7, 33, 65, 2, 0), (2, 20, 17, 19, 1, 0), (1, 24, 17, 19, 2, 1),
               (2, 7, 9, 37, 4, 1)]
-    for n, c, h, w, d, offset in edges:
+    # the train_adapt driver's forwards: the step and validation at its
+    # batch, image logging at ADAPT_LOG_BATCH
+    adapt = [(n, c, h, w, d, 0) for n in (ADAPT_BATCH, ADAPT_LOG_BATCH)
+             for c, h, w, d in sorted(set(dw_shapes(ADAPT_HW, block_plan)))]
+    for n, c, h, w, d, offset in edges + adapt:
         for dtype in (torch.float32, torch.bfloat16):
             x = randn((n, h, w, c), dtype, gen, offset)
             k = (randn((3, 3, c), torch.float32, gen) / 3).to(dtype)
             err = dw_check(dw, x, k, d)
             worst[dtype] = max(worst[dtype], err)
-    log(f"[depthwise] {len(edges)} edge shapes pass (tiles, halos, C=7, C=20, "
-        "unaligned input)")
+    log(f"[depthwise] {len(edges)} edge shapes (tiles, halos, C=7, C=20, "
+        f"unaligned input) and {len(adapt)} train_adapt shapes "
+        f"({ADAPT_HW[1]}x{ADAPT_HW[0]}, batch {ADAPT_BATCH} and "
+        f"{ADAPT_LOG_BATCH}) pass")
     rows = [per_shape[(BATCH,) + s + (torch.bfloat16,)] for s in main]
     serve = [{"C": c, "H": h, "W": w, "d": d, "launches": main.count((c, h, w, d)),
               "ms": per_shape[(BATCH, c, h, w, d, torch.bfloat16)][0],
@@ -538,15 +575,19 @@ def check_depthwise_bwd(dw):
     # path (C off the vector, an unaligned input)
     edges = [(n, c, h, w, d, 0) for n, c, h, w, d in EDGE_SHAPES]
     edges += [(2, 7, 33, 65, 2, 0), (1, 24, 17, 19, 2, 1), (2, 7, 9, 37, 4, 1)]
-    for n, c, h, w, d, offset in edges:
+    # the train_adapt driver's step
+    adapt = [(ADAPT_BATCH, c, h, w, d, 0)
+             for c, h, w, d in sorted(set(dw_shapes(ADAPT_HW, block_plan)))]
+    for n, c, h, w, d, offset in edges + adapt:
         for dtype in (torch.float32, torch.bfloat16):
             x = randn((n, h, w, c), dtype, gen, offset)
             g = randn((n, h, w, c), dtype, gen, offset)
             k = (randn((3, 3, c), torch.float32, gen) / 3).to(dtype)
             dw_check(dw, g, k.flip((0, 1)).contiguous(), d)
             dk_check(dw, x, g, d)
-    log(f"[depthwise bwd] {len(edges)} edge shapes pass (dx, and dk "
-        "bit-identical on a repeated call)")
+    log(f"[depthwise bwd] {len(edges)} edge shapes and {len(adapt)} "
+        f"train_adapt shapes ({ADAPT_HW[1]}x{ADAPT_HW[0]} batch "
+        f"{ADAPT_BATCH}) pass (dx, and dk bit-identical on a repeated call)")
     rows = [per_shape[s + (torch.bfloat16,)] for s in main]
     # per launch: dk one a layer and image set; forward + dx two
     dk_rows, fx_rows = [], []
@@ -597,9 +638,9 @@ def check_depthwise_bwd(dw):
     return entry, train
 
 
-def bn_input_shapes():
-    """(C, H, W) of every train-mode BatchNorm input of one 512x1024 batch-8
-    forward, in call order, read by hooks on a throwaway model."""
+def bn_input_shapes(hw):
+    """(C, H, W) of every train-mode BatchNorm input of one forward at `hw`,
+    in call order, read by hooks on a throwaway model."""
     from s2r_tpu_torch.models.deeplab import DeepLab
     from s2r_tpu_torch.models.layers import BatchNorm
 
@@ -611,7 +652,7 @@ def bn_input_shapes():
         lambda mod, args: shapes.append(tuple(args[0].shape[1:])))
         for m in model.modules() if isinstance(m, BatchNorm)]
     with torch.no_grad():
-        model(torch.zeros((BATCH, 3) + TRAIN_HW, device=DEV))
+        model(torch.zeros((1, 3) + hw, device=DEV))
     for h in hooks:
         h.remove()
     del model
@@ -628,10 +669,11 @@ def bn_rel(got, ref):
 
 def check_batchnorm(bn):
     """Phase 2d: the four BatchNorm entries at every train-mode BatchNorm
-    input shape of one 512x1024 batch-8 forward, bfloat16 and float32: the
-    statistics (with the running statistics), y, the backward sums (with a
-    cotangent of shift) and dx, each against its plain version on the same
-    inputs, and each bit-identical on a repeated call.  Times (bf16): each
+    input shape of one 512x1024 batch-8 forward and of the train_adapt
+    driver's step, bfloat16 and float32: the statistics (with the running
+    statistics), y, the backward sums (with a cotangent of shift) and dx,
+    each against its plain version on the same inputs, and each
+    bit-identical on a repeated call.  Times (bf16, 512x1024 batch 8): each
     entry, its plain version and its one-call PyTorch counterpart; the
     composite (all four, as one BatchNorm's forward and backward) against
     native_batch_norm + native_batch_norm_backward.  Returns the four
@@ -639,9 +681,13 @@ def check_batchnorm(bn):
     the composite's row."""
     from collections import Counter
 
-    shapes = bn_input_shapes()
+    shapes = bn_input_shapes(TRAIN_HW)
+    adapt = sorted(set(bn_input_shapes(ADAPT_HW)))
     require(len(shapes) == 60, f"expected 60 BatchNorms, got {len(shapes)}")
     counts = Counter(shapes)
+    # (batch, (C, H, W), count in one forward, timed)
+    cases = [(BATCH, s, mult, True) for s, mult in sorted(counts.items())]
+    cases += [(ADAPT_BATCH, s, 0, False) for s in adapt]
     gen = torch.Generator(device=DEV).manual_seed(SEED + 4)
     names = ("batch_norm_stats", "batch_norm_apply", "batch_norm_grad_sums",
              "batch_norm_dx")
@@ -654,12 +700,12 @@ def check_batchnorm(bn):
     log("[batchnorm] N C H W x count: worst rel err f32, bf16 | bf16 ms "
         "kernel/plain/library: stats, apply, grad_sums, dx | composite "
         "kernel plain native bound")
-    for (c, h, w), mult in sorted(counts.items()):
+    for n, (c, h, w), mult, timed in cases:
         errs = {}
         for dtype in (torch.float32, torch.bfloat16):
             tol = 1e-5 if dtype == torch.float32 else 1e-4
-            x4 = randn((BATCH, h, w, c), dtype, gen).permute(0, 3, 1, 2)
-            g4 = randn((BATCH, h, w, c), dtype, gen).permute(0, 3, 1, 2)
+            x4 = randn((n, h, w, c), dtype, gen).permute(0, 3, 1, 2)
+            g4 = randn((n, h, w, c), dtype, gen).permute(0, 3, 1, 2)
             x = x4.permute(0, 2, 3, 1).reshape(-1, c)
             g = g4.permute(0, 2, 3, 1).reshape(-1, c)
             weight = 1 + 0.1 * torch.randn(c, device=DEV, generator=gen)
@@ -667,7 +713,7 @@ def check_batchnorm(bn):
             gshift = torch.randn(c, device=DEV, generator=gen)
             rm0 = 0.1 * torch.randn(c, device=DEV, generator=gen)
             rv0 = 0.5 + torch.rand(c, device=DEV, generator=gen)
-            count = BATCH * (h + 2) * (w + 2)   # the ring's count
+            count = n * (h + 2) * (w + 2)   # the ring's count
             rm, rv = rm0.clone(), rv0.clone()
             rm_p, rv_p = rm0.clone(), rv0.clone()
             st = bn.batch_norm_stats(x, weight, bias, count, eps, rm, rv, mom)
@@ -695,22 +741,22 @@ def check_batchnorm(bn):
             torch.cuda.synchronize()
             require(all(torch.equal(u, v) for u, v in
                         zip(again, (st, y, gr, dx))),
-                    f"batchnorm {(BATCH, c, h, w)} {dtype}: a repeated call "
+                    f"batchnorm {(n, c, h, w)} {dtype}: a repeated call "
                     "differs")
             require(y.dtype == dx.dtype == dtype
                     and st.dtype == gr.dtype == torch.float32,
-                    f"batchnorm {(BATCH, c, h, w)} {dtype}: output types")
+                    f"batchnorm {(n, c, h, w)} {dtype}: output types")
             e = {"stats": max(bn_rel(st, st_p)),
                  "running": max(bn_rel(torch.stack([rm, rv]),
                                        torch.stack([rm_p, rv_p]))),
                  "apply": max(bn_rel(y.view(1, -1), y_p.view(1, -1))),
                  "grad_sums": max(bn_rel(gr, gr_p)),
                  "dx": max(bn_rel(dx.view(1, -1), dx_p.view(1, -1)))}
-            require(max(e.values()) <= tol, f"batchnorm {(BATCH, c, h, w)} "
+            require(max(e.values()) <= tol, f"batchnorm {(n, c, h, w)} "
                     f"{dtype}: rel errs {e} > {tol}")
             errs[dtype] = max(e.values())
             worst[dtype] = max(worst[dtype], errs[dtype])
-            if dtype != torch.bfloat16:
+            if dtype != torch.bfloat16 or not timed:
                 del x4, g4, x, g, y, y_p, dx, dx_p, again, args
                 continue
             abs_err = dict(zip(names, (
@@ -785,7 +831,7 @@ def check_batchnorm(bn):
             for key, v in zip(("ms", "plain_ms", "library_ms"), cm):
                 comp[key] += k * v
             comp["bound_ms"] += k * cb
-            log(f"[batchnorm] {BATCH} {c} {h} {w} x{mult}: "
+            log(f"[batchnorm] {n} {c} {h} {w} x{mult}: "
                 f"{errs[torch.float32]:.3g}, {errs[torch.bfloat16]:.3g} | "
                 f"{' '.join(row)} | {cm[0]:.4f} {cm[1]:.4f} {cm[2]:.4f} "
                 f"{cb:.4f}")
@@ -808,6 +854,8 @@ def check_batchnorm(bn):
     composite_row = dict(comp, sums_ms=totals["batch_norm_stats"]["ms"]
                          + totals["batch_norm_grad_sums"]["ms"],
                          sums_library_ms=sums_lib)
+    log(f"[batchnorm] {len(adapt)} train_adapt shapes ({ADAPT_HW[1]}x"
+        f"{ADAPT_HW[0]} batch {ADAPT_BATCH}) pass")
     log(f"[batchnorm] all checks passed; worst rel err f32 "
         f"{worst[torch.float32]:.3g}, bf16 {worst[torch.bfloat16]:.3g}; one "
         f"train step (bf16, 120 BatchNorm calls): sums (stats + grad_sums) "
@@ -894,12 +942,14 @@ def check_disc_conv1(dc):
         del x_nchw, x, got
     for (en, ec, eh, ew), nchw in (((2, 19, 18, 1030), False),
                                    ((1, 3, 22, 256), True),
-                                   ((3, 19, 6, 300), True)):
+                                   ((3, 19, 6, 300), True),
+                                   ((ADAPT_BATCH, c) + ADAPT_HW, True)):
         _, x, k, b = disc_inputs(en, ec, eh, ew, ndf, torch.bfloat16, gen,
                                  nchw)
         disc_check(dc, x, k, b)
     log("[disc_conv1] bf16 edge shapes (W=1030 staged element by element, "
-        "C=3, 3 output rows, partial strips) pass")
+        "C=3, 3 output rows, partial strips) and the train_adapt step's "
+        f"{ADAPT_BATCH}x{c}x{ADAPT_HW[0]}x{ADAPT_HW[1]} pass")
     r = rows[torch.bfloat16]
     f32 = {key: 3 * v if key.endswith("ms") else v
            for key, v in rows[torch.float32].items()}
@@ -1157,6 +1207,188 @@ def train_full(counted):
     return ms, launches, copies
 
 
+def read_scalars(exp_dir):
+    """{tag: [(step, value), ...]} from a run's scalars.jsonl."""
+    out = {}
+    with open(os.path.join(exp_dir, "scalars.jsonl")) as f:
+        for line in f:
+            row = json.loads(line)
+            out.setdefault(row["tag"], []).append((row["step"], row["value"]))
+    return out
+
+
+def trees_equal(a, b):
+    if torch.is_tensor(a):
+        return (torch.is_tensor(b) and a.dtype == b.dtype
+                and torch.equal(a, b))
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and sorted(a) == sorted(b)
+                and all(trees_equal(a[k], b[k]) for k in a))
+    return a == b
+
+
+def check_device_aug(loader, cfg):
+    """Phase 5d: the warp on the card against the CPU, same parameters."""
+    from s2r_tpu_torch.data import device_aug as DA
+
+    batch = next(iter(loader))
+    n, sh, sw = batch["src_image"].shape[:3]
+    params = DA.sample_params(DA.batch_generator(cfg.seed, 0, 0), n,
+                              cfg.base_size, cfg.crop_size, sh, sw)
+    host = {k: torch.from_numpy(v) for k, v in batch.items()}
+    cpu = DA.warp_paired_batch(host, params, cfg.crop_size)
+    card = DA.warp_paired_batch({k: v.to(DEV) for k, v in host.items()},
+                                params, cfg.crop_size)
+    err = max(float((card[k].cpu() - cpu[k]).abs().max())
+              for k in ("src_image", "tgt_image"))
+    same = torch.equal(card["src_label"].cpu(), cpu["src_label"])
+    log(f"[train_adapt] device augmentation card vs CPU ({n}x{sh}x{sw} -> "
+        f"{cfg.crop_size}, {int(params['blur_gate'].sum())} of {n} blurred, "
+        f"{int(params['flip'].sum())} flipped): images max_abs_err "
+        f"{err:.3g}, labels {'equal' if same else 'DIFFER'}")
+    require(err <= 1e-4 and same, "device augmentation: card disagrees "
+            "with the CPU")
+    return card
+
+
+def train_adapt_phase(counted):
+    """Phase 5: the train_adapt driver, resume, val_adapt, the device
+    augmentation, and the driver's rates beside the bare step's."""
+    from s2r_tpu_torch.cli import _eval_common, train_adapt, val_adapt
+    from s2r_tpu_torch.io.checkpoint import host_tree
+    from s2r_tpu_torch.train.trainer import Trainer
+
+    os.environ.pop("S2R_PLATFORM", None)  # the card, as a user runs it
+    root = tempfile.mkdtemp(prefix="s2r_train_adapt_")
+    try:
+        argv = ADAPT_ARGV + ["--run-root", root]
+        reset(counted)
+        t0 = time.perf_counter()
+        trainer = train_adapt.main(argv)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = {fn.__name__: fn.launches for fn in counted}
+        cfg = trainer.cfg
+        steps, n_tr = trainer.state.step, len(trainer.train_loader)
+        n_val = len(trainer.val_loader)
+        vis_every = max(n_tr // 10, 1) if n_tr >= 10 else max(n_tr, 1)
+        eval_fwd = cfg.epochs * (len(range(0, n_tr, vis_every)) + n_val)
+        want = {"depthwise_conv3x3": 56 * steps + 14 * eval_fwd,
+                "requant_s32_to_s8": 0, "depthwise_dk": 28 * steps,
+                "batch_norm_stats": 120 * steps,
+                "batch_norm_apply": 120 * steps,
+                "batch_norm_grad_sums": 120 * steps,
+                "batch_norm_dx": 120 * steps, "disc_conv1": 3 * steps}
+        log(f"[train_adapt] {cfg.epochs} epochs of {n_tr} steps, {n_val} "
+            f"validation batches and one image-logging forward an epoch in "
+            f"{fit_s:.1f} s; launches {launches}")
+        require(steps == cfg.epochs * n_tr, f"train_adapt ran {steps} steps")
+        require(launches == want, f"train_adapt launches {launches}, "
+                f"expected {want}")
+        exp = trainer.saver.experiment_dir
+        for path in (os.path.join(exp, "checkpoint.ckpt"),
+                     os.path.join(exp, "best_pred.txt"),
+                     os.path.join(trainer.saver.directory, "model_best.ckpt")):
+            require(os.path.isfile(path), f"train_adapt wrote no {path}")
+        sc = read_scalars(exp)
+        for tag in ("train/seg_loss", "train/adv_loss", "train/d_loss",
+                    "val/total_loss_epoch"):
+            require(len(sc[tag]) == cfg.epochs
+                    and all(np.isfinite(v) for _, v in sc[tag]),
+                    f"train_adapt {tag}: {sc.get(tag)}")
+        mious = [v for _, v in sc["val/mIoU"]]
+        require(all(0.0 <= v <= 1.0 for v in mious)
+                and trainer.best_pred == max(mious),
+                f"train_adapt mIoU {mious}, best {trainer.best_pred}")
+        epoch_rate = [v for _, v in sc["train/images_per_sec"]]
+        log(f"[train_adapt] epoch images/s (data + augmentation + step) "
+            f"{', '.join(f'{v:.2f}' for v in epoch_rate)}; losses "
+            + "; ".join(f"{t[6:]} {', '.join(f'{v:.4f}' for _, v in sc[t])}"
+                        for t in ("train/seg_loss", "train/adv_loss",
+                                  "train/d_loss"))
+            + f"; val mIoU {', '.join(f'{v:.4f}' for v in mious)}")
+
+        # validation alone, on the trained model
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        miou_again, _ = _eval_common.validation(
+            cfg, trainer.state.G, trainer.eval_step, trainer.val_loader,
+            trainer.nclass)
+        torch.cuda.synchronize()
+        val_ms = 1e3 * (time.perf_counter() - t0) / (n_val * cfg.batch_size)
+        log(f"[train_adapt] validation {val_ms:.3f} ms/image (data + "
+            f"normalization + eval step, {n_val} batches of "
+            f"{cfg.batch_size}); mIoU {miou_again:.6f} (last epoch's "
+            f"{mious[-1]:.6f})")
+
+        # a checkpoint of the final state, timed; resume from it
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = trainer.saver.save_checkpoint(trainer.state, cfg.epochs,
+                                             trainer.best_pred, is_best=False,
+                                             filename="final.ckpt")
+        hold_ms = 1e3 * (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        trainer.saver.wait()
+        wait_ms = 1e3 * (time.perf_counter() - t0)
+        log(f"[train_adapt] checkpoint save: holds the loop {hold_ms:.3f} "
+            f"ms (the device snapshot), saver.wait() {wait_ms:.3f} ms (to "
+            f"host, torch.save, {os.path.getsize(path) / 2 ** 20:.1f} MiB)")
+        live = host_tree(trainer.state)
+        resumed = Trainer(dataclasses.replace(cfg, resume=path, ft=False))
+        got = host_tree(resumed.state)
+        require(resumed.start_epoch == cfg.epochs
+                and trees_equal(got, live),
+                "resume: the restored state differs from the saved one")
+        means = resumed.training(resumed.start_epoch)
+        resumed.saver.wait()
+        resumed.writer.close()
+        require(all(np.isfinite(means[k]) for k in ("seg_loss", "adv_loss",
+                                                    "d_loss")),
+                f"resumed epoch losses {means}")
+        log(f"[train_adapt] resume (ft off): weights, BatchNorm statistics, "
+            f"optimizer buffers, step {got['step']}, dropout generator and "
+            f"start_epoch {resumed.start_epoch} bit-equal; one more epoch: "
+            f"seg_loss {means['seg_loss']:.4f}, adv_loss "
+            f"{means['adv_loss']:.4f}, d_loss {means['d_loss']:.4f}, "
+            f"{means['images_per_sec']:.2f} images/s")
+
+        best = os.path.join(trainer.saver.directory, "model_best.ckpt")
+        miou_val, _ = val_adapt.main(argv + ["--resume", best, "--skip-sep",
+                                             "--out-dir",
+                                             os.path.join(root, "val")])
+        log(f"[train_adapt] val_adapt on model_best.ckpt: mIoU "
+            f"{miou_val:.6f}, the Trainer's best {trainer.best_pred:.6f}")
+        require(abs(miou_val - trainer.best_pred) <= 1e-4,
+                "val_adapt disagrees with the Trainer's mIoU")
+
+        batch = check_device_aug(trainer.train_loader, cfg)
+        step, state = resumed.train_step, resumed.state
+        for _ in range(2):
+            state, _ = step(state, batch)
+        runs = []
+        for _ in range(5):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            state, _ = step(state, batch)
+            end.record()
+            end.synchronize()
+            runs.append(start.elapsed_time(end))
+        step_ms = statistics.median(runs)
+        step_rate = cfg.batch_size * 1e3 / step_ms
+        log(f"[train_adapt] step alone at {cfg.crop_size}x{cfg.crop_size} "
+            f"batch {cfg.batch_size} {cfg.precision}: {step_ms:.3f} ms (median of 5: "
+            f"{', '.join(f'{r:.3f}' for r in runs)}), {step_rate:.2f} "
+            f"images/s; the driver's epochs reach "
+            f"{', '.join(f'{100 * v / step_rate:.1f}' for v in epoch_rate)}% "
+            "of it")
+        del trainer, resumed, state, batch
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1201,6 +1433,8 @@ def main():
         train_check_small(counted)
         torch.cuda.empty_cache()
         step_ms, train_launches, bn_copies = train_full(counted)
+        torch.cuda.empty_cache()
+        adapt_launches = train_adapt_phase(counted)
         bn_entries[0]["composite"] = dict(
             bn_composite, ms_covers="one 512x1024 batch-8 bf16 train step: "
             "all four entries of 120 BatchNorm calls; library_ms: "
@@ -1211,8 +1445,9 @@ def main():
         bn_entries[2]["layout_copies_per_step"] = bn_copies
         for k in kernels:
             paths = {"serve": serve_launches[k["name"]],
-                     "train_step": train_launches[k["name"]]}
-            k["launches"] = paths["serve"] + paths["train_step"]
+                     "train_step": train_launches[k["name"]],
+                     "train_adapt": adapt_launches[k["name"]]}
+            k["launches"] = sum(paths.values())
             k["launches_by_path"] = paths
         dw_entry["per_shape"]["train_step"] = dw_train.pop("per_shape")
         dw_entry["slower_than_library"]["train_step"] = dw_train.pop(

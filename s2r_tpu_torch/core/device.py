@@ -14,6 +14,7 @@ far float32 rounding alone moves a result.
 
 from __future__ import annotations
 
+import os
 from typing import Optional, Union
 
 import torch
@@ -35,6 +36,22 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
     elif dev.type != "cpu":
         raise ValueError(f"s2r_tpu_torch: unsupported device {dev}")
     return dev
+
+
+def device_from_env() -> torch.device:
+    """The CLI drivers' device: ``S2R_PLATFORM=cpu`` selects the CPU;
+    unset or ``cuda`` the card (raising when there is none), as the JAX
+    package's CLIs read the same variable (s2r_tpu/config.py:299)."""
+    plat = os.environ.get("S2R_PLATFORM", "").strip().lower()
+    if plat in ("", "cuda", "gpu"):
+        if not torch.cuda.is_available():
+            raise RuntimeError("s2r_tpu_torch: no CUDA device is available; "
+                               "set S2R_PLATFORM=cpu to run on the CPU")
+        return resolve_device(None)
+    if plat == "cpu":
+        return torch.device("cpu")
+    raise ValueError(f"s2r_tpu_torch: S2R_PLATFORM={plat!r}: the port runs on "
+                     "'cuda' or 'cpu'")
 
 
 def resolve_dtype(dtype: Union[str, torch.dtype]) -> torch.dtype:

@@ -1,0 +1,122 @@
+"""Batched data loading with background prefetch (s2r_tpu/data/loader.py).
+
+- ``make_data_loader(cfg)`` -> (train, val, test, nclass) with the JAX
+  package's split, shuffle and drop_last semantics: shuffle train only,
+  drop_last on train, and on val/test behind ``cfg.val_drop_last``.
+- Samples are made in a thread pool with a bounded prefetch queue and
+  stacked into NHWC numpy batches; ``parallel/feed.py`` moves them to the
+  device.
+- The epoch's order is ``random.Random((seed, epoch).__hash__())``, as in
+  the JAX package.  A tuple of ints hashes the same in every process
+  (PYTHONHASHSEED salts only str and bytes), so the batches are
+  bit-identical to JAX's.
+
+Only ``--dataset synthetic`` is ported; ``gtav`` and ``gtav2cityscapes``
+need a PNG decoder and host transforms without PIL (ROADMAP A.4).
+"""
+
+from __future__ import annotations
+
+import queue
+import random
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, Iterator, List, Optional
+
+import numpy as np
+
+from s2r_tpu_torch.config import Config
+from s2r_tpu_torch.data import synthetic as S
+
+
+def _collate(samples: List[Dict]) -> Dict[str, np.ndarray]:
+    out = {}
+    for k in samples[0]:
+        vals = [s[k] for s in samples]
+        if isinstance(vals[0], str):
+            out[k] = vals
+        else:
+            out[k] = np.stack(vals)
+    return out
+
+
+class DataLoader:
+    def __init__(self, dataset, batch_size: int, shuffle: bool = False,
+                 drop_last: bool = True, num_workers: int = 4, seed: int = 0,
+                 prefetch: int = 4):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.drop_last = drop_last
+        self.num_workers = max(num_workers, 1)
+        self.seed = seed
+        self.prefetch = prefetch
+        self.epoch = 0
+
+    def __len__(self):
+        n = len(self.dataset)
+        if self.drop_last:
+            return n // self.batch_size
+        return (n + self.batch_size - 1) // self.batch_size
+
+    def set_epoch(self, epoch: int):
+        self.epoch = epoch
+
+    def _index_batches(self) -> List[List[int]]:
+        idx = list(range(len(self.dataset)))
+        if self.shuffle:
+            random.Random((self.seed, self.epoch).__hash__()).shuffle(idx)
+        batches = [idx[i:i + self.batch_size]
+                   for i in range(0, len(idx), self.batch_size)]
+        if self.drop_last:
+            return [b for b in batches if len(b) == self.batch_size]
+        return [b for b in batches if b]
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        batches = self._index_batches()
+        epoch = self.epoch
+
+        def fetch(i: int) -> Dict:
+            rng = random.Random((self.seed, epoch, i).__hash__())
+            return self.dataset.__getitem__(i, rng=rng)
+
+        with ThreadPoolExecutor(self.num_workers) as pool:
+            pending = queue.Queue()
+            depth = min(self.prefetch, len(batches))
+
+            def submit(batch_idx: int):
+                pending.put([pool.submit(fetch, i)
+                             for i in batches[batch_idx]])
+
+            for b in range(depth):
+                submit(b)
+            next_to_submit = depth
+            for _ in range(len(batches)):
+                futs = pending.get()
+                if next_to_submit < len(batches):
+                    submit(next_to_submit)
+                    next_to_submit += 1
+                yield _collate([f.result() for f in futs])
+
+
+def make_data_loader(cfg: Config, seed: Optional[int] = None):
+    """(train, val, test, nclass) for ``--dataset synthetic``."""
+    seed = cfg.seed if seed is None else seed
+    if cfg.dataset != "synthetic":
+        raise NotImplementedError(
+            f"s2r_tpu_torch: --dataset {cfg.dataset} is not ported (ROADMAP "
+            "A.4); use --dataset synthetic")
+    kw = dict(num_workers=cfg.workers, seed=seed)
+    train_set = S.SyntheticTrainSet(cfg.crop_size, length=8 * cfg.batch_size,
+                                    staged=cfg.device_aug)
+    eval_n = 4 * max(cfg.batch_size, cfg.test_batch_size, 1)
+    val_set = S.SyntheticEvalSet(cfg.crop_size, length=eval_n)
+    test_set = S.SyntheticEvalSet(cfg.crop_size, length=eval_n // 2, seed=2)
+    # all three loaders use batch_size (the reference parses
+    # --test-batch-size and leaves it unused: dataloders/__init__.py:11-13)
+    train = DataLoader(train_set, cfg.batch_size, shuffle=True,
+                       drop_last=True, **kw)
+    val = DataLoader(val_set, cfg.batch_size, shuffle=False,
+                     drop_last=cfg.val_drop_last, **kw)
+    test = DataLoader(test_set, cfg.batch_size, shuffle=False,
+                      drop_last=cfg.val_drop_last, **kw)
+    return train, val, test, train_set.NUM_CLASSES

@@ -1,0 +1,92 @@
+"""Synthetic datasets for data-free runs and tests (s2r_tpu/data/synthetic.py).
+
+Structured random scenes with a fixed class -> color map (the Cityscapes
+palette), so the task is learnable.  ``_scene`` draws the same numpy
+RandomState stream as the JAX package, so the scenes are bit-identical.
+
+Samples are raw uint8, and the device finishes them: the train set emits
+the staged triple (``src_image``, ``tgt_image``, ``src_label``) for
+``data/device_aug.py``; the eval set emits ``image`` and ``label`` at
+crop x crop, where the JAX eval transform (FixScaleCrop(crop) + Normalize)
+is an identity resize and crop followed by the normalization that
+``device_aug.normalize_u8_batch`` computes on the device.  The JAX
+package's PIL train transforms (``--dataset synthetic`` without
+``--device-aug``) are not ported: that set raises.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+
+from s2r_tpu_torch.data.palette import get_cityscapes_labels
+
+NUM_CLASSES = 19
+
+_COLORS = get_cityscapes_labels().astype(np.uint8)
+
+
+def _scene(rng: np.random.RandomState, h: int, w: int):
+    """A blocky scene: piecewise-constant label regions whose colors are a
+    fixed function of the class, plus noise.  Returns (u8 image, i32 label).
+    """
+    label = np.zeros((h, w), np.int32)
+    image = np.empty((h, w, 3), np.float32)
+    image[:] = _COLORS[0]
+    n_regions = rng.randint(4, 9)
+    for _ in range(n_regions):
+        cls = rng.randint(0, NUM_CLASSES)
+        y0, x0 = rng.randint(0, h), rng.randint(0, w)
+        hh, ww = rng.randint(h // 4, h), rng.randint(w // 4, w)
+        label[y0:y0 + hh, x0:x0 + ww] = cls
+        image[y0:y0 + hh, x0:x0 + ww] = _COLORS[cls]
+    image += rng.randn(h, w, 3).astype(np.float32) * 12.0
+    image = np.clip(image, 0, 255).astype(np.uint8)
+    # sprinkle ignore pixels like real boundaries
+    ignore = rng.rand(h, w) < 0.02
+    label[ignore] = 255
+    return image, label
+
+
+class SyntheticTrainSet:
+    NUM_CLASSES = NUM_CLASSES
+
+    def __init__(self, crop_size: int, length: int = 64, paired: bool = True,
+                 seed: int = 0, staged: bool = False):
+        self.crop = crop_size
+        self.length = length
+        self.paired = paired
+        self.seed = seed
+        self.staged = staged
+
+    def __len__(self):
+        return self.length
+
+    def __getitem__(self, index: int, rng=None) -> Dict[str, np.ndarray]:
+        r = np.random.RandomState(self.seed * 100003 + index)
+        img, lbl = _scene(r, self.crop, self.crop)
+        if not self.paired:
+            return {"image": img, "label": lbl.astype(np.uint8),
+                    "name": f"synthetic_{index:05d}.png"}
+        if not self.staged:
+            raise NotImplementedError(
+                "s2r_tpu_torch: --dataset synthetic trains with --device-aug;"
+                " the host train transforms come with gtav (ROADMAP A.4)")
+        tgt, _ = _scene(r, self.crop, self.crop)
+        return {"src_image": img, "tgt_image": tgt,
+                "src_label": lbl.astype(np.uint8)}
+
+
+class SyntheticEvalSet:
+    NUM_CLASSES = NUM_CLASSES
+
+    def __init__(self, crop_size: int, length: int = 16, seed: int = 1):
+        self.inner = SyntheticTrainSet(crop_size, length, paired=False,
+                                       seed=seed)
+
+    def __len__(self):
+        return len(self.inner)
+
+    def __getitem__(self, index: int, rng=None):
+        return self.inner.__getitem__(index)

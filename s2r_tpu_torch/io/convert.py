@@ -16,6 +16,13 @@ parameter names in the order jax.tree flattens the JAX parameters (dict
 keys sorted at every level), the order of the JAX package's flat optimizer
 buffers (s2r_tpu/train/optim.py FusedOptimizer).
 
+``train_state_from_jax`` carries the numpy trees of a JAX output_adapt
+TrainState (params, batch_stats, opt_state, step) into the port's
+TrainState: the weights and statistics through the converters above, and
+each flat optimizer buffer leaf by leaf (``flat_to_port``), since the two
+packages list the leaves in one order but each in its own layout (ROADMAP
+C.5).
+
 Layouts: conv kernels HWIO -> OIHW (a depthwise [3,3,1,C] becomes
 [C,1,3,3]); BatchNorm scale/bias/mean/var -> weight/bias/running_mean/
 running_var, plus the num_batches_tracked buffer torch expects.
@@ -23,7 +30,7 @@ running_var, plus the num_batches_tracked buffer torch expects.
 
 from __future__ import annotations
 
-from typing import Dict, List, Mapping, Tuple
+from typing import Callable, Dict, List, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -141,3 +148,66 @@ def discriminator_param_order() -> List[str]:
     """The FCDiscriminator's parameter names in JAX flatten order."""
     return [f"{name}.{tname}" for name in sorted(DISC_NAMES)
             for _, tname in _LEAVES["conv_bias"]]
+
+
+def _leaves(tree) -> List[np.ndarray]:
+    """The leaves of nested dicts in jax.tree order (keys sorted at every
+    level)."""
+    if isinstance(tree, Mapping):
+        return [leaf for k in sorted(tree) for leaf in _leaves(tree[k])]
+    return [tree]
+
+
+def _unflatten(tree, leaves: List[np.ndarray]):
+    """Nested dicts shaped like `tree` holding `leaves` (consumed in
+    jax.tree order)."""
+    if isinstance(tree, Mapping):
+        return {k: _unflatten(tree[k], leaves) for k in sorted(tree)}
+    return leaves.pop(0)
+
+
+def flat_to_port(flat, tree: Mapping, convert: Callable[[Mapping], Dict],
+                 order: Sequence[str]) -> torch.Tensor:
+    """A JAX FusedOptimizer buffer (float32, leaves in jax.tree order, each
+    in JAX's layout) -> the port's flat buffer (the same leaf order, each
+    leaf in the port's layout: conv kernels HWIO -> OIHW).  `tree` gives
+    the leaves' shapes, `convert` maps a tree of them to a state_dict, and
+    `order` lists the state_dict's keys in flatten order."""
+    shapes = [np.shape(leaf) for leaf in _leaves(tree)]
+    sizes = np.cumsum([int(np.prod(s)) for s in shapes])[:-1]
+    parts = np.split(np.asarray(flat, np.float32).reshape(-1), sizes)
+    sd = convert(_unflatten(tree, [q.reshape(s)
+                                   for q, s in zip(parts, shapes)]))
+    return torch.cat([sd[k].reshape(-1) for k in order])
+
+
+def train_state_from_jax(state, params: Mapping, batch_stats: Mapping,
+                         opt_state: Mapping, step: int,
+                         output_stride: int = 16):
+    """Load a JAX output_adapt TrainState's numpy trees into the port's
+    TrainState `state` (in place; returned): G's and D's weights and G's
+    BatchNorm statistics, the step, and the optimizer buffers
+    ({'G': {'momentum'}, 'D': {'m', 'v', 'count'}}) converted leaf by leaf
+    to the port's layout on the modules' device.  The dropout generator
+    keeps its state: a JAX PRNG key has no torch counterpart."""
+    state.G.load_state_dict(from_jax_variables(params["G"], batch_stats,
+                                               output_stride), strict=True)
+    state.D.load_state_dict(from_jax_discriminator(params["D"]), strict=True)
+    dev = state.G.device
+
+    def g_buf(flat):
+        return flat_to_port(flat, params["G"],
+                            lambda t: from_jax_variables(t, batch_stats,
+                                                         output_stride),
+                            deeplab_param_order(output_stride)).to(dev)
+
+    def d_buf(flat):
+        return flat_to_port(flat, params["D"], from_jax_discriminator,
+                            discriminator_param_order()).to(dev)
+
+    state.opt_state = {
+        "G": {"momentum": g_buf(opt_state["G"]["momentum"])},
+        "D": {"m": d_buf(opt_state["D"]["m"]), "v": d_buf(opt_state["D"]["v"]),
+              "count": int(np.asarray(opt_state["D"]["count"]))}}
+    state.step = int(np.asarray(step))
+    return state

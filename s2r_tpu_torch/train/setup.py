@@ -1,8 +1,12 @@
 """Method assembly (s2r_tpu/train/setup.py:93-118): models, optimizers, the
-initial TrainState and the step function of a training method.
+initial TrainState, the step function and the eval step of a training
+method.
 
 Only the output-space adaptation method on MobileNetV2 is ported;
-'feature_adapt' and 'source_only' raise NotImplementedError.  Weights are drawn at build time
+'feature_adapt' and 'source_only' raise NotImplementedError, as does a
+Config setting the port lacks (config.check_ported).  One device:
+`n_devices` must be 1, and batch padding (``--batch-pad``), which pays only
+on a TPU, is off for either value.  Weights are drawn at build time
 from `generator` (seeded with ``cfg.seed`` when None) on the CPU, and the
 models then move to `device` (``cuda`` when None).
 """
@@ -14,7 +18,7 @@ from typing import Callable, Optional, Union
 
 import torch
 
-from s2r_tpu_torch.config import Config
+from s2r_tpu_torch.config import Config, check_ported
 from s2r_tpu_torch.core.device import resolve_device
 from s2r_tpu_torch.models.deeplab import DeepLab
 from s2r_tpu_torch.models.discriminator import FCDiscriminator
@@ -23,6 +27,7 @@ from s2r_tpu_torch.train.lr_schedule import make_lr_schedule
 from s2r_tpu_torch.train.optim import SGD, Adam, FusedOptimizer
 from s2r_tpu_torch.train.state import TrainState
 from s2r_tpu_torch.train.steps import (discriminator_params,
+                                       make_eval_step,
                                        make_output_adapt_step,
                                        segmenter_params)
 
@@ -33,18 +38,27 @@ class Method:
     name: str
     deeplab: DeepLab
     step_fn: Callable          # (TrainState, batch) -> (TrainState, metrics)
+    eval_step: Callable        # (image, label) -> (loss, cm, pred)
     init_state: Callable       # () -> TrainState
     aux_model: Optional[torch.nn.Module] = None  # the discriminator
+
+    def eval_variables(self, state: TrainState) -> torch.nn.Module:
+        """The segmenter for eval and inference: the module `state` holds
+        (it carries its own weights and statistics).  Its mode is left as
+        it is: eval_step runs it in eval mode and restores the mode."""
+        return state.G
 
 
 def build_method(cfg: Config, iters_per_epoch: int,
                  class_weights: Optional[torch.Tensor] = None,
                  method: str = "output_adapt",
                  device: Optional[Union[str, torch.device]] = None,
-                 generator: Optional[torch.Generator] = None) -> Method:
-    if method != "output_adapt":
-        raise NotImplementedError(f"method {method!r}: only 'output_adapt' "
-                                  "is ported")
+                 generator: Optional[torch.Generator] = None,
+                 n_devices: int = 1) -> Method:
+    check_ported(cfg, method)
+    if n_devices != 1:
+        raise NotImplementedError(f"n_devices={n_devices}: the port runs on "
+                                  "one device (ROADMAP A.8)")
     device = resolve_device(device)
     if generator is None:
         generator = torch.Generator().manual_seed(cfg.seed)
@@ -64,6 +78,7 @@ def build_method(cfg: Config, iters_per_epoch: int,
     d_opt = Adam(b1=0.9, b2=0.99)
     step_fn = make_output_adapt_step(deeplab, discr, g_opt, d_opt, lr_fn,
                                      seg_loss_fn, cfg.adv_softmax_axis)
+    eval_step = make_eval_step(deeplab, seg_loss_fn, cfg.num_classes)
 
     def init_state() -> TrainState:
         """Step 0, zero optimizer state over the models' current weights,
@@ -76,5 +91,5 @@ def build_method(cfg: Config, iters_per_epoch: int,
                        "D": FusedOptimizer(d_opt, d_params).init(d_params)},
             generator=torch.Generator(device=device).manual_seed(cfg.seed))
 
-    return Method("output_adapt", deeplab, step_fn, init_state,
+    return Method("output_adapt", deeplab, step_fn, eval_step, init_state,
                   aux_model=discr)

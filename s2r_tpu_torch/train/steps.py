@@ -17,6 +17,10 @@ detached maps, as in the reference, so one torch.autograd.grad over the
 summed losses yields exactly G's and D's gradients; D runs three forwards,
 so its first conv's kernel launches three times a step.  No value is read
 back to the host inside the step.
+
+``make_eval_step`` is the validation step (s2r_tpu/train/steps.py:300): an
+eval-mode forward of G, the seg loss on its float32 logits, the argmax and
+the confusion matrix, all on G's device.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from typing import Callable, Dict, List, Tuple
 import torch
 import torch.nn as nn
 
+from s2r_tpu_torch.eval.metrics import confusion_matrix
 from s2r_tpu_torch.io.convert import (deeplab_param_order,
                                       discriminator_param_order)
 from s2r_tpu_torch.train.losses import bce_with_logits
@@ -124,3 +129,31 @@ def make_output_adapt_step(deeplab, discriminator, g_opt, d_opt,
         return state, metrics
 
     return step
+
+
+def make_eval_step(deeplab, seg_loss_fn: Callable, num_classes: int):
+    """eval_step(image, label) -> (loss, cm, pred) on `deeplab`.
+
+    image NHWC float, label [N,H,W] int (tensors or arrays; moved to G's
+    device).  The forward runs in eval mode (running-statistics BatchNorm,
+    no dropout) and the module's mode is restored after it.  loss is a
+    float32 scalar, cm the [C, C] int64 confusion matrix and pred the
+    [N,H,W] argmax, all on the device: nothing is read back to the host.
+    """
+
+    @torch.no_grad()
+    def eval_step(image, label):
+        dev = deeplab.device
+        x = torch.as_tensor(image, device=dev).permute(0, 3, 1, 2)
+        label = torch.as_tensor(label, device=dev)
+        was_training = deeplab.training
+        deeplab.eval()
+        try:
+            logits, _ = deeplab(x)
+        finally:
+            deeplab.train(was_training)
+        loss = seg_loss_fn(logits, label)
+        pred = logits.argmax(1)
+        return loss, confusion_matrix(label, pred, num_classes), pred
+
+    return eval_step

@@ -1,0 +1,221 @@
+"""Trainer: the host-side loop of the output-space adaptation driver
+(s2r_tpu/train/trainer.py:97-397, reference train_adapt.py:29-255).
+
+Data loaders, the method (train/setup.py), class-balanced weights, the
+experiment saver, summaries, resume, and the epoch loop with validation and
+best-mIoU checkpointing, on one device (``cuda`` unless the caller passes
+``device="cpu"``).
+
+- Batches are prefetched to the device (parallel/feed.py) and, with
+  ``--device-aug``, augmented there (data/device_aug.py) from a sampler
+  seeded by (seed, epoch) and the batch index.
+- The step's metrics stay on the device during the epoch and are read once
+  after it, as the JAX package does.
+- Validation accumulates the eval step's confusion matrices on the device
+  in int64 (eval/metrics.py).
+"""
+
+from __future__ import annotations
+
+import glob
+import os
+import time
+from typing import Dict, Optional, Union
+
+import torch
+
+from s2r_tpu_torch.config import Config, check_ported
+from s2r_tpu_torch.core.device import resolve_device
+from s2r_tpu_torch.data import device_aug as DA
+from s2r_tpu_torch.data.loader import make_data_loader
+from s2r_tpu_torch.eval.metrics import evaluate
+from s2r_tpu_torch.io.checkpoint import load_checkpoint, restore_state
+from s2r_tpu_torch.io.saver import CKPT_NAME, Saver
+from s2r_tpu_torch.parallel.feed import prefetch_to_device
+from s2r_tpu_torch.train.setup import Method, build_method
+from s2r_tpu_torch.utils.calculate_weights import load_or_compute_weights
+from s2r_tpu_torch.utils.summaries import TensorboardSummary
+
+
+def latest_checkpoint(directory: str) -> Optional[str]:
+    """The newest checkpoint across a run directory's experiments."""
+    candidates = glob.glob(os.path.join(directory, "experiment_*", CKPT_NAME))
+    return max(candidates, key=os.path.getmtime) if candidates else None
+
+
+def resume_into(state, path: str, ft: bool):
+    """Load checkpoint `path` into `state`: with `ft` (the reference's
+    default) the weights and BatchNorm statistics only, a fresh optimizer,
+    step and dropout generator; else everything.  Returns (epoch,
+    best_pred) of the checkpoint."""
+    if not os.path.isfile(path):
+        raise RuntimeError(f"=> no checkpoint found at '{path}'")
+    payload = load_checkpoint(path)
+    restore_state(state, payload["state"], full=not ft)
+    print(f"=> loaded checkpoint '{path}' (epoch {payload['epoch']})")
+    return payload["epoch"], payload["best_pred"]
+
+
+class Trainer:
+    def __init__(self, cfg: Config, method: str = "output_adapt",
+                 device: Optional[Union[str, torch.device]] = None):
+        check_ported(cfg, method)
+        if cfg.dataset == "synthetic" and not cfg.device_aug:
+            raise NotImplementedError(
+                "s2r_tpu_torch: --dataset synthetic trains with --device-aug;"
+                " the host train transforms come with gtav (ROADMAP A.4)")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.saver = Saver(cfg)
+        self.saver.save_experiment_config()
+        self.summary = TensorboardSummary(self.saver.experiment_dir)
+        self.writer = self.summary.create_summary()
+
+        self.train_loader, self.val_loader, self.test_loader, self.nclass = \
+            make_data_loader(cfg)
+        weights = None
+        if cfg.use_balanced_weights:
+            weights = torch.as_tensor(load_or_compute_weights(
+                cfg, self.train_loader, self.nclass), device=self.device)
+        self.method: Method = build_method(cfg, len(self.train_loader),
+                                           weights, method,
+                                           device=self.device)
+        self.state = self.method.init_state()
+        self.train_step = self.method.step_fn
+        self.eval_step = self.method.eval_step
+        self.best_pred = 0.0
+        self.start_epoch = cfg.start_epoch
+        if cfg.resume:
+            self._resume(cfg.resume)
+
+    # ------------------------------------------------------------------
+    def _resume(self, path: str):
+        """Resume from a checkpoint of the port (train_adapt.py:94-113):
+        with --ft (the default) the optimizer state is not restored and
+        start_epoch stays; ``auto`` takes the newest checkpoint of this
+        run directory."""
+        if path == "auto":
+            path = latest_checkpoint(self.saver.directory)
+            if path is None:
+                print("=> --resume auto: no prior checkpoint found, "
+                      "starting fresh")
+                return
+        epoch, self.best_pred = resume_into(self.state, path, self.cfg.ft)
+        if not self.cfg.ft:
+            self.start_epoch = epoch
+
+    # ------------------------------------------------------------------
+    def _finish_batch(self, arrays: Dict, epoch: int, i: int) -> Dict:
+        """A device batch of uint8 frames -> the step's inputs."""
+        cfg = self.cfg
+        if not cfg.device_aug:
+            return DA.normalize_u8_batch(arrays)
+        gen = DA.batch_generator(cfg.seed, epoch, i)
+        if "src_image" in arrays:
+            return DA.augment_paired_batch(arrays, gen, cfg.base_size,
+                                           cfg.crop_size)
+        return DA.augment_batch(arrays, gen, cfg.base_size, cfg.crop_size)
+
+    def training(self, epoch: int) -> Dict[str, float]:
+        cfg = self.cfg
+        self.train_loader.set_epoch(epoch)
+        num_img_tr = len(self.train_loader)
+        # ~10 image summaries an epoch (train_adapt.py:189); short epochs
+        # log once
+        vis_every = max(num_img_tr // 10, 1) if num_img_tr >= 10 \
+            else max(num_img_tr, 1)
+        pending = []  # device scalars, read after the epoch
+        t0 = time.time()
+        images_seen = 0
+        for i, batch in enumerate(prefetch_to_device(self.train_loader,
+                                                     self.device)):
+            arrays = self._finish_batch(
+                {k: v for k, v in batch.items() if torch.is_tensor(v)},
+                epoch, i)
+            self.state, metrics = self.train_step(self.state, arrays)
+            pending.append(metrics)
+            images_seen += cfg.batch_size
+            if i % vis_every == 0:
+                self._log_train_images(arrays, epoch * num_img_tr + i)
+
+        sums: Dict[str, float] = {}
+        if pending:
+            for k in pending[0]:
+                for v in torch.stack([m[k].double() for m in pending]
+                                     ).cpu().tolist():
+                    sums[k] = sums.get(k, 0.0) + v
+        dt = time.time() - t0
+        means = {k: v / max(len(pending), 1) for k, v in sums.items()}
+        means["images_per_sec"] = images_seen / max(dt, 1e-9)
+        for k, v in means.items():
+            self.writer.add_scalar(f"train/{k}", v, epoch)
+        loss_keys = [k for k in ("seg_loss", "adv_loss", "d_loss")
+                     if k in sums]
+        print(f"[Epoch: {epoch}, numImages: {images_seen:5d}] "
+              + " ".join(f"{k}: {means[k]:.3f}" for k in loss_keys)
+              + f" ({means['images_per_sec']:.1f} img/s)")
+
+        if cfg.no_val:
+            self.saver.save_checkpoint(self.state, epoch + 1, self.best_pred,
+                                       is_best=False)
+        return means
+
+    def _log_train_images(self, arrays: Dict, global_step: int):
+        try:
+            img_key = "image" if "image" in arrays else "src_image"
+            lbl_key = "label" if "label" in arrays else "src_label"
+            image, label = arrays[img_key][:3], arrays[lbl_key][:3]
+            _, _, pred = self.eval_step(image, label)
+            self.summary.visualize_image(
+                self.writer, self.cfg.dataset, image.cpu().numpy(),
+                label.cpu().numpy(), pred.cpu().numpy(), global_step)
+        except Exception as e:  # noqa: BLE001 — never kills training
+            print(f"[warn] train image logging failed: {e}")
+
+    # ------------------------------------------------------------------
+    def validation(self, epoch: int) -> float:
+        ev, test_loss = evaluate(self.eval_step, self.val_loader,
+                                 self.device, self.nclass)
+        acc = ev.Pixel_Accuracy()
+        acc_class = ev.Pixel_Accuracy_Class()
+        miou, _ = ev.Mean_Intersection_over_Union()
+        fwiou = ev.Frequency_Weighted_Intersection_over_Union()
+        self.writer.add_scalar("val/total_loss_epoch", test_loss, epoch)
+        self.writer.add_scalar("val/mIoU", miou, epoch)
+        self.writer.add_scalar("val/Acc", acc, epoch)
+        self.writer.add_scalar("val/Acc_class", acc_class, epoch)
+        self.writer.add_scalar("val/fwIoU", fwiou, epoch)
+        print("Validation:")
+        print(f"[Epoch: {epoch}] Acc:{acc:.4f}, Acc_class:{acc_class:.4f}, "
+              f"mIoU:{miou:.4f}, fwIoU: {fwiou:.4f}, Loss: {test_loss:.3f}")
+
+        if miou > self.best_pred:
+            self.best_pred = miou
+            self.saver.save_checkpoint(self.state, epoch + 1, self.best_pred,
+                                       is_best=True)
+        return miou
+
+    # ------------------------------------------------------------------
+    def fit(self):
+        cfg = self.cfg
+        print(f"Starting Epoch: {self.start_epoch}")
+        print(f"Total Epoches: {cfg.epochs}")
+        epoch = self.start_epoch
+        try:
+            for epoch in range(self.start_epoch, cfg.epochs):
+                self.training(epoch)
+                if not cfg.no_val and \
+                        epoch % cfg.eval_interval == (cfg.eval_interval - 1):
+                    self.validation(epoch)
+        except KeyboardInterrupt:
+            # an interrupt should not cost the epoch
+            print(f"\n=> interrupted at epoch {epoch}; saving checkpoint")
+            self.saver.save_checkpoint(self.state, epoch, self.best_pred,
+                                       is_best=False)
+            raise
+        finally:
+            # every submitted save is on disk (or its error raised) before
+            # fit() returns
+            self.saver.wait()
+            self.writer.close()
+

@@ -15,7 +15,7 @@ import jax.numpy as jnp
 import torch
 
 from s2r_tpu.models import DeepLab as JaxDeepLab
-from s2r_tpu_torch.io.convert import from_jax_variables
+from s2r_tpu_torch.io.convert import flat_to_port, from_jax_variables  # noqa: F401
 from s2r_tpu_torch.models.deeplab import DeepLab
 
 HW = 65
@@ -119,20 +119,6 @@ def perturb_affine(tree, seed: int = 2):
     return walk(tree)
 
 
-def flat_to_port(flat, tree, convert, order):
-    """A JAX FusedOptimizer buffer (float32, leaves in jax.tree order, each
-    in JAX's layout) -> the port's flat buffer (the same leaf order, each
-    leaf in the port's layout: conv kernels HWIO -> OIHW).  `tree` gives
-    the leaves' shapes, `convert` maps a tree of them to a state_dict, and
-    `order` lists the state_dict's keys in flatten order."""
-    leaves, treedef = jax.tree_util.tree_flatten(tree)
-    sizes = np.cumsum([np.asarray(leaf).size for leaf in leaves])[:-1]
-    parts = np.split(np.asarray(flat, np.float32), sizes)
-    sd = convert(jax.tree_util.tree_unflatten(
-        treedef, [q.reshape(np.shape(leaf)) for q, leaf in zip(parts, leaves)]))
-    return torch.cat([sd[k].reshape(-1) for k in order])
-
-
 def port_step_from_jax(params, stats, opt_state, step: int, batch,
                        precision: str):
     """One step of the port's output_adapt method started from a JAX
@@ -141,35 +127,15 @@ def port_step_from_jax(params, stats, opt_state, step: int, batch,
     off, on the CPU.  Returns (metrics as floats, G state_dict, D
     state_dict, opt_state), tensors as float64 copies."""
     from s2r_tpu_torch.config import Config
-    from s2r_tpu_torch.io.convert import (deeplab_param_order,
-                                          discriminator_param_order,
-                                          from_jax_discriminator)
+    from s2r_tpu_torch.io.convert import train_state_from_jax
     from s2r_tpu_torch.models.layers import set_dropout
     from s2r_tpu_torch.train.setup import build_method
 
     pm = build_method(Config(precision=precision), iters_per_epoch=10,
                       device="cpu")
-    pm.deeplab.load_state_dict(from_jax_variables(params["G"], stats),
-                               strict=True)
-    pm.aux_model.load_state_dict(from_jax_discriminator(params["D"]),
-                                 strict=True)
     set_dropout(pm.deeplab, False)
-
-    def g_buf(flat):
-        return flat_to_port(flat, params["G"],
-                            lambda t: from_jax_variables(t, stats),
-                            deeplab_param_order())
-
-    def d_buf(flat):
-        return flat_to_port(flat, params["D"], from_jax_discriminator,
-                            discriminator_param_order())
-
-    state = pm.init_state()
-    state.step = int(step)
-    state.opt_state = {
-        "G": {"momentum": g_buf(opt_state["G"]["momentum"])},
-        "D": {"m": d_buf(opt_state["D"]["m"]), "v": d_buf(opt_state["D"]["v"]),
-              "count": int(opt_state["D"]["count"])}}
+    state = train_state_from_jax(pm.init_state(), params, stats, opt_state,
+                                 step)
     state, met = pm.step_fn(state, batch)
     return ({k: float(v) for k, v in met.items()},
             {k: v.detach().double().clone()

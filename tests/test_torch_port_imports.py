@@ -17,7 +17,7 @@ import sys
 
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "flax", "msgpack", "PIL", "s2r_tpu")
+FORBIDDEN = ("jax", "flax", "msgpack", "PIL", "s2r_tpu", "tensorboard")
 
 _CHILD = """
 import importlib, json, pkgutil, sys
@@ -53,7 +53,17 @@ def test_port_imports_no_jax_flax_or_jax_package():
                 "s2r_tpu_torch.ops.kernels.disc_conv",
                 "s2r_tpu_torch.models.discriminator",
                 "s2r_tpu_torch.train.steps", "s2r_tpu_torch.train.setup",
-                "s2r_tpu_torch.tools.profile_train"):
+                "s2r_tpu_torch.tools.profile_train",
+                "s2r_tpu_torch.config", "s2r_tpu_torch.eval.metrics",
+                "s2r_tpu_torch.data.palette", "s2r_tpu_torch.data.synthetic",
+                "s2r_tpu_torch.data.loader", "s2r_tpu_torch.data.device_aug",
+                "s2r_tpu_torch.parallel.feed", "s2r_tpu_torch.io.checkpoint",
+                "s2r_tpu_torch.io.saver", "s2r_tpu_torch.utils.png",
+                "s2r_tpu_torch.utils.summaries",
+                "s2r_tpu_torch.utils.calculate_weights",
+                "s2r_tpu_torch.train.trainer",
+                "s2r_tpu_torch.cli.train_adapt", "s2r_tpu_torch.cli.val_adapt",
+                "s2r_tpu_torch.cli.val", "s2r_tpu_torch.cli._eval_common"):
         assert mod in result["modules"]
     leaked = [m for m in FORBIDDEN if m in result["loaded"]]
     assert not leaked, leaked

@@ -1,0 +1,414 @@
+"""The port's drivers against the JAX package's (s2r_tpu/config.py,
+io/saver.py, train/trainer.py, cli/train_adapt.py, cli/val_adapt.py), on
+the CPU.
+
+- config_from_args equals JAX's field by field for a set of argv lists,
+  and the two parsers register the same flags, dests, defaults and
+  choices; each flag whose feature the port lacks raises.
+- Saver: the same files and model_best promotions as JAX's over one
+  sequence of best_preds across three experiments.
+- An asynchronous save holds the pre-step values even when a step runs
+  before wait().
+- train_state_from_jax maps each optimizer leaf to its OIHW counterpart.
+- train_adapt end to end at crop 32, batch 2, f32, S2R_PLATFORM=cpu; then
+  val_adapt on model_best.ckpt reproduces the Trainer's mIoU.
+- 2 epochs straight are bit-equal to 1 epoch + resume (ft=False) + 1 epoch.
+- --resume of a JAX checkpoint or a reference .pth raises.
+"""
+
+import argparse
+import dataclasses
+import json
+import os
+import threading
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+
+from s2r_tpu import config as JC
+from s2r_tpu_torch import config as PC
+
+from _torch_port_common import jax_deeplab, perturb_affine, torch_threads
+
+ARGVS = [
+    [],
+    ["--dataset", "synthetic", "--device-aug", "--epochs", "3",
+     "--batch-size", "8", "--crop-size", "512", "--base-size", "512",
+     "--precision", "f32", "--workers", "4"],
+    ["--lr", "0.01", "--lr-scheduler", "cos", "--warmup-epochs", "2",
+     "--momentum", "0.5", "--weight-decay", "0.001", "--nesterov",
+     "--use_balanced_weights", "--loss-type", "focal", "--seed", "7",
+     "--freeze-bn", "true", "--sync-bn", "false", "--no_d_loss", "yes"],
+    ["--resume", "auto", "--checkname", "x", "--ft", "--eval-interval", "2",
+     "--no-val", "--no-async-save", "--run-root", "/tmp/r",
+     "--adv-softmax-axis", "class", "--no-val-drop-last", "--batch-pad",
+     "off", "--prng-impl", "threefry2x32", "--num-devices", "1",
+     "--data-cache", "--data-cache-gb", "2.5", "--test-batch-size", "3",
+     "--optimizer", "Adam", "--start_epoch", "4", "--lr-step", "5",
+     "--out-stride", "8", "--src_img_root", "a", "--val_label_root", "b"],
+]
+
+UNPORTED = [(["--backbone", "resnet"], "--backbone"),
+            (["--num-devices", "2"], "--num-devices"),
+            (["--spatial-shard", "2"], "--spatial-shard"),
+            (["--eval-spatial-shard"], "--eval-spatial-shard"),
+            (["--data-backend", "native"], "--data-backend"),
+            (["--remat"], "--remat"),
+            (["--fast-pad-stats"], "--fast-pad-stats"),
+            (["--logits-dtype", "bf16"], "--logits-dtype"),
+            (["--split-concat"], "--split-concat"),
+            (["--profile-dir", "p"], "--profile-dir"),
+            (["--backbone-init", "m.pth"], "--backbone-init")]
+
+
+def _parse(mod, argv):
+    p = argparse.ArgumentParser()
+    mod.add_common_flags(p)
+    return p, p.parse_args(argv)
+
+
+@pytest.mark.parametrize("argv", ARGVS)
+def test_config_from_args_equals_jax(argv):
+    want = JC.config_from_args(_parse(JC, argv)[1])
+    got = PC.config_from_args(_parse(PC, argv)[1])
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert got.to_json() == want.to_json()
+    assert PC.Config.from_json(got.to_json()) == got
+
+
+def test_parsers_register_the_same_flags():
+    def flags(mod):
+        return {tuple(a.option_strings): (a.dest, a.default, a.choices,
+                                          type(a).__name__)
+                for a in _parse(mod, [])[0]._actions}
+    assert flags(PC) == flags(JC)
+    assert ([f.name for f in dataclasses.fields(PC.Config)]
+            == [f.name for f in dataclasses.fields(JC.Config)])
+    assert dataclasses.asdict(PC.Config()) == dataclasses.asdict(JC.Config())
+
+
+@pytest.mark.parametrize("argv,flag", UNPORTED)
+def test_unported_flag_raises(argv, flag):
+    with pytest.raises(NotImplementedError, match=flag):
+        PC.config_from_args(_parse(PC, argv)[1])
+
+
+def test_unported_methods_raise():
+    from s2r_tpu_torch.train.setup import build_method
+
+    for method in ("feature_adapt", "source_only"):
+        with pytest.raises(NotImplementedError, match="A.6"):
+            build_method(PC.Config(), 1, method=method, device="cpu")
+    with pytest.raises(NotImplementedError, match="A.8"):
+        build_method(PC.Config(), 1, device="cpu", n_devices=2)
+
+
+def _promotions(saver_cls, cfg, save, load, tmp_path):
+    """Run three experiments' best_pred sequences; return, after each save,
+    the files under the run root and model_best's (epoch, best_pred)."""
+    seen = []
+    for run, preds in enumerate(([0.3, 0.5], [0.4], [0.45, 0.6])):
+        saver = saver_cls(cfg)
+        saver.save_experiment_config()
+        for k, pred in enumerate(preds):
+            save(saver, 10 * run + k, pred)
+            saver.wait()
+            files = sorted(os.path.relpath(os.path.join(d, f), tmp_path)
+                           for d, _, fs in os.walk(tmp_path) for f in fs)
+            best = os.path.join(saver.directory, "model_best.ckpt")
+            with open(os.path.join(saver.experiment_dir,
+                                   "best_pred.txt")) as f:
+                text = f.read()
+            seen.append((files, load(best), text))
+    return seen
+
+
+def test_saver_matches_jax(tmp_path):
+    from s2r_tpu.io.checkpoint import load_checkpoint as jax_load
+    from s2r_tpu.io.saver import Saver as JaxSaver
+    from s2r_tpu_torch.io.checkpoint import load_checkpoint
+    from s2r_tpu_torch.io.saver import Saver
+    from s2r_tpu_torch.train.state import TrainState
+
+    kw = dict(dataset="synthetic", checkname="c")
+    j_root, p_root = tmp_path / "j", tmp_path / "p"
+
+    def j_save(saver, epoch, pred):
+        saver.save_checkpoint({"w": np.ones(2, np.float32)}, epoch, pred,
+                              is_best=True)
+
+    def p_save(saver, epoch, pred):
+        state = TrainState(step=epoch, G=torch.nn.Linear(2, 2),
+                           D=torch.nn.Linear(2, 1), opt_state={},
+                           generator=torch.Generator())
+        saver.save_checkpoint(state, epoch, pred, is_best=True)
+
+    def j_load(path):
+        d = jax_load(path)
+        return int(d["epoch"]), float(d["best_pred"])
+
+    def p_load(path):
+        d = load_checkpoint(path)
+        return d["epoch"], d["best_pred"]
+
+    want = _promotions(JaxSaver, JC.Config(run_root=str(j_root), **kw),
+                       j_save, j_load, j_root)
+    got = _promotions(Saver, PC.Config(run_root=str(p_root), **kw), p_save,
+                      p_load, p_root)
+    assert got == want
+    # the third experiment promoted 0.6, the second kept 0.5
+    assert [b for _, b, _ in got] == [(0, 0.3), (1, 0.5), (1, 0.5),
+                                      (1, 0.5), (21, 0.6)]
+    for name in ("parameters.txt", "config.json"):
+        rel = os.path.join("synthetic", "c", "experiment_0", name)
+        if name == "config.json":
+            j, p = (json.loads((r / rel).read_text()) for r in (j_root,
+                                                                 p_root))
+            j["run_root"] = p["run_root"] = None
+            assert p == j
+        else:
+            assert (p_root / rel).read_bytes() == (j_root / rel).read_bytes()
+
+
+def _tiny_method():
+    from s2r_tpu_torch.train.setup import build_method
+
+    return build_method(PC.Config(precision="f32"), 4, device="cpu")
+
+
+def _batch(seed, hw=32, n=2):
+    rs = np.random.RandomState(seed)
+    return {"src_image": rs.randn(n, hw, hw, 3).astype(np.float32),
+            "tgt_image": rs.randn(n, hw, hw, 3).astype(np.float32),
+            "src_label": rs.randint(0, 19, (n, hw, hw)).astype(np.int64)}
+
+
+def _flat(state):
+    from s2r_tpu_torch.io.checkpoint import host_tree
+
+    return host_tree(state)
+
+
+def _tree_equal(a, b):
+    if torch.is_tensor(a):
+        return torch.is_tensor(b) and a.dtype == b.dtype and torch.equal(a, b)
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and sorted(a) == sorted(b)
+                and all(_tree_equal(a[k], b[k]) for k in a))
+    return a == b
+
+
+def test_async_save_holds_pre_step_values(tmp_path):
+    from s2r_tpu_torch.io.checkpoint import load_checkpoint, save_checkpoint
+    from s2r_tpu_torch.io.saver import Saver
+
+    with torch_threads():
+        m = _tiny_method()
+        state = m.init_state()
+        state, _ = m.step_fn(state, _batch(0))
+        before = _flat(state)
+        saver = Saver(PC.Config(run_root=str(tmp_path), dataset="synthetic"))
+        gate = threading.Event()
+        saver._writer.submit(gate.wait)  # hold the writer thread
+        path = saver.save_checkpoint(state, 1, 0.5, is_best=False)
+        state, _ = m.step_fn(state, _batch(1))  # updates in place
+        gate.set()
+        saver.wait()
+        after = _flat(state)
+    saved = load_checkpoint(path)["state"]
+    assert _tree_equal(saved, before)
+    assert not _tree_equal(saved["G"], after["G"])
+    assert saved["step"] == 1 and after["step"] == 2
+    # a synchronous save writes the state as it is now
+    sync = str(tmp_path / "sync.ckpt")
+    save_checkpoint(sync, state, 2, 0.25, extra={"note": "x"})
+    payload = load_checkpoint(sync)
+    assert _tree_equal(payload["state"], after)
+    assert (payload["epoch"], payload["best_pred"], payload["extra"]) == (
+        2, 0.25, {"note": "x"})
+
+
+def test_train_state_from_jax_maps_optimizer_leaves():
+    from jax.flatten_util import ravel_pytree
+
+    from s2r_tpu.models import FCDiscriminator as JaxD
+    from s2r_tpu_torch.io.convert import (deeplab_param_order,
+                                          discriminator_param_order,
+                                          train_state_from_jax)
+
+    _, params_g, stats = jax_deeplab(33)
+    params_g = perturb_affine(params_g)
+    vd = jax.jit(lambda: JaxD(num_classes=19).init(
+        jax.random.PRNGKey(1), jax.numpy.zeros((1, 32, 32, 19))))()
+    params = {"G": params_g,
+              "D": jax.tree_util.tree_map(np.asarray, vd["params"])}
+    flat_g, flat_d = (np.asarray(ravel_pytree(params[k])[0])
+                      for k in ("G", "D"))
+    # each buffer holds the parameters themselves, so every leaf of the
+    # port's buffer must equal the port's parameter it belongs to
+    opt = {"G": {"momentum": flat_g},
+           "D": {"m": flat_d, "v": 2 * flat_d, "count": np.int32(5)}}
+    with torch_threads():
+        m = _tiny_method()
+        state = train_state_from_jax(m.init_state(), params, stats, opt,
+                                     np.int32(17))
+        g = dict(state.G.named_parameters())
+        d = dict(state.D.named_parameters())
+        want_g = torch.cat([g[k].detach().reshape(-1)
+                            for k in deeplab_param_order()])
+        want_d = torch.cat([d[k].detach().reshape(-1)
+                            for k in discriminator_param_order()])
+    assert torch.equal(state.opt_state["G"]["momentum"], want_g)
+    assert torch.equal(state.opt_state["D"]["m"], want_d)
+    assert torch.equal(state.opt_state["D"]["v"], 2 * want_d)
+    assert state.opt_state["D"]["count"] == 5 and state.step == 17
+    # a conv kernel really was transposed, not copied flat
+    k = "backbone.features.0.0.weight"
+    assert g[k].shape == (32, 3, 3, 3)
+    np.testing.assert_array_equal(
+        g[k].detach().numpy(),
+        np.transpose(params_g["backbone"]["features_0_conv"]["kernel"],
+                     (3, 2, 0, 1)))
+
+
+ARGV = ["--dataset", "synthetic", "--device-aug", "--batch-size", "2",
+        "--crop-size", "32", "--base-size", "32", "--precision", "f32",
+        "--workers", "2"]
+
+
+@pytest.fixture(scope="module")
+def fitted(tmp_path_factory):
+    """train_adapt's main, one epoch, on the CPU through S2R_PLATFORM."""
+    from s2r_tpu_torch.cli import train_adapt
+
+    root = tmp_path_factory.mktemp("fit")
+    mp = pytest.MonkeyPatch()
+    mp.setenv("S2R_PLATFORM", "cpu")
+    try:
+        with torch_threads():
+            trainer = train_adapt.main(ARGV + ["--epochs", "1", "--run-root",
+                                               str(root)])
+    finally:
+        mp.undo()
+    return trainer, root
+
+
+def test_train_adapt_end_to_end(fitted):
+    trainer, root = fitted
+    exp = trainer.saver.experiment_dir
+    assert exp == os.path.join(str(root), "synthetic", "deeplab-mobilenet",
+                               "experiment_0")
+    for name in ("checkpoint.ckpt", "best_pred.txt", "parameters.txt",
+                 "config.json", "scalars.jsonl"):
+        assert os.path.isfile(os.path.join(exp, name)), name
+    assert os.path.isfile(os.path.join(trainer.saver.directory,
+                                       "model_best.ckpt"))
+    rows = [json.loads(line) for line in
+            open(os.path.join(exp, "scalars.jsonl"))]
+    tags = {r["tag"]: r["value"] for r in rows}
+    for k in ("train/seg_loss", "train/adv_loss", "train/d_loss",
+              "val/total_loss_epoch"):
+        assert np.isfinite(tags[k]), k
+    assert 0.0 < tags["val/mIoU"] <= 1.0
+    assert tags["val/mIoU"] == trainer.best_pred
+    assert float(open(os.path.join(exp, "best_pred.txt")).read()) == \
+        trainer.best_pred
+    assert os.path.isfile(os.path.join(exp, "images",
+                                       "Image_00000000.png"))
+    assert trainer.state.step == len(trainer.train_loader) == 8
+
+
+def test_val_adapt_reproduces_mIoU(fitted, tmp_path, monkeypatch):
+    from s2r_tpu_torch.cli import val_adapt
+
+    trainer, _ = fitted
+    best = os.path.join(trainer.saver.directory, "model_best.ckpt")
+    monkeypatch.setenv("S2R_PLATFORM", "cpu")
+    with torch_threads():
+        miou, iou = val_adapt.main(ARGV + ["--resume", best, "--skip-sep",
+                                           "--out-dir", str(tmp_path)])
+    assert miou == trainer.best_pred
+    assert (tmp_path / "val_info.txt").read_text().startswith("Validation:")
+    with pytest.raises(NotImplementedError, match="--skip-sep"):
+        val_adapt.main(ARGV + ["--resume", best])
+
+
+def test_no_card_raises_without_cpu_platform(monkeypatch):
+    from s2r_tpu_torch.cli import train_adapt
+
+    monkeypatch.delenv("S2R_PLATFORM", raising=False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="S2R_PLATFORM=cpu"):
+        train_adapt.main(ARGV + ["--epochs", "1"])
+
+
+def test_resume_is_bit_identical(tmp_path):
+    from s2r_tpu_torch.train.trainer import Trainer
+
+    def cfg(root, **kw):
+        return PC.Config(dataset="synthetic", device_aug=True, batch_size=2,
+                         crop_size=32, base_size=32, precision="f32",
+                         workers=2, epochs=2, no_val=True,
+                         run_root=str(tmp_path / root), **kw)
+
+    with torch_threads():
+        straight = Trainer(cfg("a"), device="cpu")
+        straight.fit()
+        first = Trainer(cfg("b"), device="cpu")
+        first.training(0)
+        first.saver.wait()
+        ckpt = os.path.join(first.saver.experiment_dir, "checkpoint.ckpt")
+        resumed = Trainer(cfg("b", resume=ckpt, ft=False), device="cpu")
+        assert resumed.start_epoch == 1
+        assert _tree_equal(_flat(resumed.state), _flat(first.state))
+        resumed.fit()
+    assert resumed.state.step == straight.state.step == 16
+    assert _tree_equal(_flat(resumed.state), _flat(straight.state))
+
+
+def test_resume_with_ft_loads_weights_only(tmp_path, fitted):
+    from s2r_tpu_torch.train.trainer import Trainer
+
+    trainer, _ = fitted
+    ckpt = os.path.join(trainer.saver.experiment_dir, "checkpoint.ckpt")
+    with torch_threads():
+        t = Trainer(PC.Config(dataset="synthetic", device_aug=True,
+                              batch_size=2, crop_size=32, base_size=32,
+                              precision="f32", workers=2,
+                              run_root=str(tmp_path), resume=ckpt),
+                    device="cpu")
+    got, want = _flat(t.state), _flat(trainer.state)
+    assert _tree_equal(got["G"], want["G"]) and _tree_equal(got["D"],
+                                                            want["D"])
+    assert got["step"] == 0 and t.start_epoch == 0
+    assert float(got["opt_state"]["G"]["momentum"].abs().max()) == 0.0
+    assert t.best_pred == trainer.best_pred
+
+
+@pytest.mark.parametrize("kind", ["jax", "pth"])
+def test_resume_of_foreign_checkpoint_raises(tmp_path, kind):
+    from s2r_tpu.io.checkpoint import save_checkpoint as jax_save
+    from s2r_tpu_torch.train.trainer import Trainer
+
+    if kind == "jax":
+        path = str(tmp_path / "jax.ckpt")
+        jax_save(path, {"w": np.ones(2, np.float32)}, 1, 0.5)
+    else:
+        path = str(tmp_path / "ref.pth")
+        torch.save({"state_dict": {}}, path)
+    with pytest.raises(NotImplementedError, match="A.3"):
+        Trainer(PC.Config(dataset="synthetic", device_aug=True, batch_size=2,
+                          crop_size=32, base_size=32, workers=1,
+                          run_root=str(tmp_path / "run"), resume=path),
+                device="cpu")
+
+
+def test_synthetic_without_device_aug_raises(tmp_path):
+    from s2r_tpu_torch.train.trainer import Trainer
+
+    with pytest.raises(NotImplementedError, match="--device-aug"):
+        Trainer(PC.Config(dataset="synthetic", run_root=str(tmp_path)),
+                device="cpu")
