@@ -80,13 +80,42 @@ Phases, each of which must pass:
    CPU on the same sampled parameters (images within 1e-4, labels equal);
    validation ms/image and the step-only images/s at 512x512 beside each
    epoch's images/s.
-6. Print the kernels line, the card's name and power limit, and as the last
-   line {"ok": true, "device": {...}}.
+6. The feature-space adaptation and source-only methods (build_method
+   'feature_adapt' and 'source_only': G with the DomainClassifier on the
+   ASPP feature, one gradient of task + d + d_inv, three optimizer steps).
+   (a) One 128x128 batch-2 float32 step of each on the card against the
+   CPU (float32 and the float64 reference), from phase 4a's weights with
+   the domain classifier's BatchNorms perturbed too, dropout off: losses
+   rtol 1e-4, running statistics of G and D within 1e-3 of each layer's
+   largest, G's gradient (from the 'task' buffer) and D's (from 'd') per
+   leaf within LEAF_BOUND of the float64 run as in 4a; source-only leaves
+   D, its statistics and buffers untouched and its domain metrics zero.
+   (b) bench.py's feature cell (512x1024 batch 8 bf16) and source-only
+   cell (513x513 batch 4 bf16): median of 5 steps by CUDA events after 2
+   warm-up, ms/step, images/s, peak memory, and the launches of one step:
+   depthwise 56/28, dk 28/14, BatchNorm stats and apply 124/60, grad_sums
+   and dx 121/60 (the target logits feed no loss, so the decoder's three
+   BatchNorms of the target forward take no backward), disc_conv1 and
+   requant 0 (STEP_LAUNCHES).  (c) The kernels at this path's new
+   shapes against their plain versions: depthwise forward, dx and dk at
+   the 513x513 batch-4 layers; the BatchNorm entries (in phase 2d's loop)
+   at the source-only cell's inputs and the domain classifier's C = 1024
+   rows without a ring (8x32x64, and the driver's 8x32x32).  (d) The
+   train driver, ``s2r_tpu_torch.cli.train.main`` (feature_adapt,
+   --dataset synthetic --device-aug, 512x512 batch 8 bf16, one epoch),
+   its launches as predicted; a Trainer resumed from its final state
+   with ft off (bit-equal) for one more epoch; ``cli.val`` on
+   model_best.ckpt with the per-image export (mIoU within 1e-4 of the
+   Trainer's, one labelId and one color PNG an image at 1280x640) and
+   ``cli.test`` (the same PNGs), each with its depthwise launches counted.
+7. Print the kernels line (each kernel's launches by path), the card's
+   name and power limit, and as the last line {"ok": true, "device":
+   {...}}.
 
 Without a CUDA device, or outside a checkout holding s2r_tpu_torch, it exits
 non-zero and prints no result.  Float32 convs run with TF32 off.  It writes
 the kernel build directory, and phase 5's run root in the temporary
-directory, which it removes.
+directory (and phase 6d's), which it removes.
 """
 
 import dataclasses
@@ -124,7 +153,31 @@ ADAPT_ARGV = ["--dataset", "synthetic", "--device-aug",
               "--crop-size", str(ADAPT_HW[0]), "--base-size", str(ADAPT_HW[0]),
               "--batch-size", str(ADAPT_BATCH), "--epochs", "2",
               "--precision", "bf16", "--workers", "4"]
-LEAF_BOUND = 3e-2           # phase 4a, per leaf of G's gradient (float32)
+LEAF_BOUND = 3e-2           # phases 4a and 6a, per gradient leaf (float32)
+# phase 6: bench.py's source-only cell (config 2; the feature cell, config
+# 3, is TRAIN_HW at BATCH), and the train driver (feature_adapt), one epoch
+# of 8 steps and 4 validation batches, then a resumed one
+SOURCE_HW, SOURCE_BATCH = (513, 513), 4
+TRAIN_ARGV = ["--dataset", "synthetic", "--device-aug",
+              "--crop-size", str(ADAPT_HW[0]), "--base-size", str(ADAPT_HW[0]),
+              "--batch-size", str(ADAPT_BATCH), "--epochs", "1",
+              "--precision", "bf16", "--workers", "4"]
+# each kernel's launches in one step of each method.  The feature step's
+# target logits feed no loss (only its ASPP feature does), so the
+# decoder's 3 BatchNorms of the target forward take no backward: 124
+# forward and 121 backward calls of each BatchNorm entry.
+_BN = ("batch_norm_stats", "batch_norm_apply", "batch_norm_grad_sums",
+       "batch_norm_dx")
+STEP_LAUNCHES = {
+    "output_adapt": {"depthwise_conv3x3": 56, "requant_s32_to_s8": 0,
+                     "depthwise_dk": 28, **dict.fromkeys(_BN, 120),
+                     "disc_conv1": 3},
+    "feature_adapt": {"depthwise_conv3x3": 56, "requant_s32_to_s8": 0,
+                      "depthwise_dk": 28, **dict.fromkeys(_BN[:2], 124),
+                      **dict.fromkeys(_BN[2:], 121), "disc_conv1": 0},
+    "source_only": {"depthwise_conv3x3": 28, "requant_s32_to_s8": 0,
+                    "depthwise_dk": 14, **dict.fromkeys(_BN, 60),
+                    "disc_conv1": 0}}
 DEV = "cuda"
 
 
@@ -683,11 +736,18 @@ def check_batchnorm(bn):
 
     shapes = bn_input_shapes(TRAIN_HW)
     adapt = sorted(set(bn_input_shapes(ADAPT_HW)))
+    source = sorted(set(bn_input_shapes(SOURCE_HW)))
     require(len(shapes) == 60, f"expected 60 BatchNorms, got {len(shapes)}")
     counts = Counter(shapes)
-    # (batch, (C, H, W), count in one forward, timed)
-    cases = [(BATCH, s, mult, True) for s, mult in sorted(counts.items())]
-    cases += [(ADAPT_BATCH, s, 0, False) for s in adapt]
+    # (batch, (C, H, W), count in one forward, timed, ring width)
+    cases = [(BATCH, s, mult, True, 1) for s, mult in sorted(counts.items())]
+    cases += [(ADAPT_BATCH, s, 0, False, 1) for s in adapt]
+    # phase 6c: the source-only cell's BatchNorm inputs, and the domain
+    # classifier's two (C = 1024, no ring) at the feature cell's and the
+    # train driver's ASPP resolution
+    cases += [(SOURCE_BATCH, s, 0, False, 1) for s in source]
+    cases += [(n, (1024, hw[0] // 16, hw[1] // 16), 0, False, 0)
+              for n, hw in ((BATCH, TRAIN_HW), (ADAPT_BATCH, ADAPT_HW))]
     gen = torch.Generator(device=DEV).manual_seed(SEED + 4)
     names = ("batch_norm_stats", "batch_norm_apply", "batch_norm_grad_sums",
              "batch_norm_dx")
@@ -700,7 +760,7 @@ def check_batchnorm(bn):
     log("[batchnorm] N C H W x count: worst rel err f32, bf16 | bf16 ms "
         "kernel/plain/library: stats, apply, grad_sums, dx | composite "
         "kernel plain native bound")
-    for n, (c, h, w), mult, timed in cases:
+    for n, (c, h, w), mult, timed, ring in cases:
         errs = {}
         for dtype in (torch.float32, torch.bfloat16):
             tol = 1e-5 if dtype == torch.float32 else 1e-4
@@ -713,7 +773,7 @@ def check_batchnorm(bn):
             gshift = torch.randn(c, device=DEV, generator=gen)
             rm0 = 0.1 * torch.randn(c, device=DEV, generator=gen)
             rv0 = 0.5 + torch.rand(c, device=DEV, generator=gen)
-            count = n * (h + 2) * (w + 2)   # the ring's count
+            count = n * (h + 2 * ring) * (w + 2 * ring)  # the ring's count
             rm, rv = rm0.clone(), rv0.clone()
             rm_p, rv_p = rm0.clone(), rv0.clone()
             st = bn.batch_norm_stats(x, weight, bias, count, eps, rm, rv, mom)
@@ -856,6 +916,11 @@ def check_batchnorm(bn):
                          sums_library_ms=sums_lib)
     log(f"[batchnorm] {len(adapt)} train_adapt shapes ({ADAPT_HW[1]}x"
         f"{ADAPT_HW[0]} batch {ADAPT_BATCH}) pass")
+    log(f"[6c batchnorm] {len(source)} source-only shapes ({SOURCE_HW[1]}x"
+        f"{SOURCE_HW[0]} batch {SOURCE_BATCH}) and the domain classifier's "
+        f"C=1024 rows ({BATCH}x{TRAIN_HW[0] // 16}x{TRAIN_HW[1] // 16}, "
+        f"{ADAPT_BATCH}x{ADAPT_HW[0] // 16}x{ADAPT_HW[1] // 16}; no ring) "
+        "pass, f32 and bf16")
     log(f"[batchnorm] all checks passed; worst rel err f32 "
         f"{worst[torch.float32]:.3g}, bf16 {worst[torch.bfloat16]:.3g}; one "
         f"train step (bf16, 120 BatchNorm calls): sums (stats + grad_sums) "
@@ -1043,29 +1108,36 @@ def check_index_limits(dw, rq, dc):
     del xd, yd
 
 
-def train_method(precision, device, affine=False):
-    """build_method for the output-space adaptation step, weights from seed
-    SEED, BatchNorm statistics perturbed as in phase 3 (and the BatchNorm
-    scale and bias, if `affine`: perturb_batchnorm says why)."""
+def train_method(precision, device, affine=False, name="output_adapt",
+                 **fields):
+    """build_method for the method `name` (Config `fields` set), weights
+    from seed SEED, BatchNorm statistics perturbed as in phase 3 (and the
+    BatchNorm scale and bias, if `affine`: perturb_batchnorm says why), the
+    domain classifier's too."""
     from s2r_tpu_torch.config import Config
     from s2r_tpu_torch.tools.step_conditioning import perturb_batchnorm
     from s2r_tpu_torch.train.setup import build_method
 
-    method = build_method(Config(precision=precision), iters_per_epoch=1000,
-                          device=device,
+    method = build_method(Config(precision=precision, **fields),
+                          iters_per_epoch=1000, method=name, device=device,
                           generator=torch.Generator().manual_seed(SEED))
     perturb_batchnorm(method.deeplab, SEED + 1, SEED + 2 if affine else None)
+    if name != "output_adapt":
+        perturb_batchnorm(method.aux_model, SEED + 3,
+                          SEED + 4 if affine else None)
     return method
 
 
 def snapshot(method):
-    """(G params, D params, G running stats) as float64 CPU tensors."""
+    """(G params, D params, G's and D's running stats) as float64 CPU
+    tensors (D's statistics keyed 'D.')."""
     g = {k: v.detach().double().cpu() for k, v in
          method.deeplab.named_parameters()}
     d = {k: v.detach().double().cpu() for k, v in
          method.aux_model.named_parameters()}
-    s = {k: v.detach().double().cpu() for k, v in
-         method.deeplab.named_buffers() if k.endswith(("_mean", "_var"))}
+    s = {p + k: v.detach().double().cpu()
+         for p, m in (("", method.deeplab), ("D.", method.aux_model))
+         for k, v in m.named_buffers() if k.endswith(("_mean", "_var"))}
     return g, d, s
 
 
@@ -1152,18 +1224,19 @@ def train_check_small(counted):
     require(sign >= 0.99, f"{h}x{w} D update sign agreement {sign}")
 
 
-def train_full(counted):
-    """Phase 4b: the 512x1024 batch-8 bf16 step, timed; then the launch
-    counts of one step."""
-    method = train_method("bf16", DEV)
+def time_step(name, counted, hw, n, **fields):
+    """A bf16 step of method `name` at `hw` batch `n` (train_method,
+    Config `fields`): 2 warm-up and 5 timed steps by CUDA events, then the
+    launch counts of one step, which must be STEP_LAUNCHES[name].  Returns
+    (median ms, the 5 ms, peak GiB, the last metrics as floats, launches,
+    BatchNorm layout copies of the counted step)."""
+    from s2r_tpu_torch.ops.kernels.batchnorm import channels_last_rows
+    from s2r_tpu_torch.tools.profile_train import bench_batch
+
+    method = train_method("bf16", DEV, name=name, **fields)
     state = method.init_state()
-    gen = torch.Generator(device=DEV).manual_seed(SEED + 6)
-    batch = {"src_image": torch.randn((BATCH,) + TRAIN_HW + (3,), device=DEV,
-                                      generator=gen),
-             "src_label": torch.randint(0, 19, (BATCH,) + TRAIN_HW,
-                                        device=DEV, generator=gen),
-             "tgt_image": torch.randn((BATCH,) + TRAIN_HW + (3,), device=DEV,
-                                      generator=gen)}
+    batch = bench_batch(name, n, hw, DEV,
+                        torch.Generator(device=DEV).manual_seed(SEED + 6))
     torch.cuda.reset_peak_memory_stats()
     for _ in range(2):
         state, metrics = method.step_fn(state, batch)
@@ -1177,33 +1250,37 @@ def train_full(counted):
         end.synchronize()
         runs.append(start.elapsed_time(end))
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    losses = {k: float(v) for k, v in metrics.items()}
-    require(all(np.isfinite(v) for v in losses.values()),
-            f"512x1024 losses not finite: {losses}")
-    ms = statistics.median(runs)
-    log(f"[train 512x1024] {ms:.3f} ms/step (median of 5 batch-{BATCH} "
-        f"bf16 steps: {', '.join(f'{r:.3f}' for r in runs)}), "
-        f"{BATCH * 1e3 / ms:.2f} source images/s (bench.py's '1024x512 "
-        f"train images/sec/chip (output-space adaption)'), peak device "
-        f"memory {peak:.2f} GiB; losses after {state.step} steps {losses}")
+    values = {k: float(v) for k, v in metrics.items()}
+    require(all(np.isfinite(v) for v in values.values()),
+            f"{name} {hw} metrics not finite: {values}")
 
     # The main-path run that the kernels line counts: one step.
-    from s2r_tpu_torch.ops.kernels.batchnorm import channels_last_rows
-
     reset(counted)
     channels_last_rows.copies = 0
     state, metrics = method.step_fn(state, batch)
     torch.cuda.synchronize()
     launches = {fn.__name__: fn.launches for fn in counted}
-    copies = channels_last_rows.copies
+    require(launches == STEP_LAUNCHES[name],
+            f"{name} step: launches {launches}, expected "
+            f"{STEP_LAUNCHES[name]}")
+    del method, state, batch
+    return (statistics.median(runs), runs, peak, values, launches,
+            channels_last_rows.copies)
+
+
+def train_full(counted):
+    """Phase 4b: the 512x1024 batch-8 bf16 step, timed; then the launch
+    counts of one step."""
+    ms, runs, peak, losses, launches, copies = time_step(
+        "output_adapt", counted, TRAIN_HW, BATCH)
+    log(f"[train 512x1024] {ms:.3f} ms/step (median of 5 batch-{BATCH} "
+        f"bf16 steps: {', '.join(f'{r:.3f}' for r in runs)}), "
+        f"{BATCH * 1e3 / ms:.2f} source images/s (bench.py's '1024x512 "
+        f"train images/sec/chip (output-space adaption)'), peak device "
+        f"memory {peak:.2f} GiB; losses after 7 steps {losses}")
     log(f"[train 512x1024] launches in one step: {launches}; BatchNorm "
         f"layout copies (an NCHW tensor made channels-last for the kernels):"
         f" {copies}")
-    require(launches == {"depthwise_conv3x3": 56, "requant_s32_to_s8": 0,
-                         "depthwise_dk": 28, "batch_norm_stats": 120,
-                         "batch_norm_apply": 120, "batch_norm_grad_sums": 120,
-                         "batch_norm_dx": 120, "disc_conv1": 3},
-            f"unexpected launch counts {launches}")
     return ms, launches, copies
 
 
@@ -1335,7 +1412,8 @@ def train_adapt_phase(counted):
             f"ms (the device snapshot), saver.wait() {wait_ms:.3f} ms (to "
             f"host, torch.save, {os.path.getsize(path) / 2 ** 20:.1f} MiB)")
         live = host_tree(trainer.state)
-        resumed = Trainer(dataclasses.replace(cfg, resume=path, ft=False))
+        resumed = Trainer(dataclasses.replace(cfg, resume=path, ft=False),
+                          method="output_adapt")
         got = host_tree(resumed.state)
         require(resumed.start_epoch == cfg.epochs
                 and trees_equal(got, live),
@@ -1389,6 +1467,290 @@ def train_adapt_phase(counted):
     return launches
 
 
+def feature_check_small(counted):
+    """Phase 6a: one 128x128 batch-2 float32 feature_adapt step and one
+    source_only step on the card against the CPU (float32, and float64 as
+    the exact reference), dropout off, from the weights of phase 4a with
+    the domain classifier's BatchNorms perturbed too.  Returns each step's
+    launches on the card."""
+    from s2r_tpu_torch.config import Config
+    from s2r_tpu_torch.io.convert import domain_param_order
+    from s2r_tpu_torch.models.layers import set_dropout
+    from s2r_tpu_torch.tools.step_conditioning import sgd_gradients
+
+    rs = np.random.RandomState(SEED + 7)
+    n, (h, w) = 2, TRAIN_CHECK_HW
+    label = rs.randint(0, 19, (n, h, w)).astype(np.int64)
+    label[:, :3] = 255
+    src = rs.randn(n, h, w, 3).astype(np.float32)
+    tgt = rs.randn(n, h, w, 3).astype(np.float32)
+    batches = {"feature_adapt": {"src_image": src, "src_label": label,
+                                 "tgt_image": tgt},
+               "source_only": {"image": src, "label": label}}
+    wd = Config().weight_decay
+    all_launches = {}
+    for name, batch in batches.items():
+        runs = {}
+        for run, device, precision in (("card", DEV, "f32"),
+                                       ("cpu", "cpu", "f32"),
+                                       ("exact", "cpu", "f64")):
+            method = train_method(precision, device, affine=True, name=name)
+            set_dropout(method.deeplab, False)
+            set_dropout(method.aux_model, False)
+            state = method.init_state()
+            before = snapshot(method)
+            reset(counted)
+            state, metrics = method.step_fn(state, batch)
+            if run == "card":
+                torch.cuda.synchronize()
+                all_launches[name] = {fn.__name__: fn.launches
+                                      for fn in counted}
+            opt = state.opt_state
+            grads = {"G": sgd_gradients(opt["task"]["momentum"], before[0],
+                                        wd)}
+            if name == "feature_adapt":
+                grads["D"] = sgd_gradients(opt["d"]["momentum"], before[1],
+                                           wd, order=domain_param_order())
+            else:
+                require(all(float(opt[k]["momentum"].abs().max()) == 0
+                            for k in ("d", "d_inv", "c")),
+                        f"{name}: a D, d_inv or c buffer moved")
+            runs[run] = ({k: float(v) for k, v in metrics.items()}, before,
+                         snapshot(method), grads)
+            del method, state
+        launches = all_launches[name]
+        want = STEP_LAUNCHES[name]
+        require(all(launches[k] > 0 for k in want if want[k]),
+                f"{name} {h}x{w} step missed a kernel: {launches}")
+        (m_card, b_card, a_card, gr_card), (m_cpu, _, a_cpu, gr_cpu), \
+            (_, _, _, gr_ex) = runs["card"], runs["cpu"], runs["exact"]
+        losses = (("task_loss", "d_loss", "d_inv_loss")
+                  if name == "feature_adapt" else ("task_loss",))
+        for k in losses:
+            err = abs(m_card[k] - m_cpu[k]) / abs(m_cpu[k])
+            require(np.isfinite(m_card[k]) and err <= 1e-4,
+                    f"{name} {h}x{w} {k}: card {m_card[k]} cpu {m_cpu[k]}")
+        if name == "source_only":
+            require(all(m_card[k] == 0.0 for k in ("d_loss", "d_inv_loss",
+                                                    "d_acc")),
+                    f"source_only domain metrics {m_card}")
+            require(all(torch.equal(b_card[1][k], a_card[1][k])
+                        for k in b_card[1])
+                    and all(torch.equal(b_card[2][k], a_card[2][k])
+                            for k in b_card[2] if k.startswith("D.")),
+                    "source_only moved the domain classifier")
+        stats_err = max(float((a_card[2][k] - a_cpu[2][k]).abs().max()
+                              / a_cpu[2][k].abs().max()) for k in a_cpu[2])
+        require(stats_err <= 1e-3, f"{name} {h}x{w} BN running stats: "
+                f"{stats_err}")
+
+        def rel(a, b):
+            return float((a - b).norm() / b.norm())
+
+        parts = []
+        for net in grads:
+            ex, card_g, cpu_g = gr_ex[net], gr_card[net], gr_cpu[net]
+            kept = [k for k in ex if ex[k] is not None]
+            leaf = {k: (rel(card_g[k], ex[k]), rel(cpu_g[k], ex[k]))
+                    for k in kept}
+            bad = {k: v for k, v in leaf.items()
+                   if v[0] > max(LEAF_BOUND, 3 * v[1])}
+            worst = max(leaf, key=lambda k: leaf[k][0])
+            parts.append(
+                f"{net} gradient, {len(kept)} of {len(ex)} leaves resolved: "
+                f"worst leaf card-exact {leaf[worst][0]:.3g} ({worst}; "
+                f"cpu-exact {leaf[worst][1]:.3g}), median "
+                f"{statistics.median(v[0] for v in leaf.values()):.3g}")
+            require(not bad, f"{name} {h}x{w} {net} gradient: leaves off the "
+                    f"float64 run {bad}")
+        log(f"[6a {name} {h}x{w}] metrics card {m_card} vs cpu {m_cpu}; BN "
+            f"running stats (G and D) rel err {stats_err:.3g}; "
+            + "; ".join(parts) + f"; launches on the card {launches}")
+    return all_launches
+
+
+def feature_full(counted):
+    """Phase 6b: bench.py's feature cell (512x1024 batch 8 bf16) and
+    source-only cell (513x513 batch 4 bf16), timed, and the launch counts
+    of one step of each."""
+    from s2r_tpu_torch.tools.profile_train import BENCH
+
+    out = {}
+    for name in ("feature_adapt", "source_only"):
+        hw, n, fields = BENCH[name]
+        ms, runs, peak, values, launches, _ = time_step(name, counted, hw, n,
+                                                        **fields)
+        log(f"[6b {name} {hw[1]}x{hw[0]}] {ms:.3f} ms/step (median of 5 "
+            f"batch-{n} bf16 steps: {', '.join(f'{r:.3f}' for r in runs)}), "
+            f"{n * 1e3 / ms:.2f} source images/s, peak device memory "
+            f"{peak:.2f} GiB; metrics after 7 steps {values}; launches in "
+            f"one step {launches}")
+        out[name] = (ms, n * 1e3 / ms, peak, launches)
+        torch.cuda.empty_cache()
+    return out
+
+
+def check_source_shapes(dw):
+    """Phase 6c (depthwise; the BatchNorm shapes are in phase 2d's loop):
+    forward, dx and dk at the source-only cell's 14 layers (513x513 batch
+    4: 33x33 at dilation 2, odd H), f32 and bf16, against the plain
+    versions at phase 2's tolerances."""
+    from s2r_tpu_torch.models.mobilenet import block_plan
+
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 8)
+    shapes = sorted(set(dw_shapes(SOURCE_HW, block_plan)))
+    worst = 0.0
+    for c, h, w, d in shapes:
+        for dtype in (torch.float32, torch.bfloat16):
+            x = randn((SOURCE_BATCH, h, w, c), dtype, gen)
+            g = randn((SOURCE_BATCH, h, w, c), dtype, gen)
+            k = (randn((3, 3, c), torch.float32, gen) / 3).to(dtype)
+            dw_check(dw, x, k, d)
+            dw_check(dw, g, k.flip((0, 1)).contiguous(), d)
+            worst = max(worst, dk_check(dw, x, g, d)[2])
+    log(f"[6c depthwise] {len(shapes)} source-only shapes ({SOURCE_HW[1]}x"
+        f"{SOURCE_HW[0]} batch {SOURCE_BATCH}: "
+        f"{', '.join(f'C{c} {h}x{w} d{d}' for c, h, w, d in shapes)}) pass "
+        f"forward, dx and dk; worst dk rel err {worst:.3g}")
+
+
+def png_size(path):
+    """(width, height) from a PNG's IHDR."""
+    with open(path, "rb") as f:
+        head = f.read(24)
+    require(head[:8] == b"\x89PNG\r\n\x1a\n", f"{path} is not a PNG")
+    return int.from_bytes(head[16:20], "big"), int.from_bytes(head[20:24],
+                                                               "big")
+
+
+def check_exports(out_dir, n_images, with_miou):
+    """One labelId PNG and one color PNG an image, each 1280x640."""
+    names = sorted(os.listdir(out_dir))
+    gray = [p for p in names if p.endswith("_labelId.png")]
+    color = [p for p in names if ("_color_" in p if with_miou
+                                  else p.endswith("_color.png"))]
+    require(len(gray) == len(color) == n_images
+            and len(names) == 2 * n_images,
+            f"{out_dir}: {len(gray)} labelId and {len(color)} color PNGs "
+            f"for {n_images} images")
+    sizes = {png_size(os.path.join(out_dir, p)) for p in names}
+    require(sizes == {(1280, 640)}, f"{out_dir}: PNG sizes {sizes}")
+
+
+def train_phase(counted):
+    """Phase 6d: the train driver (feature_adapt) for one epoch, a resume
+    with ft off for one more, then val with the per-image export and test
+    on its best checkpoint.  Returns the launches of each entry point."""
+    from s2r_tpu_torch.cli import test, train, val
+    from s2r_tpu_torch.io.checkpoint import host_tree
+    from s2r_tpu_torch.train.trainer import Trainer
+
+    os.environ.pop("S2R_PLATFORM", None)  # the card, as a user runs it
+    root = tempfile.mkdtemp(prefix="s2r_train_")
+    by_path = {}
+    try:
+        argv = TRAIN_ARGV + ["--run-root", root]
+        reset(counted)
+        t0 = time.perf_counter()
+        trainer = train.main(argv)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        by_path["train"] = {fn.__name__: fn.launches for fn in counted}
+        cfg = trainer.cfg
+        steps, n_tr = trainer.state.step, len(trainer.train_loader)
+        n_val, n_test = len(trainer.val_loader), len(trainer.test_loader)
+        vis_every = max(n_tr // 10, 1) if n_tr >= 10 else max(n_tr, 1)
+        eval_fwd = cfg.epochs * (len(range(0, n_tr, vis_every)) + n_val)
+        step = STEP_LAUNCHES["feature_adapt"]
+        want = {k: v * steps for k, v in step.items()}
+        want["depthwise_conv3x3"] += 14 * eval_fwd
+        log(f"[6d train] {cfg.epochs} epoch of {n_tr} steps, {n_val} "
+            f"validation batches and one image-logging forward in "
+            f"{fit_s:.1f} s; launches {by_path['train']}")
+        require(trainer.method.name == "feature_adapt"
+                and steps == cfg.epochs * n_tr,
+                f"train ran {trainer.method.name}, {steps} steps")
+        require(by_path["train"] == want,
+                f"train launches {by_path['train']}, expected {want}")
+        sc = read_scalars(trainer.saver.experiment_dir)
+        for tag in ("train/task_loss", "train/d_loss", "train/d_inv_loss",
+                    "train/d_acc", "val/total_loss_epoch", "val/mIoU"):
+            require(len(sc[tag]) == cfg.epochs
+                    and all(np.isfinite(v) for _, v in sc[tag]),
+                    f"train {tag}: {sc.get(tag)}")
+        best = os.path.join(trainer.saver.directory, "model_best.ckpt")
+        require(os.path.isfile(best)
+                and 0.0 <= trainer.best_pred <= 1.0,
+                f"train: best mIoU {trainer.best_pred}, {best}")
+        epoch_rate = sc["train/images_per_sec"][0][1]
+
+        # resume with ft off from a checkpoint of the final state
+        path = trainer.saver.save_checkpoint(trainer.state, cfg.epochs,
+                                             trainer.best_pred, is_best=False,
+                                             filename="final.ckpt")
+        trainer.saver.wait()
+        live = host_tree(trainer.state)
+        resumed = Trainer(dataclasses.replace(cfg, resume=path, ft=False),
+                          method="feature_adapt")
+        require(resumed.start_epoch == cfg.epochs
+                and trees_equal(host_tree(resumed.state), live),
+                "train resume: the restored state differs from the saved one")
+        means = resumed.training(resumed.start_epoch)
+        resumed.saver.wait()
+        resumed.writer.close()
+        require(all(np.isfinite(means[k]) for k in ("task_loss", "d_loss",
+                                                    "d_inv_loss")),
+                f"resumed epoch {means}")
+        log(f"[6d train] epoch {epoch_rate:.2f} images/s (data + "
+            f"augmentation + step + image logging); losses "
+            + "; ".join(f"{t[6:]} {sc[t][0][1]:.4f}" for t in
+                        ("train/task_loss", "train/d_loss",
+                         "train/d_inv_loss", "train/d_acc"))
+            + f"; val mIoU {trainer.best_pred:.6f}; resume (ft off) "
+            f"bit-equal at step {live['step']}, one more epoch: task_loss "
+            f"{means['task_loss']:.4f}, d_loss {means['d_loss']:.4f}, "
+            f"d_inv_loss {means['d_inv_loss']:.4f}, "
+            f"{means['images_per_sec']:.2f} images/s")
+        del trainer, resumed, live
+
+        # val with the per-image export, then test, on the best checkpoint
+        out = os.path.join(root, "val")
+        reset(counted)
+        t0 = time.perf_counter()
+        miou_val, _ = val.main(argv + ["--resume", best, "--out-dir", out])
+        torch.cuda.synchronize()
+        val_s = time.perf_counter() - t0
+        by_path["val"] = {fn.__name__: fn.launches for fn in counted}
+        log(f"[6d val] mIoU {miou_val:.6f} against the Trainer's best "
+            f"{sc['val/mIoU'][0][1]:.6f}; {val_s:.1f} s with the "
+            f"export; launches {by_path['val']}")
+        require(abs(miou_val - sc["val/mIoU"][0][1]) <= 1e-4,
+                "val disagrees with the Trainer's mIoU")
+        # validation_sep and validation: one forward a batch each
+        require(by_path["val"] == dict(
+            dict.fromkeys(by_path["val"], 0),
+            depthwise_conv3x3=14 * 2 * n_val),
+            f"val launches {by_path['val']}")
+        check_exports(os.path.join(out, "predictions"),
+                      n_val * cfg.batch_size, True)
+        out = os.path.join(root, "test")
+        reset(counted)
+        test.main(argv + ["--resume", best, "--out-dir", out])
+        torch.cuda.synchronize()
+        by_path["test"] = {fn.__name__: fn.launches for fn in counted}
+        require(by_path["test"] == dict(
+            dict.fromkeys(by_path["test"], 0),
+            depthwise_conv3x3=14 * n_test),
+            f"test launches {by_path['test']}")
+        check_exports(out, n_test * cfg.batch_size, False)
+        log(f"[6d val, test] {n_val * cfg.batch_size} and "
+            f"{n_test * cfg.batch_size} images: one labelId and one color "
+            f"PNG each at 1280x640; test launches {by_path['test']}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return by_path
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1435,6 +1797,13 @@ def main():
         step_ms, train_launches, bn_copies = train_full(counted)
         torch.cuda.empty_cache()
         adapt_launches = train_adapt_phase(counted)
+        torch.cuda.empty_cache()
+        feature_check_small(counted)
+        torch.cuda.empty_cache()
+        full = feature_full(counted)
+        check_source_shapes(dw)
+        torch.cuda.empty_cache()
+        driver_launches = train_phase(counted)
         bn_entries[0]["composite"] = dict(
             bn_composite, ms_covers="one 512x1024 batch-8 bf16 train step: "
             "all four entries of 120 BatchNorm calls; library_ms: "
@@ -1446,7 +1815,10 @@ def main():
         for k in kernels:
             paths = {"serve": serve_launches[k["name"]],
                      "train_step": train_launches[k["name"]],
-                     "train_adapt": adapt_launches[k["name"]]}
+                     "train_adapt": adapt_launches[k["name"]],
+                     "feature_step": full["feature_adapt"][3][k["name"]],
+                     "source_only_step": full["source_only"][3][k["name"]],
+                     **{p: v[k["name"]] for p, v in driver_launches.items()}}
             k["launches"] = sum(paths.values())
             k["launches_by_path"] = paths
         dw_entry["per_shape"]["train_step"] = dw_train.pop("per_shape")
@@ -1462,7 +1834,10 @@ def main():
     log(f"[done] ms/image exact {ms['exact']:.3f}, decoder-int8 "
         f"{ms['decoder_int8']:.3f} (bf16, rgb8 {FULL_HW[1]}x{FULL_HW[0]} "
         f"batch {BATCH}); train step {step_ms:.3f} ms ({TRAIN_HW[1]}x"
-        f"{TRAIN_HW[0]} batch {BATCH} bf16) on {smi}; "
+        f"{TRAIN_HW[0]} batch {BATCH} bf16); feature step "
+        f"{full['feature_adapt'][0]:.3f} ms, source-only step "
+        f"{full['source_only'][0]:.3f} ms ({SOURCE_HW[1]}x{SOURCE_HW[0]} "
+        f"batch {SOURCE_BATCH}) on {smi}; "
         f"{time.perf_counter() - t_start:.1f} s after imports")
     print(json.dumps({"kernels": kernels}))
     print(smi)

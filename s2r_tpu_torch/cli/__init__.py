@@ -1,1 +1,2 @@
-"""The command-line drivers: train_adapt, val_adapt, val."""
+"""The command-line drivers: train, train_adapt, val, val_adapt, test,
+test_adapt."""

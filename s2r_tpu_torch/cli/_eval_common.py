@@ -1,15 +1,20 @@
-"""Shared validation logic of the val drivers (s2r_tpu/cli/_eval_common.py,
-reference val.py / val_adapt.py).
+"""Shared logic of the val and test drivers (s2r_tpu/cli/_eval_common.py,
+reference val.py / val_adapt.py / test.py / test_adapt.py).
 
 - ``build_eval``: the method, a checkpoint loaded into it (``--resume``),
   its eval step and the loaders;
+- ``validation_sep``: a forward per batch, each image's mIoU printed, and
+  its prediction saved as a grayscale labelId PNG and a color PNG, both
+  resized to 1280x640 as PIL's NEAREST resizes (val_adapt.py:179-218,
+  222-242);
 - ``validation``: aggregate metrics and the per-class IoU report appended
   to val_info.txt (val.py:146-211), byte for byte the JAX package's text
-  for the same confusion matrix.
+  for the same confusion matrix;
+- ``test_sweep``: the label-free sweep saving the same two PNGs an image
+  (test_adapt.py:118-178).
 
-``validation_sep`` and ``test_sweep`` write prediction PNGs upscaled to
-1280x640 with PIL's NEAREST (val_adapt.py:179-242, test_adapt.py:118-178);
-they wait for the image slice (ROADMAP A.4/A.5) and raise.
+The port never imports PIL: ``nearest_index`` reproduces the index map of
+PIL's NEAREST resize, and utils/png.py encodes the PNGs.
 """
 
 from __future__ import annotations
@@ -17,15 +22,30 @@ from __future__ import annotations
 import os
 from typing import Optional, Union
 
+import numpy as np
 import torch
 
 from s2r_tpu_torch.config import Config
 from s2r_tpu_torch.core.device import resolve_device
+from s2r_tpu_torch.data.device_aug import normalize_u8_batch
 from s2r_tpu_torch.data.loader import make_data_loader
+from s2r_tpu_torch.data.palette import decode_segmap_u8
 from s2r_tpu_torch.eval.metrics import Evaluator, evaluate
 from s2r_tpu_torch.io.saver import Saver
+from s2r_tpu_torch.parallel.feed import prefetch_to_device
 from s2r_tpu_torch.train.setup import build_method
 from s2r_tpu_torch.train.trainer import latest_checkpoint, resume_into
+from s2r_tpu_torch.utils.png import write_png
+
+EXPORT_SIZE = (1280, 640)  # (w, h): val.py:214-254 / test_adapt.py:118-157
+
+# trainId -> Cityscapes labelId for the grayscale export (val.py imgsaver
+# :219-224 maps predictions back through valid_classes).
+_TRAINID_TO_LABELID = np.zeros(256, np.uint8)
+for _i, _v in enumerate(
+        (7, 8, 11, 12, 13, 17, 19, 20, 21, 22, 23, 24, 25, 26, 27, 28, 31,
+         32, 33)):
+    _TRAINID_TO_LABELID[_i] = _v
 
 # Short class names of the val_info.txt report (val.py:177-195).
 REPORT_CLASS_NAMES = ("road", "sidewalk", "building", "wall", "fence",
@@ -34,10 +54,11 @@ REPORT_CLASS_NAMES = ("road", "sidewalk", "building", "wall", "fence",
                       "train", "motocycle", "bicycle")
 
 
-def build_eval(cfg: Config, method: str,
+def build_eval(cfg: Config, method: Optional[str] = None,
                device: Optional[Union[str, torch.device]] = None):
-    """(method, G, eval_step, val_loader, test_loader, nclass); `cfg.resume` (a checkpoint of the port, or 'auto') is loaded
-    as Trainer._resume loads it."""
+    """(method, G, eval_step, val_loader, test_loader, nclass); `cfg.resume`
+    (a checkpoint of the port, or 'auto') is loaded as Trainer._resume
+    loads it.  `method` None infers it from ``cfg.dataset``."""
     device = resolve_device(device)
     train_loader, val_loader, test_loader, nclass = make_data_loader(cfg)
     m = build_method(cfg, max(len(train_loader), 1), method=method,
@@ -52,19 +73,69 @@ def build_eval(cfg: Config, method: str,
         test_loader, nclass
 
 
-def validation_sep(*args, **kwargs):
-    """Per-image predictions and mIoU, saved as PNGs resized with PIL's
-    NEAREST (val*.py validationSep): not ported."""
-    raise NotImplementedError(
-        "s2r_tpu_torch: per-image prediction export is not ported (ROADMAP "
-        "A.4/A.5); pass --skip-sep")
+def nearest_index(n_in: int, n_out: int) -> np.ndarray:
+    """The source index of each of `n_out` positions in PIL's NEAREST
+    resize from `n_in`: PIL starts at scale / 2 and adds scale = n_in /
+    n_out once a position, in double precision, truncating each
+    (Geometry.c ImagingScaleAffine).  A closed form (i + 0.5) * scale
+    rounds differently at some sizes (512 -> 640 among them)."""
+    steps = np.full(n_out, n_in / n_out, np.float64)
+    steps[0] *= 0.5
+    return np.minimum(np.add.accumulate(steps).astype(np.int64), n_in - 1)
 
 
-def test_sweep(*args, **kwargs):
-    """The label-free test sweep that saves prediction PNGs: not ported."""
-    raise NotImplementedError(
-        "s2r_tpu_torch: the test sweep's PNG export is not ported (ROADMAP "
-        "A.4/A.5)")
+def resize_nearest(image: np.ndarray, size=EXPORT_SIZE) -> np.ndarray:
+    """[H, W] or [H, W, 3] -> the same at `size` (w, h), pixel for pixel
+    PIL's ``Image.resize(size, Image.NEAREST)``."""
+    w, h = size
+    return image[nearest_index(image.shape[0], h)][
+        :, nearest_index(image.shape[1], w)]
+
+
+def _save_prediction(pred: np.ndarray, name: str, out_dir: str,
+                     dataset: str, miou: Optional[float] = None):
+    """Grayscale labelId PNG (trainIds mapped back to Cityscapes labelIds)
+    and color PNG, both resized to 1280x640 NEAREST; the color filename
+    carries the per-image mIoU when given (val.py imgsaver:246-247)."""
+    os.makedirs(out_dir, exist_ok=True)
+    stem = os.path.splitext(os.path.basename(name))[0]
+    write_png(os.path.join(out_dir, f"{stem}_labelId.png"),
+              resize_nearest(_TRAINID_TO_LABELID[pred.astype(np.uint8)]))
+    tag = f"_color_{miou:.4f}_" if miou is not None else "_color"
+    write_png(os.path.join(out_dir, f"{stem}{tag}.png"),
+              resize_nearest(decode_segmap_u8(pred, dataset)))
+
+
+def _predictions(eval_step, loader, device):
+    """(host batch, [N, H, W] numpy predictions) of each batch."""
+    for batch in prefetch_to_device(loader, device):
+        arrays = normalize_u8_batch(batch)
+        _, _, pred = eval_step(arrays["image"], arrays["label"])
+        yield batch, pred.cpu().numpy()
+
+
+def validation_sep(cfg: Config, model, eval_step, val_loader, nclass: int,
+                   out_dir: str):
+    """Per-image predictions and per-image mIoU (val*.py validationSep),
+    saved under `out_dir`."""
+    for batch, pred in _predictions(eval_step, val_loader, model.device):
+        label = batch["label"].cpu().numpy()
+        for j in range(pred.shape[0]):
+            ev = Evaluator(nclass)
+            ev.add_batch(label[j:j + 1], pred[j:j + 1])
+            miou, _ = ev.Mean_Intersection_over_Union()
+            name = batch["name"][j]
+            _save_prediction(pred[j], name, out_dir, cfg.dataset, miou)
+            print(f"{name}: mIoU {miou:.4f}")
+
+
+def test_sweep(cfg: Config, model, eval_step, test_loader, out_dir: str):
+    """The label-free inference sweep (test*.py:150-178): both PNGs of
+    each image under `out_dir`."""
+    for batch, pred in _predictions(eval_step, test_loader, model.device):
+        for j in range(pred.shape[0]):
+            _save_prediction(pred[j], batch["name"][j], out_dir, cfg.dataset)
+    print(f"saved predictions to {out_dir}")
 
 
 def report_text(ev: Evaluator, test_loss: float, nclass: int):

@@ -1,6 +1,12 @@
-"""Validation sweep of a checkpoint: the aggregate per-class IoU report
-(s2r_tpu/cli/val.py, reference val.py).  Requires --resume and, until the
-per-image PNG export is ported (ROADMAP A.4/A.5), --skip-sep.
+"""Validation sweep of a checkpoint (s2r_tpu/cli/val.py, reference val.py):
+each image's prediction saved as a labelId and a color PNG with its mIoU
+(unless --skip-sep), then the aggregate per-class IoU report appended to
+val_info.txt.  The default method is feature_adapt's (source_only with
+--dataset gtav); val_adapt runs the output_adapt checkpoints.
+
+    python -m s2r_tpu_torch.cli.val --dataset synthetic \\
+        --resume <run>/synthetic/deeplab-mobilenet/model_best.ckpt \\
+        --out-dir run_val
 
 Runs on the card; ``S2R_PLATFORM=cpu`` selects the CPU.
 """
@@ -12,8 +18,7 @@ import os
 
 from s2r_tpu_torch.cli._eval_common import (build_eval, validation,
                                             validation_sep)
-from s2r_tpu_torch.config import (add_common_flags, check_ported,
-                                  config_from_args)
+from s2r_tpu_torch.config import add_common_flags, config_from_args
 from s2r_tpu_torch.core.device import device_from_env
 
 
@@ -27,14 +32,13 @@ def main(argv=None, method: str = "feature_adapt"):
                         help="skip per-image prediction export")
     args = parser.parse_args(argv)
     cfg = config_from_args(args)
-    # the split-model methods (this default among them) are not ported:
-    # raise before anything is built
-    check_ported(cfg, method)
+    if cfg.dataset == "gtav":
+        method = "source_only"
+    _, model, eval_step, val_loader, _, nclass = build_eval(
+        cfg, method, device_from_env())
     if not args.skip_sep:
-        validation_sep()
-    device = device_from_env()
-    _, model, eval_step, val_loader, _, nclass = build_eval(cfg, method,
-                                                            device)
+        validation_sep(cfg, model, eval_step, val_loader, nclass,
+                       os.path.join(args.out_dir, "predictions"))
     return validation(cfg, model, eval_step, val_loader, nclass,
                       os.path.join(args.out_dir, "val_info.txt"))
 

@@ -1,8 +1,8 @@
 """Validation sweep of an output-space adaptation checkpoint (reference
-val_adapt.py):
+val_adapt.py): per-image PNGs unless --skip-sep, then the report.
 
     python -m s2r_tpu_torch.cli.val_adapt --dataset synthetic \\
-        --resume run/synthetic/deeplab-mobilenet/model_best.ckpt --skip-sep
+        --resume <run>/synthetic/deeplab-mobilenet/model_best.ckpt
 """
 
 from __future__ import annotations

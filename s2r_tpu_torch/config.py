@@ -133,19 +133,23 @@ _UNPORTED = (
 )
 
 
+# The training methods (s2r_tpu/train/setup.py build_method).
+METHODS = ("output_adapt", "feature_adapt", "source_only")
+
+
 def check_ported(cfg: Config, method: Optional[str] = None) -> None:
     """Raise NotImplementedError for a setting whose feature the port
-    lacks, naming the flag and the ROADMAP item."""
+    lacks, naming the flag and the ROADMAP item, and ValueError for a
+    method that does not exist."""
     for field, flag, ok, item in _UNPORTED:
         value = getattr(cfg, field)
         if value not in ok:
             raise NotImplementedError(
                 f"s2r_tpu_torch: {flag} {value!r} is not ported (ROADMAP "
                 f"{item})")
-    if method is not None and method != "output_adapt":
-        raise NotImplementedError(
-            f"s2r_tpu_torch: method {method!r} is not ported (ROADMAP A.6); "
-            "only 'output_adapt' is")
+    if method is not None and method not in METHODS:
+        raise ValueError(f"s2r_tpu_torch: unknown method {method!r}; the "
+                         f"methods are {', '.join(METHODS)}")
 
 
 def _str2bool(v) -> bool:

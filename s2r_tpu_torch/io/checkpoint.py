@@ -2,10 +2,12 @@
 format: ``torch.save`` of {epoch, best_pred, state, extra}, written to a
 temporary file and moved into place with ``os.replace``.
 
-``state`` holds what the output-space adaptation step mutates
-(train/state.py): {step, G, D, opt_state, generator} as the two modules'
-state_dicts (BatchNorm statistics included), the flat optimizer buffers and
-the dropout generator's ``get_state()``.
+``state`` holds what a train step mutates (train/state.py): {step, G, D,
+opt_state, generator} as the two modules' state_dicts (BatchNorm
+statistics included; D the discriminator or the domain classifier), the
+flat optimizer buffers of the method's layout and the dropout generator's
+``get_state()``.  A checkpoint restores only into a state of its own
+method's layout.
 
 The port updates parameters in place, so an asynchronous save first copies
 the state on the device (``snapshot``: clones, then an event on the
@@ -164,7 +166,13 @@ def restore_state(state: TrainState, saved: Dict[str, Any],
                   full: bool = True) -> TrainState:
     """Load a saved state tree into `state`: G and D (weights and BatchNorm
     statistics) always; with `full`, also the optimizer buffers, the step
-    and the dropout generator (the JAX package's ``ft`` off)."""
+    and the dropout generator (the JAX package's ``ft`` off).  Raises
+    ValueError when the checkpoint holds another method's layout."""
+    if sorted(saved["opt_state"]) != sorted(state.opt_state):
+        raise ValueError(
+            f"checkpoint optimizer states {sorted(saved['opt_state'])} do "
+            f"not match this method's {sorted(state.opt_state)}: it was "
+            "written by another training method")
     state.G.load_state_dict(saved["G"], strict=True)
     state.D.load_state_dict(saved["D"], strict=True)
     if full:

@@ -9,19 +9,24 @@ returns the reference torch key schema, the one s2r_tpu/io/torch_export.py
 ``aspp.global_avg_pool.{1,2}``, ``decoder.last_conv.{0,1,4,5,8}``.  The
 result loads into ``models.deeplab.DeepLab`` with ``strict=True``.
 ``from_jax_discriminator(params)`` does the same for the discriminator's
-``conv1``..``conv4`` and ``classifier`` (s2r_tpu/io/torch_import.py:265).
+``conv1``..``conv4`` and ``classifier`` (s2r_tpu/io/torch_import.py:265),
+and ``from_jax_domain(params, batch_stats)`` for the domain classifier's
+``DC_adnn1.{0,1}``, ``DC_adnn2.{0,1}`` and ``DC_adnn3`` (the keys
+s2r_tpu/io/torch_export.py ``export_domain`` writes).
 
-``deeplab_param_order`` and ``discriminator_param_order`` list the port's
-parameter names in the order jax.tree flattens the JAX parameters (dict
-keys sorted at every level), the order of the JAX package's flat optimizer
-buffers (s2r_tpu/train/optim.py FusedOptimizer).
+``deeplab_param_order``, ``discriminator_param_order`` and
+``domain_param_order`` list the port's parameter names in the order
+jax.tree flattens the JAX parameters (dict keys sorted at every level),
+the order of the JAX package's flat optimizer buffers
+(s2r_tpu/train/optim.py FusedOptimizer); ``feature_param_order`` is the
+part of DeepLab's under f = backbone + ASPP, in the same order.
 
-``train_state_from_jax`` carries the numpy trees of a JAX output_adapt
-TrainState (params, batch_stats, opt_state, step) into the port's
-TrainState: the weights and statistics through the converters above, and
-each flat optimizer buffer leaf by leaf (``flat_to_port``), since the two
-packages list the leaves in one order but each in its own layout (ROADMAP
-C.5).
+``train_state_from_jax`` carries the numpy trees of a JAX TrainState
+(params, batch_stats, opt_state, step) of either layout, output_adapt or
+feature_adapt / source_only, into the port's TrainState: the weights and
+statistics through the converters above, and each flat optimizer buffer
+leaf by leaf (``flat_to_port``), since the two packages list the leaves in
+one order but each in its own layout (ROADMAP C.5).
 
 Layouts: conv kernels HWIO -> OIHW (a depthwise [3,3,1,C] becomes
 [C,1,3,3]); BatchNorm scale/bias/mean/var -> weight/bias/running_mean/
@@ -36,6 +41,7 @@ import numpy as np
 import torch
 
 from s2r_tpu_torch.models.discriminator import NAMES as DISC_NAMES
+from s2r_tpu_torch.models.domain import DOMAIN_LAYOUT
 from s2r_tpu_torch.models.mobilenet import LOW_LEVEL_SPLIT, block_plan
 
 
@@ -130,6 +136,20 @@ def from_jax_discriminator(params: Mapping) -> Dict[str, torch.Tensor]:
     return out
 
 
+def from_jax_domain(params: Mapping, batch_stats: Mapping
+                    ) -> Dict[str, torch.Tensor]:
+    """DomainClassifier params and batch_stats ({'adnn1_conv', 'adnn1_bn',
+    'adnn2_conv', 'adnn2_bn', 'adnn3_conv'}; numpy arrays) -> float32 CPU
+    state_dict of models.domain.DomainClassifier."""
+    out: Dict[str, torch.Tensor] = {}
+    for jname, key, kind in DOMAIN_LAYOUT:
+        if kind == "bn":
+            _bn(out, key, params[jname], batch_stats[jname])
+        else:
+            _conv(out, key, params[jname])
+    return out
+
+
 _LEAVES = {"conv": (("kernel", "weight"),),
            "conv_bias": (("bias", "bias"), ("kernel", "weight")),
            "bn": (("bias", "bias"), ("scale", "weight"))}
@@ -148,6 +168,22 @@ def discriminator_param_order() -> List[str]:
     """The FCDiscriminator's parameter names in JAX flatten order."""
     return [f"{name}.{tname}" for name in sorted(DISC_NAMES)
             for _, tname in _LEAVES["conv_bias"]]
+
+
+def feature_param_order(output_stride: int = 16) -> List[str]:
+    """The names under f = backbone + ASPP, in DeepLab's flatten order
+    (the JAX package's ``d_inv`` buffer: {'backbone', 'aspp'} flattens
+    'aspp' first, as the whole of G does)."""
+    return [k for k in deeplab_param_order(output_stride)
+            if not k.startswith("decoder.")]
+
+
+def domain_param_order() -> List[str]:
+    """The DomainClassifier's parameter names in JAX flatten order."""
+    leaves = [((jname, j), f"{key}.{t}")
+              for jname, key, kind in DOMAIN_LAYOUT
+              for j, t in _LEAVES[kind]]
+    return [k for _, k in sorted(leaves)]
 
 
 def _leaves(tree) -> List[np.ndarray]:
@@ -184,30 +220,47 @@ def flat_to_port(flat, tree: Mapping, convert: Callable[[Mapping], Dict],
 def train_state_from_jax(state, params: Mapping, batch_stats: Mapping,
                          opt_state: Mapping, step: int,
                          output_stride: int = 16):
-    """Load a JAX output_adapt TrainState's numpy trees into the port's
-    TrainState `state` (in place; returned): G's and D's weights and G's
-    BatchNorm statistics, the step, and the optimizer buffers
-    ({'G': {'momentum'}, 'D': {'m', 'v', 'count'}}) converted leaf by leaf
-    to the port's layout on the modules' device.  The dropout generator
-    keeps its state: a JAX PRNG key has no torch counterpart."""
-    state.G.load_state_dict(from_jax_variables(params["G"], batch_stats,
-                                               output_stride), strict=True)
-    state.D.load_state_dict(from_jax_discriminator(params["D"]), strict=True)
+    """Load a JAX TrainState's numpy trees into the port's TrainState
+    `state` (in place; returned): G's and D's weights and BatchNorm
+    statistics, the step, and the optimizer buffers converted leaf by leaf
+    to the port's layout on the modules' device.  The layout follows
+    `opt_state`: output_adapt's {'G': {'momentum'}, 'D': {'m', 'v',
+    'count'}} with D the FCDiscriminator and batch_stats G's; or
+    feature_adapt's {'task' over G, 'd' over D, 'd_inv' over f = backbone +
+    ASPP, 'c' over G}, each SGD {'momentum'} or Adam {'m', 'v', 'count'},
+    with D the DomainClassifier and batch_stats {'G', 'D'}.  The dropout
+    generator keeps its state: a JAX PRNG key has no torch counterpart."""
+    feature = "task" in opt_state
+    g_stats = batch_stats["G"] if feature else batch_stats
+
+    def g_tree(t):
+        return from_jax_variables(t, g_stats, output_stride)
+
+    if feature:
+        def d_tree(t):
+            return from_jax_domain(t, batch_stats["D"])
+        d_order = domain_param_order()
+    else:
+        d_tree, d_order = from_jax_discriminator, discriminator_param_order()
+    state.G.load_state_dict(g_tree(params["G"]), strict=True)
+    state.D.load_state_dict(d_tree(params["D"]), strict=True)
     dev = state.G.device
+    f = {k: params["G"][k] for k in ("backbone", "aspp")}
+    # (the tree a buffer runs over, its converter, its flatten order)
+    over = {"G": (params["G"], g_tree, deeplab_param_order(output_stride)),
+            "D": (params["D"], d_tree, d_order),
+            "f": (f, lambda t: g_tree({**params["G"], **t}),
+                  feature_param_order(output_stride))}
+    nets = ({"task": "G", "d": "D", "d_inv": "f", "c": "G"} if feature
+            else {"G": "G", "D": "D"})
 
-    def g_buf(flat):
-        return flat_to_port(flat, params["G"],
-                            lambda t: from_jax_variables(t, batch_stats,
-                                                         output_stride),
-                            deeplab_param_order(output_stride)).to(dev)
+    def buffers(s, net):
+        tree, convert, order = over[net]
+        return {k: int(np.asarray(v)) if k == "count" else
+                flat_to_port(v, tree, convert, order).to(dev)
+                for k, v in s.items()}
 
-    def d_buf(flat):
-        return flat_to_port(flat, params["D"], from_jax_discriminator,
-                            discriminator_param_order()).to(dev)
-
-    state.opt_state = {
-        "G": {"momentum": g_buf(opt_state["G"]["momentum"])},
-        "D": {"m": d_buf(opt_state["D"]["m"]), "v": d_buf(opt_state["D"]["v"]),
-              "count": int(np.asarray(opt_state["D"]["count"]))}}
+    state.opt_state = {name: buffers(opt_state[name], net)
+                       for name, net in nets.items()}
     state.step = int(np.asarray(step))
     return state

@@ -60,7 +60,7 @@ def main():
                      base_size=a.crop, batch_size=a.batch, workers=a.workers,
                      precision=a.precision, epochs=a.epochs + 1,
                      run_root=root)
-        t = Trainer(cfg)
+        t = Trainer(cfg, method="output_adapt")
         n_img = len(t.train_loader) * a.batch
         print(f"[setup] {a.crop}x{a.crop} batch {a.batch} {a.precision}, "
               f"{len(t.train_loader)} steps an epoch, {a.workers} workers")

@@ -1,18 +1,25 @@
-"""Where an output-space adaptation train step's device time goes, by
-kernel, on one GPU.
+"""Where a train step's device time goes, by kernel, on one GPU.
 
-    python -m s2r_tpu_torch.tools.profile_train [--batch 8] [--height 512]
-        [--width 1024] [--dtype bf16] [--steps 3] [--rows 30]
+    python -m s2r_tpu_torch.tools.profile_train
+        [--method {output_adapt,feature_adapt,source_only}] [--batch N]
+        [--height H] [--width W] [--dtype bf16] [--steps 3] [--rows 30]
+        [--conv-shapes N]
 
-Builds the step with s2r_tpu_torch.train.setup.build_method (DeepLab-V3+
-MobileNetV2 os 16 and the FCDiscriminator, seeded weights, the bench.py
-train configuration) and runs two warm-up steps.  Then it times `steps` +
-2 unprofiled steps (host clock around each synchronized step; the median
+Builds the method's step with s2r_tpu_torch.train.setup.build_method
+(DeepLab-V3+ MobileNetV2 os 16, seeded weights) in bench.py's
+configuration of that method (``BENCH``; --batch, --height and --width
+override it): output_adapt and feature_adapt at 512x1024 batch 8 (the
+train and train_feature cells), source_only at 513x513 batch 4
+(train_source).  It runs two warm-up steps, then times `steps` + 2
+unprofiled steps (host clock around each synchronized step; the median
 and the source images/s), and profiles `steps` steps with torch.profiler:
 the wall time per step, the summed device time of all kernels, the
 device's idle share (1 - device / wall), the number of device kernels a
 step, the hand-written kernels' share, and the kernels that take the most
-device time.  It reads only the package on the import path, so it also
+device time.  With --conv-shapes N it profiles one more step recording
+input shapes and prints the N convolution calls (forward and backward,
+grouped by input shapes) that take the most device time.  It reads only
+the package on the import path, so it also
 profiles another checkout of the port: ``PYTHONPATH=<checkout> python
 s2r_tpu_torch/tools/profile_train.py``.
 """
@@ -30,6 +37,28 @@ from torch.profiler import ProfilerActivity, profile
 from s2r_tpu_torch.config import Config
 from s2r_tpu_torch.train.setup import build_method
 
+# bench.py's cell of each method: ((H, W), batch, Config fields)
+# (bench.py:493-531, :167-198 and :201-236).
+BENCH = {"output_adapt": ((512, 1024), 8, {}),
+         "feature_adapt": ((512, 1024), 8, {"epochs": 200}),
+         "source_only": ((513, 513), 4, {"epochs": 50, "dataset": "gtav"})}
+
+
+def bench_batch(method: str, n: int, hw, device, gen: torch.Generator,
+                num_classes: int = 19):
+    """A random train batch of the method's keys, on `device`."""
+    image = "image" if method == "source_only" else "src_image"
+    label = "label" if method == "source_only" else "src_label"
+    out = {image: torch.randn((n,) + tuple(hw) + (3,), device=device,
+                              generator=gen),
+           label: torch.randint(0, num_classes, (n,) + tuple(hw),
+                                device=device, generator=gen)}
+    if method != "source_only":
+        out["tgt_image"] = torch.randn((n,) + tuple(hw) + (3,),
+                                       device=device, generator=gen)
+    return out
+
+
 # Substrings of the hand-written kernels' names (s2r_tpu_torch/csrc), and
 # pair_sums, the BatchNorm sums of checkouts before bn_sums.
 OWN_KERNELS = ("dw3x3", "slab_fold", "bn_sums", "bn_fold", "bn_elementwise",
@@ -38,30 +67,31 @@ OWN_KERNELS = ("dw3x3", "slab_fold", "bn_sums", "bn_fold", "bn_elementwise",
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--batch", type=int, default=8)
-    ap.add_argument("--height", type=int, default=512)
-    ap.add_argument("--width", type=int, default=1024)
+    ap.add_argument("--method", default="output_adapt", choices=list(BENCH))
+    ap.add_argument("--batch", type=int, default=None)
+    ap.add_argument("--height", type=int, default=None)
+    ap.add_argument("--width", type=int, default=None)
     ap.add_argument("--dtype", default="bf16")
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--rows", type=int, default=30)
+    ap.add_argument("--conv-shapes", type=int, default=0)
     a = ap.parse_args()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True).stdout.strip()
     print(f"[card] {smi}; torch {torch.__version__}")
-    cfg = Config(precision=a.dtype)
-    method = build_method(cfg, iters_per_epoch=1000,
+    (h, w), n, fields = BENCH[a.method]
+    a.height, a.width = a.height or h, a.width or w
+    a.batch = a.batch or n
+    cfg = Config(precision=a.dtype, **fields)
+    method = build_method(cfg, iters_per_epoch=1000, method=a.method,
                           generator=torch.Generator().manual_seed(0))
     state = method.init_state()
     gen = torch.Generator(device="cuda").manual_seed(0)
-    hw = (a.height, a.width)
-    batch = {"src_image": torch.randn((a.batch,) + hw + (3,), device="cuda",
-                                      generator=gen),
-             "src_label": torch.randint(0, cfg.num_classes, (a.batch,) + hw,
-                                        device="cuda", generator=gen),
-             "tgt_image": torch.randn((a.batch,) + hw + (3,), device="cuda",
-                                      generator=gen)}
-    print(f"[setup] {a.height}x{a.width} batch {a.batch}, {a.dtype}")
+    batch = bench_batch(a.method, a.batch, (a.height, a.width), "cuda", gen,
+                        cfg.num_classes)
+    print(f"[setup] {a.method} {a.height}x{a.width} batch {a.batch}, "
+          f"{a.dtype}")
     for _ in range(2):
         state, _ = method.step_fn(state, batch)
     torch.cuda.synchronize()
@@ -101,6 +131,20 @@ def main():
         ms = e.self_device_time_total / 1e3 / a.steps
         print(f"[train] {ms:9.3f} ms {100 * ms / dev_ms:5.1f}% "
               f"x{e.count // a.steps:<5d} {e.key[:110]}")
+    if a.conv_shapes:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     record_shapes=True) as prof:
+            state, _ = method.step_fn(state, batch)
+            torch.cuda.synchronize()
+        convs = [e for e in prof.key_averages(group_by_input_shape=True)
+                 if e.key in ("aten::convolution",
+                              "aten::convolution_backward")]
+        convs.sort(key=lambda e: -e.device_time_total)
+        for e in convs[:a.conv_shapes]:
+            shapes = [s for s in e.input_shapes if s][:3]
+            print(f"[conv] {e.device_time_total / 1e3:9.3f} ms x{e.count:<3d} "
+                  f"{e.key[6:]} {shapes}")
 
 
 if __name__ == "__main__":

@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import argparse
 import statistics
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -60,8 +60,10 @@ def perturb_batchnorm(model: torch.nn.Module, stats_seed: int,
 
 def sgd_gradients(buf: torch.Tensor, before: Dict[str, torch.Tensor],
                   weight_decay: float, prev: Optional[torch.Tensor] = None,
-                  momentum: float = 0.0) -> Dict[str, Optional[torch.Tensor]]:
-    """G's gradient of one SGD step, per leaf in the JAX flatten order, as
+                  momentum: float = 0.0, order: Optional[List[str]] = None
+                  ) -> Dict[str, Optional[torch.Tensor]]:
+    """The gradient of one SGD step, per leaf of `order` (the buffer's
+    leaves; G's JAX flatten order when None), as
     float64 CPU tensors, from the flat momentum buffer after the step
     (`buf`, float32: momentum * prev + g + weight_decay * p) and the one
     before it (`prev`; None for a first step), with `before` the parameters
@@ -72,7 +74,7 @@ def sgd_gradients(buf: torch.Tensor, before: Dict[str, torch.Tensor],
     buf = buf.double().cpu()
     prev = torch.zeros_like(buf) if prev is None else prev.double().cpu()
     out, at = {}, 0
-    for k in deeplab_param_order():
+    for k in deeplab_param_order() if order is None else order:
         p = before[k].double().cpu().reshape(-1)
         b = buf[at:at + p.numel()]
         g = b - momentum * prev[at:at + p.numel()] - weight_decay * p
@@ -80,7 +82,7 @@ def sgd_gradients(buf: torch.Tensor, before: Dict[str, torch.Tensor],
         resolved = float(g.norm()) > 100 * 2.0 ** -24 * float(b.norm())
         out[k] = g if resolved else None
     if at != buf.numel():
-        raise ValueError("momentum buffer and G's leaves disagree")
+        raise ValueError("momentum buffer and its leaves disagree")
     return out
 
 
@@ -88,7 +90,7 @@ def step_grads(precision: str, device, batch, affine: bool, seed: int = 0):
     """G's first-step gradient per leaf (sgd_gradients) of the step
     built from seed `seed`, dropout off."""
     method = build_method(Config(precision=precision), iters_per_epoch=1000,
-                          device=device,
+                          method="output_adapt", device=device,
                           generator=torch.Generator().manual_seed(seed))
     perturb_batchnorm(method.deeplab, seed + 1, seed + 2 if affine else None)
     set_dropout(method.deeplab, False)

@@ -16,6 +16,9 @@ The learning rate multiplies only the final direction, so the reference's
 to every leaf, BatchNorm parameters and biases included, as in the JAX
 package.  Bias corrections are computed in float32 on the host.
 
+``make_optimizer`` is the reference's ``--optimizer`` switch of the
+feature method (train.py:63-82).
+
 ``SGD``/``Adam`` hold the update rules on lists of tensors (``init``,
 ``direction``).  ``FusedOptimizer`` runs them on one flat float32 buffer
 over the leaves in the order it is given (the JAX package's flatten order,
@@ -93,6 +96,19 @@ class Adam:
             ms.append(m_new)
             vs.append(v_new)
         return steps, {"m": ms, "v": vs, "count": count}
+
+
+def make_optimizer(name: str, momentum: float, weight_decay: float,
+                   nesterov: bool):
+    """'SGD' (momentum, weight decay, nesterov) or 'Adam': torch.optim.Adam
+    built with the learning rate alone, so its default betas (0.9, 0.999)
+    and no weight decay (s2r_tpu/train/optim.py:108-117)."""
+    if name == "SGD":
+        return SGD(momentum=momentum, weight_decay=weight_decay,
+                   nesterov=nesterov)
+    if name == "Adam":
+        return Adam()
+    raise NotImplementedError(f"--optimizer {name!r}")
 
 
 class FusedOptimizer:

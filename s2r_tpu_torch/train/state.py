@@ -1,4 +1,4 @@
-"""What the output-space adaptation step mutates (s2r_tpu/train/state.py).
+"""What a train step mutates (s2r_tpu/train/state.py).
 
 The JAX package keeps parameters, BatchNorm statistics, optimizer state,
 the step counter and the dropout key in one immutable pytree.  In the port
@@ -6,6 +6,13 @@ the parameters and BatchNorm statistics live in the modules (``G``, the
 segmenter, and ``D``, the discriminator) and are updated in place; the
 state holds the modules beside the host-side step counter, the flat
 optimizer states and the dropout generator on the modules' device.
+
+Per method (train/setup.py):
+- output_adapt: D is the FCDiscriminator; opt_state = {'G': SGD state over
+  G, 'D': Adam state over D};
+- feature_adapt and source_only: D is the DomainClassifier; opt_state =
+  {'task' over G, 'd' over D, 'd_inv' over f = backbone + ASPP, 'c' over
+  G}, each an SGD or Adam state ('c' is never stepped, train.py:202-204).
 """
 
 from __future__ import annotations
@@ -21,6 +28,6 @@ import torch.nn as nn
 class TrainState:
     step: int                    # global iteration counter
     G: nn.Module
-    D: nn.Module
-    opt_state: Dict              # {'G': SGD state, 'D': Adam state}
+    D: nn.Module                 # discriminator or domain classifier
+    opt_state: Dict              # one flat state per optimizer (above)
     generator: torch.Generator   # draws the dropout masks

@@ -1,5 +1,7 @@
-"""Trainer: the host-side loop of the output-space adaptation driver
-(s2r_tpu/train/trainer.py:97-397, reference train_adapt.py:29-255).
+"""Trainer: the host-side loop of the training drivers, shared by the
+three methods (s2r_tpu/train/trainer.py:97-397, reference train.py and
+train_adapt.py:29-255).  With no method given it is inferred from
+``cfg.dataset`` (train/setup.py build_method).
 
 Data loaders, the method (train/setup.py), class-balanced weights, the
 experiment saver, summaries, resume, and the epoch loop with validation and
@@ -57,7 +59,7 @@ def resume_into(state, path: str, ft: bool):
 
 
 class Trainer:
-    def __init__(self, cfg: Config, method: str = "output_adapt",
+    def __init__(self, cfg: Config, method: Optional[str] = None,
                  device: Optional[Union[str, torch.device]] = None):
         check_ported(cfg, method)
         if cfg.dataset == "synthetic" and not cfg.device_aug:
@@ -90,7 +92,8 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def _resume(self, path: str):
-        """Resume from a checkpoint of the port (train_adapt.py:94-113):
+        """Resume from a checkpoint of the port (train.py:120-142,
+        train_adapt.py:94-113):
         with --ft (the default) the optimizer state is not restored and
         start_epoch stays; ``auto`` takes the newest checkpoint of this
         run directory."""
@@ -149,8 +152,8 @@ class Trainer:
         means["images_per_sec"] = images_seen / max(dt, 1e-9)
         for k, v in means.items():
             self.writer.add_scalar(f"train/{k}", v, epoch)
-        loss_keys = [k for k in ("seg_loss", "adv_loss", "d_loss")
-                     if k in sums]
+        loss_keys = [k for k in ("seg_loss", "task_loss", "adv_loss",
+                                 "d_loss", "d_inv_loss") if k in sums]
         print(f"[Epoch: {epoch}, numImages: {images_seen:5d}] "
               + " ".join(f"{k}: {means[k]:.3f}" for k in loss_keys)
               + f" ({means['images_per_sec']:.1f} img/s)")

@@ -120,20 +120,21 @@ def perturb_affine(tree, seed: int = 2):
 
 
 def port_step_from_jax(params, stats, opt_state, step: int, batch,
-                       precision: str):
-    """One step of the port's output_adapt method started from a JAX
-    TrainState's contents (numpy trees: params {'G','D'}, batch_stats,
-    opt_state {'G': {'momentum'}, 'D': {'m','v','count'}}, step), dropout
-    off, on the CPU.  Returns (metrics as floats, G state_dict, D
-    state_dict, opt_state), tensors as float64 copies."""
+                       precision: str, method: str = "output_adapt"):
+    """One step of the port's `method` started from a JAX TrainState's
+    contents (numpy trees: params {'G','D'}, batch_stats, opt_state of the
+    method's layout, step), dropout off, on the CPU.  Returns (metrics as
+    floats, G state_dict, D state_dict, opt_state), tensors as float64
+    copies."""
     from s2r_tpu_torch.config import Config
     from s2r_tpu_torch.io.convert import train_state_from_jax
     from s2r_tpu_torch.models.layers import set_dropout
     from s2r_tpu_torch.train.setup import build_method
 
     pm = build_method(Config(precision=precision), iters_per_epoch=10,
-                      device="cpu")
+                      method=method, device="cpu")
     set_dropout(pm.deeplab, False)
+    set_dropout(pm.aux_model, False)
     state = train_state_from_jax(pm.init_state(), params, stats, opt_state,
                                  step)
     state, met = pm.step_fn(state, batch)

@@ -315,12 +315,19 @@ def test_freeze_bn_keeps_batchnorm_and_dropout_in_eval():
 def test_unported_options_raise():
     from s2r_tpu_torch.config import Config
     from s2r_tpu_torch.train.setup import build_method
-    from s2r_tpu_torch.train.steps import make_output_adapt_step
+    from s2r_tpu_torch.train.steps import (make_feature_adapt_step,
+                                           make_output_adapt_step)
 
     cfg = Config(precision="f32")
     with pytest.raises(NotImplementedError):
-        build_method(cfg, 10, method="feature_adapt", device="cpu")
-    m = build_method(cfg, 10, device="cpu")
+        build_method(Config(backbone="xception"), 10,
+                     method="feature_adapt", device="cpu")
+    m = build_method(cfg, 10, method="output_adapt", device="cpu")
     with pytest.raises(NotImplementedError):
         make_output_adapt_step(m.deeplab, m.aux_model, po.SGD(), po.Adam(),
                                lambda s: 1e-3, pl.cross_entropy, pad_to=8)
+    f = build_method(cfg, 10, method="feature_adapt", device="cpu")
+    with pytest.raises(NotImplementedError):
+        make_feature_adapt_step(f.deeplab, f.aux_model, po.SGD(), po.SGD(),
+                                po.SGD(), lambda s: 1e-3, pl.cross_entropy,
+                                pad_to=8)

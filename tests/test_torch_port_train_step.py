@@ -9,15 +9,20 @@ state, and see the same 3 numpy batches.  Dropout is off on both sides:
 the JAX Dropout is patched to the identity, as
 tests/test_train_step_parity.py does, and the port's is switched off with
 ``set_dropout``.  On the CPU every kernel wrapper runs its plain version.
-The port runs twice: free from the initial weights for 3 steps, and one
-step from each of JAX's states (parameters, statistics, optimizer
-buffers, step), so each step's update is compared from one starting point.
+The port takes one step from each of JAX's states (parameters,
+statistics, optimizer buffers, step), so each step is compared from one
+starting point, and one step free from the initial weights.
 The port also takes the first step computing in float64 (precision 'f64':
 float32 parameters and optimizer buffers, every activation and gradient in
 float64), which shows how far float32 rounding alone moves the result.
 
 Bounds:
-- the three losses of every free-running step: rtol 1e-4;
+- the three losses of each step from JAX's state: rtol 1e-4.  Not of a
+  free-running port: float32 rounding alone moves this step's gradient by
+  0.5-5% in either framework (ROADMAP C.4), so two free float32
+  trajectories part after an update by an amount that depends on the
+  machine's thread layout (step 2's seg_loss 3.25613 against 3.26326 in
+  one run);
 - the BatchNorm running statistics after each step from JAX's state: 1e-3
   of the largest statistic of the same BatchNorm;
 - G's update from each of JAX's states: global relative L2 of the
@@ -66,8 +71,8 @@ def _np(tree):
 @pytest.fixture(scope="module")
 def runs():
     """(initial weights, JAX metrics, JAX states before each step and after
-    the last, the port's free-running steps by precision, the port's step
-    from each JAX state)."""
+    the last, the port's first step from the initial weights by precision,
+    the port's step from each JAX state)."""
     batches = step_batches(STEPS, HW, BATCH)
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(L.Dropout, "__call__", lambda self, x, deterministic: x)
@@ -88,7 +93,7 @@ def runs():
                            _np(state.opt_state), int(state.step)))
 
     with torch_threads():
-        port = {"f32": _port_run(init, batches, "f32"),
+        port = {"f32": _port_run(init, batches[:1], "f32"),
                 "f64": _port_run(init, batches[:1], "f64")}
         forced = [port_step_from_jax(*states[i], batches[i], "f32")
                   for i in range(STEPS)]
@@ -96,10 +101,10 @@ def runs():
 
 
 def _port_run(init, batches, precision):
-    """The port's 3 steps from JAX's initial weights: ([metrics], [(G
-    state_dict, D state_dict)]) after each step."""
+    """The port's steps on `batches` from JAX's initial weights:
+    ([metrics], [(G state_dict, D state_dict)]) after each step."""
     pm = build_method(Config(precision=precision), iters_per_epoch=10,
-                      device="cpu")
+                      method="output_adapt", device="cpu")
     pm.deeplab.load_state_dict(from_jax_variables(init[0]["G"], init[1]),
                                strict=True)
     pm.aux_model.load_state_dict(from_jax_discriminator(init[0]["D"]),
@@ -137,9 +142,9 @@ def _sign_agreement(a, b):
 
 @pytest.mark.parametrize("i", range(STEPS))
 def test_losses_match_jax(runs, i):
-    _, jax_metrics, _, port, _ = runs
+    _, jax_metrics, _, _, forced = runs
     for k in ("seg_loss", "adv_loss", "d_loss", "lr"):
-        np.testing.assert_allclose(port["f32"][0][i][k], jax_metrics[i][k],
+        np.testing.assert_allclose(forced[i][0][k], jax_metrics[i][k],
                                    rtol=1e-4, err_msg=f"step {i} {k}")
 
 

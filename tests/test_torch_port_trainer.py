@@ -11,7 +11,8 @@ the CPU.
   before wait().
 - train_state_from_jax maps each optimizer leaf to its OIHW counterpart.
 - train_adapt end to end at crop 32, batch 2, f32, S2R_PLATFORM=cpu; then
-  val_adapt on model_best.ckpt reproduces the Trainer's mIoU.
+  val_adapt on model_best.ckpt reproduces the Trainer's mIoU, with and
+  without the per-image PNG export.
 - 2 epochs straight are bit-equal to 1 epoch + resume (ft=False) + 1 epoch.
 - --resume of a JAX checkpoint or a reference .pth raises.
 """
@@ -97,11 +98,16 @@ def test_unported_flag_raises(argv, flag):
 
 
 def test_unported_methods_raise():
+    """All three methods are ported; a name outside them raises, and so do
+    a feature method on an unported backbone and more than one device."""
     from s2r_tpu_torch.train.setup import build_method
 
+    with pytest.raises(ValueError, match="unknown method"):
+        build_method(PC.Config(), 1, method="output", device="cpu")
     for method in ("feature_adapt", "source_only"):
-        with pytest.raises(NotImplementedError, match="A.6"):
-            build_method(PC.Config(), 1, method=method, device="cpu")
+        with pytest.raises(NotImplementedError, match="A.7"):
+            build_method(PC.Config(backbone="resnet"), 1, method=method,
+                         device="cpu")
     with pytest.raises(NotImplementedError, match="A.8"):
         build_method(PC.Config(), 1, device="cpu", n_devices=2)
 
@@ -176,7 +182,8 @@ def test_saver_matches_jax(tmp_path):
 def _tiny_method():
     from s2r_tpu_torch.train.setup import build_method
 
-    return build_method(PC.Config(precision="f32"), 4, device="cpu")
+    return build_method(PC.Config(precision="f32"), 4,
+                        method="output_adapt", device="cpu")
 
 
 def _batch(seed, hw=32, n=2):
@@ -332,8 +339,32 @@ def test_val_adapt_reproduces_mIoU(fitted, tmp_path, monkeypatch):
                                            "--out-dir", str(tmp_path)])
     assert miou == trainer.best_pred
     assert (tmp_path / "val_info.txt").read_text().startswith("Validation:")
-    with pytest.raises(NotImplementedError, match="--skip-sep"):
-        val_adapt.main(ARGV + ["--resume", best])
+    # without --skip-sep it also writes each image's two PNGs
+    with torch_threads():
+        miou_sep, _ = val_adapt.main(ARGV + ["--resume", best, "--out-dir",
+                                             str(tmp_path / "sep")])
+    assert miou_sep == trainer.best_pred
+    pngs = sorted(os.listdir(tmp_path / "sep" / "predictions"))
+    n = len(trainer.val_loader) * 2
+    assert len(pngs) == 2 * n
+    assert sum(p.endswith("_labelId.png") for p in pngs) == n
+
+
+def test_test_adapt_writes_predictions(fitted, tmp_path, monkeypatch):
+    """test_adapt on the output_adapt checkpoint: one labelId and one color
+    PNG a test image."""
+    from s2r_tpu_torch.cli import test_adapt
+
+    trainer, _ = fitted
+    best = os.path.join(trainer.saver.directory, "model_best.ckpt")
+    monkeypatch.setenv("S2R_PLATFORM", "cpu")
+    with torch_threads():
+        test_adapt.main(ARGV + ["--resume", best, "--out-dir",
+                                str(tmp_path)])
+    pngs = sorted(os.listdir(tmp_path))
+    n = 2 * len(trainer.test_loader)
+    assert len(pngs) == 2 * n
+    assert sum(p.endswith("_labelId.png") for p in pngs) == n
 
 
 def test_no_card_raises_without_cpu_platform(monkeypatch):
@@ -355,13 +386,14 @@ def test_resume_is_bit_identical(tmp_path):
                          run_root=str(tmp_path / root), **kw)
 
     with torch_threads():
-        straight = Trainer(cfg("a"), device="cpu")
+        straight = Trainer(cfg("a"), method="output_adapt", device="cpu")
         straight.fit()
-        first = Trainer(cfg("b"), device="cpu")
+        first = Trainer(cfg("b"), method="output_adapt", device="cpu")
         first.training(0)
         first.saver.wait()
         ckpt = os.path.join(first.saver.experiment_dir, "checkpoint.ckpt")
-        resumed = Trainer(cfg("b", resume=ckpt, ft=False), device="cpu")
+        resumed = Trainer(cfg("b", resume=ckpt, ft=False),
+                          method="output_adapt", device="cpu")
         assert resumed.start_epoch == 1
         assert _tree_equal(_flat(resumed.state), _flat(first.state))
         resumed.fit()
@@ -379,7 +411,7 @@ def test_resume_with_ft_loads_weights_only(tmp_path, fitted):
                               batch_size=2, crop_size=32, base_size=32,
                               precision="f32", workers=2,
                               run_root=str(tmp_path), resume=ckpt),
-                    device="cpu")
+                    method="output_adapt", device="cpu")
     got, want = _flat(t.state), _flat(trainer.state)
     assert _tree_equal(got["G"], want["G"]) and _tree_equal(got["D"],
                                                             want["D"])
