@@ -5,8 +5,9 @@
 
 Phases, each of which must pass:
 
-1. Build the hand-written kernels (s2r_tpu_torch/csrc/*.cu) with plain nvcc,
-   one process per source, all at once, into s2r_tpu_torch/_build/.
+1. Build the hand-written kernels (s2r_tpu_torch/csrc/*.cu) with plain nvcc
+   and the host imaging library (csrc/host/imaging.cpp) with g++, one
+   process per source, all at once, into s2r_tpu_torch/_build/.
 2. Hold each kernel against its plain PyTorch version on the card, at every
    shape the serving path (2048x1024 batch 8, 513x513 batch 1), the train
    step (512x1024 batch 8) and the train_adapt driver of phase 5 (512x512:
@@ -108,14 +109,34 @@ Phases, each of which must pass:
    model_best.ckpt with the per-image export (mIoU within 1e-4 of the
    Trainer's, one labelId and one color PNG an image at 1280x640) and
    ``cli.test`` (the same PNGs), each with its depthwise launches counted.
-7. Print the kernels line (each kernel's launches by path), the card's
+7. The real datasets, from full-size PNG fixtures written in a temporary
+   directory by s2r_tpu_torch/tools/fixtures.py (16 GTA5-sized 1914x1052
+   sources with P-mode labels, 16 Cityscapes-sized 2048x1024 targets, 8 val
+   pairs with L-mode labelIds, 8 test frames; synthetic scenes scaled up,
+   each file cycling the five PNG filter types).  The host imaging library
+   (s2r_tpu_torch/csrc/host/imaging.cpp, built with g++ beside the kernels)
+   hashes its outputs on seeded resize, box-resize, blur and train-transform
+   calls to IMAGING_DIGEST, the SHA-256 that
+   tests/test_torch_port_imaging.py holds PIL's outputs to (the card has no
+   PIL), and decodes every fixture to the array it was written from.  Then,
+   at the phase 5 cell: (a) train_adapt --dataset gtav2cityscapes on the
+   default host path, one epoch of 2 steps, the loader alone at 4 and 8
+   workers, and val_adapt with the per-image export; (b) the same with
+   --device-aug, GTA5-sized sources and Cityscapes-sized targets in one
+   batch (ROADMAP C.9); (c) with --data-cache for two epochs, the decodes
+   counted against the loader's draws (the second epoch decodes no source
+   or label, only the targets it draws first); (d) train --dataset gtav
+   (source-only) and test, one PNG pair per frame of the GTA5 test split.
+   Each run's launches as predicted, its epoch images/s, and one more
+   epoch profiled for its idle share.
+8. Print the kernels line (each kernel's launches by path), the card's
    name and power limit, and as the last line {"ok": true, "device":
    {...}}.
 
 Without a CUDA device, or outside a checkout holding s2r_tpu_torch, it exits
 non-zero and prints no result.  Float32 convs run with TF32 off.  It writes
 the kernel build directory, and phase 5's run root in the temporary
-directory (and phase 6d's), which it removes.
+directory (and phase 6d's and 7's), which it removes.
 """
 
 import dataclasses
@@ -178,6 +199,16 @@ STEP_LAUNCHES = {
     "source_only": {"depthwise_conv3x3": 28, "requant_s32_to_s8": 0,
                     "depthwise_dk": 14, **dict.fromkeys(_BN, 60),
                     "disc_conv1": 0}}
+# phase 7: the real datasets, from full-size PNG fixtures (tools/fixtures.py:
+# 16 GTA5-sized sources with P-mode labels, 16 Cityscapes-sized targets, 8
+# val pairs, 8 test frames), the drivers at the phase 5 cell.  GTA5's
+# 70/20/10 split of 16 frames leaves 11 / 3 / 2: one train step, and val and
+# test at batches of 3 and REAL_TEST_BATCH (--no-val-drop-last).
+REAL_FRAMES = dict(n_gta=16, n_city=16, n_val=8, n_test=8)
+REAL_TEST_BATCH = 2
+REAL_ARGV = ["--crop-size", str(ADAPT_HW[0]), "--base-size", str(ADAPT_HW[0]),
+             "--batch-size", str(ADAPT_BATCH), "--epochs", "1",
+             "--precision", "bf16", "--workers", "4"]
 DEV = "cuda"
 
 
@@ -335,7 +366,9 @@ def check_depthwise(dw):
               (2, 7, 9, 37, 4, 1)]
     # the train_adapt driver's forwards: the step and validation at its
     # batch, image logging at ADAPT_LOG_BATCH
-    adapt = [(n, c, h, w, d, 0) for n in (ADAPT_BATCH, ADAPT_LOG_BATCH)
+    # (phase 7's GTA5 test split: REAL_TEST_BATCH)
+    adapt = [(n, c, h, w, d, 0)
+             for n in (ADAPT_BATCH, ADAPT_LOG_BATCH, REAL_TEST_BATCH)
              for c, h, w, d in sorted(set(dw_shapes(ADAPT_HW, block_plan)))]
     for n, c, h, w, d, offset in edges + adapt:
         for dtype in (torch.float32, torch.bfloat16):
@@ -344,9 +377,9 @@ def check_depthwise(dw):
             err = dw_check(dw, x, k, d)
             worst[dtype] = max(worst[dtype], err)
     log(f"[depthwise] {len(edges)} edge shapes (tiles, halos, C=7, C=20, "
-        f"unaligned input) and {len(adapt)} train_adapt shapes "
-        f"({ADAPT_HW[1]}x{ADAPT_HW[0]}, batch {ADAPT_BATCH} and "
-        f"{ADAPT_LOG_BATCH}) pass")
+        f"unaligned input) and {len(adapt)} driver shapes "
+        f"({ADAPT_HW[1]}x{ADAPT_HW[0]}, batch {ADAPT_BATCH}, "
+        f"{ADAPT_LOG_BATCH} and {REAL_TEST_BATCH}) pass")
     rows = [per_shape[(BATCH,) + s + (torch.bfloat16,)] for s in main]
     serve = [{"C": c, "H": h, "W": w, "d": d, "launches": main.count((c, h, w, d)),
               "ms": per_shape[(BATCH, c, h, w, d, torch.bfloat16)][0],
@@ -1328,6 +1361,22 @@ def check_device_aug(loader, cfg):
     return card
 
 
+def predicted(method, steps, eval_fwd):
+    """Each kernel's launches in `steps` steps of `method` and `eval_fwd`
+    eval forwards (14 depthwise each)."""
+    want = {k: v * steps for k, v in STEP_LAUNCHES[method].items()}
+    want["depthwise_conv3x3"] += 14 * eval_fwd
+    return want
+
+
+def fit_eval_forwards(trainer):
+    """Eval forwards of Trainer.fit from epoch 0: an image-logging forward
+    every vis_every steps and the validation batches, each epoch."""
+    n_tr, n_val = len(trainer.train_loader), len(trainer.val_loader)
+    vis_every = max(n_tr // 10, 1) if n_tr >= 10 else max(n_tr, 1)
+    return trainer.cfg.epochs * (len(range(0, n_tr, vis_every)) + n_val)
+
+
 def train_adapt_phase(counted):
     """Phase 5: the train_adapt driver, resume, val_adapt, the device
     augmentation, and the driver's rates beside the bare step's."""
@@ -1348,14 +1397,7 @@ def train_adapt_phase(counted):
         cfg = trainer.cfg
         steps, n_tr = trainer.state.step, len(trainer.train_loader)
         n_val = len(trainer.val_loader)
-        vis_every = max(n_tr // 10, 1) if n_tr >= 10 else max(n_tr, 1)
-        eval_fwd = cfg.epochs * (len(range(0, n_tr, vis_every)) + n_val)
-        want = {"depthwise_conv3x3": 56 * steps + 14 * eval_fwd,
-                "requant_s32_to_s8": 0, "depthwise_dk": 28 * steps,
-                "batch_norm_stats": 120 * steps,
-                "batch_norm_apply": 120 * steps,
-                "batch_norm_grad_sums": 120 * steps,
-                "batch_norm_dx": 120 * steps, "disc_conv1": 3 * steps}
+        want = predicted("output_adapt", steps, fit_eval_forwards(trainer))
         log(f"[train_adapt] {cfg.epochs} epochs of {n_tr} steps, {n_val} "
             f"validation batches and one image-logging forward an epoch in "
             f"{fit_s:.1f} s; launches {launches}")
@@ -1614,6 +1656,46 @@ def check_source_shapes(dw):
         f"forward, dx and dk; worst dk rel err {worst:.3g}")
 
 
+# Phase 7: the SHA-256 of the host imaging library's outputs on the seeded
+# calls of imaging_digest; tests/test_torch_port_imaging.py holds PIL's
+# outputs on the same calls to the same constant.
+IMAGING_DIGEST = ("f1fe458d3373a00780bc5f622587d69c"
+                  "dbd9121e95e6db07dc485613188b8336")
+DIGEST_BASE, DIGEST_CROP = 40, 48  # the digest's train transforms
+
+
+def imaging_digest(resize, blur, transform):
+    """SHA-256 over BILINEAR resizes (whole frame and box= windows), Gaussian
+    blurs and train transforms of seeded uint8 frames, RGB and gray:
+    resize(img, (w, h), box), blur(img, radius) and transform(sample, rng)
+    return uint8 arrays (the sample's entries in its key order)."""
+    import hashlib
+    import random
+
+    rs, rr = np.random.RandomState(SEED), random.Random(SEED)
+    h = hashlib.sha256()
+    for i in range(16):
+        ih, iw = (int(v) for v in rs.randint(8, 160, 2))
+        img = rs.randint(0, 256, (ih, iw, 3)).astype(np.uint8)
+        if i % 2:
+            img = np.ascontiguousarray(img[..., 0])
+        ow, oh = (int(v) for v in rs.randint(4, 320, 2))
+        x0, y0 = rs.uniform(0, iw / 2), rs.uniform(0, ih / 2)
+        box = (x0, y0, rs.uniform(x0 + 1, iw), rs.uniform(y0 + 1, ih))
+        for out in (resize(img, (ow, oh), None), resize(img, (ow, oh), box),
+                    blur(img, rr.random()), blur(img, 4 * rr.random())):
+            h.update(np.ascontiguousarray(out, np.uint8).tobytes())
+    for i in range(6):
+        sh, sw = (int(v) for v in rs.randint(24, 96, 2))
+        th, tw = (int(v) for v in rs.randint(24, 96, 2))
+        sample = {"src_image": rs.randint(0, 256, (sh, sw, 3)).astype(np.uint8),
+                  "tgt_image": rs.randint(0, 256, (th, tw, 3)).astype(np.uint8),
+                  "src_label": rs.randint(0, 256, (sh, sw)).astype(np.uint8)}
+        for v in transform(sample, random.Random(i)).values():
+            h.update(np.ascontiguousarray(v, np.uint8).tobytes())
+    return h.hexdigest()
+
+
 def png_size(path):
     """(width, height) from a PNG's IHDR."""
     with open(path, "rb") as f:
@@ -1659,11 +1741,7 @@ def train_phase(counted):
         cfg = trainer.cfg
         steps, n_tr = trainer.state.step, len(trainer.train_loader)
         n_val, n_test = len(trainer.val_loader), len(trainer.test_loader)
-        vis_every = max(n_tr // 10, 1) if n_tr >= 10 else max(n_tr, 1)
-        eval_fwd = cfg.epochs * (len(range(0, n_tr, vis_every)) + n_val)
-        step = STEP_LAUNCHES["feature_adapt"]
-        want = {k: v * steps for k, v in step.items()}
-        want["depthwise_conv3x3"] += 14 * eval_fwd
+        want = predicted("feature_adapt", steps, fit_eval_forwards(trainer))
         log(f"[6d train] {cfg.epochs} epoch of {n_tr} steps, {n_val} "
             f"validation batches and one image-logging forward in "
             f"{fit_s:.1f} s; launches {by_path['train']}")
@@ -1751,6 +1829,204 @@ def train_phase(counted):
     return by_path
 
 
+def drive(counted, main, argv):
+    """main(argv) with the launch counts set to 0 just before; (its result,
+    the counts just after, seconds)."""
+    reset(counted)
+    t0 = time.perf_counter()
+    out = main(argv)
+    torch.cuda.synchronize()
+    return out, {fn.__name__: fn.launches for fn in counted}, \
+        time.perf_counter() - t0
+
+
+def profiled_epoch(trainer, epoch):
+    """(wall s, device s, idle share) of Trainer.training(epoch) under
+    torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.training(epoch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev = sum(e.self_device_time_total for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA) / 1e6
+    return wall, dev, max(0.0, 1.0 - dev / wall)
+
+
+def real_data_phase(counted, smi):
+    """Phase 7: the real datasets.  Returns the launches of each entry
+    point it drives."""
+    import random
+    from concurrent.futures import ThreadPoolExecutor
+
+    from s2r_tpu_torch.cli import test, train, train_adapt, val_adapt
+    from s2r_tpu_torch.data import imaging
+    from s2r_tpu_torch.data import transforms as T
+    from s2r_tpu_torch.tools import fixtures
+
+    os.environ.pop("S2R_PLATFORM", None)  # the card, as a user runs it
+    digest = imaging_digest(imaging.resize_bilinear, imaging.gaussian_blur,
+                            T.train_transforms(DIGEST_BASE, DIGEST_CROP))
+    log(f"[7 imaging] golden digest {digest[:16]}..: "
+        f"{'equal' if digest == IMAGING_DIGEST else 'DIFFERENT'} to PIL's")
+    require(digest == IMAGING_DIGEST, "imaging digest differs from PIL's")
+    root = tempfile.mkdtemp(prefix="s2r_real_")
+    by_path = {}
+    try:
+        data = os.path.join(root, "data")
+        t0 = time.perf_counter()
+        files = fixtures.write_fixtures(data, **REAL_FRAMES)
+        write_s = time.perf_counter() - t0
+
+        def decodes_back(f):
+            load = imaging.load_rgb if f[1] == "rgb" else imaging.load_raw
+            return np.array_equal(load(f[0]), f[2])
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(8) as pool:
+            same = list(pool.map(decodes_back, files))
+        dec_s = time.perf_counter() - t0
+        mb = sum(os.path.getsize(f[0]) for f in files) / 2 ** 20
+        log(f"[7 fixtures] {len(files)} PNGs ({mb:.1f} MiB, the five filter "
+            f"types row by row, P-mode GTA5 labels) written in {write_s:.2f} "
+            f"s; decoded on 8 threads in {dec_s:.2f} s, {sum(same)} equal "
+            "to the arrays written")
+        require(all(same), "a fixture decodes to other pixels than written")
+        del files
+        argv = list(REAL_ARGV)
+        for k, v in fixtures.roots(data).items():
+            argv += [f"--{k}", v]
+        run = lambda name: ["--run-root", os.path.join(root, name)]  # noqa: E731
+
+        def train_check(key, trainer, launches, seconds, method):
+            steps = trainer.state.step
+            want = predicted(method, steps, fit_eval_forwards(trainer))
+            rate = [v for _, v in read_scalars(
+                trainer.saver.experiment_dir)["train/images_per_sec"]]
+            require(trainer.method.name == method, f"{key}: {method}?")
+            require(launches == want,
+                    f"{key} launches {launches}, expected {want}")
+            sc = read_scalars(trainer.saver.experiment_dir)
+            loss = "seg_loss" if method == "output_adapt" else "task_loss"
+            require(all(np.isfinite(v) for _, v in sc[f"train/{loss}"]),
+                    f"{key} {loss}: {sc[f'train/{loss}']}")
+            by_path[key] = launches
+            trainer.writer = trainer.summary.create_summary()  # fit closed it
+            wall, dev, idle = profiled_epoch(trainer, trainer.cfg.epochs)
+            n_img = len(trainer.train_loader) * trainer.cfg.batch_size
+            log(f"[7 {key}] {steps} steps in {seconds:.1f} s, launches as "
+                f"predicted; epoch images/s {', '.join(f'{v:.2f}' for v in rate)}"
+                f"; a profiled epoch {n_img / wall:.2f} images/s, device "
+                f"{dev:.3f} of {wall:.3f} s, idle {idle:.3f} ({smi})")
+            trainer.saver.wait()
+            trainer.writer.close()
+            return rate
+
+        # (a) train_adapt on the default host path, then val_adapt with the
+        # per-image export from a checkpoint of its final state
+        trainer, launches, sec = drive(counted, train_adapt.main,
+                                       argv + run("a"))
+        train_check("real_train_adapt", trainer, launches, sec,
+                    "output_adapt")
+        loader = trainer.train_loader
+        n_img = len(loader) * loader.batch_size
+        for w in (4, 8):
+            loader.num_workers = w
+            t0 = time.perf_counter()
+            for _ in loader:
+                pass
+            s = time.perf_counter() - t0
+            log(f"[7 loader] host path alone, {w} workers: {n_img / s:.2f} "
+                f"images/s ({n_img} GTA5 + Cityscapes pairs: decode, "
+                f"scale-crop, blur) ({smi})")
+        final = trainer.saver.save_checkpoint(trainer.state, 1,
+                                              trainer.best_pred, False,
+                                              filename="final.ckpt")
+        trainer.saver.wait()
+        out = os.path.join(root, "val_a")
+        (miou, _), launches, sec = drive(
+            counted, val_adapt.main,
+            argv + run("a") + ["--resume", final, "--out-dir", out])
+        n_val = REAL_FRAMES["n_val"] // ADAPT_BATCH
+        require(launches == predicted("output_adapt", 0, 2 * n_val),
+                f"real val_adapt launches {launches}")
+        require(0.0 <= miou <= 1.0, f"real val_adapt mIoU {miou}")
+        check_exports(os.path.join(out, "predictions"), REAL_FRAMES["n_val"],
+                      True)
+        by_path["real_val_adapt"] = launches
+        log(f"[7 val_adapt] mIoU {miou:.6f}, {REAL_FRAMES['n_val']} "
+            f"Cityscapes val pairs exported at 1280x640 in {sec:.1f} s")
+        del trainer, loader
+
+        # (b) --device-aug: GTA5-sized sources, Cityscapes-sized targets
+        trainer, launches, sec = drive(
+            counted, train_adapt.main, argv + run("b") + ["--device-aug"])
+        batch = next(iter(trainer.train_loader))
+        shapes = {k: tuple(batch[k].shape[1:3]) for k in ("src_image",
+                                                         "tgt_image")}
+        require(shapes == {"src_image": fixtures.GTA5_HW,
+                           "tgt_image": fixtures.CITYSCAPES_HW},
+                f"staged frames {shapes}")
+        train_check("real_device_aug", trainer, launches, sec,
+                    "output_adapt")
+        del trainer, batch
+
+        # (c) --data-cache, two epochs: the second decodes only the target
+        # frames that the first did not draw (a random target a sample)
+        trainer, launches, sec = drive(
+            counted, train_adapt.main,
+            argv + run("c") + ["--data-cache", "--epochs", "2"])
+        ds = trainer.train_loader.dataset
+        drawn = [{random.Random((trainer.cfg.seed, e, i).__hash__())
+                  .randint(0, len(ds.targets) - 1) for i in range(len(ds))}
+                 for e in range(2)]
+        want_misses = 2 * len(ds) + len(drawn[0] | drawn[1])
+        lookups = 2 * 3 * len(ds)
+        log(f"[7 data-cache] {ds.cache.misses} decodes, {ds.cache.hits} hits "
+            f"in 2 epochs ({lookups} lookups); epoch 2 decoded "
+            f"{len(drawn[1] - drawn[0])} targets first drawn in it, no "
+            f"source or label; {ds.cache.nbytes() / 2 ** 20:.0f} MiB held")
+        require(ds.cache.misses == want_misses
+                and ds.cache.hits == lookups - want_misses,
+                f"data cache: {ds.cache.misses} decodes, expected "
+                f"{want_misses}")
+        train_check("real_data_cache", trainer, launches, sec,
+                    "output_adapt")
+        del trainer, ds
+
+        # (d) train --dataset gtav (source-only), then test on its split
+        gtav = argv + ["--dataset", "gtav", "--no-val-drop-last"]
+        trainer, launches, sec = drive(counted, train.main, gtav + run("d"))
+        train_check("real_train_gtav", trainer, launches, sec, "source_only")
+        final = trainer.saver.save_checkpoint(trainer.state, 1,
+                                              trainer.best_pred, False,
+                                              filename="final.ckpt")
+        trainer.saver.wait()
+        names = [os.path.basename(p) for p in trainer.test_loader.dataset.files]
+        del trainer
+        out = os.path.join(root, "test_d")
+        _, launches, sec = drive(counted, test.main, gtav + run("d") + [
+            "--resume", final, "--out-dir", out])
+        require(len(names) == REAL_TEST_BATCH
+                and launches == predicted("source_only", 0, 1),
+                f"real test launches {launches}, {names}")
+        check_exports(out, REAL_TEST_BATCH, False)
+        require(sorted(os.listdir(out)) == sorted(
+            f"{n[:-4]}{t}.png" for n in names
+            for t in ("_labelId", "_color")),
+            f"test PNG names {sorted(os.listdir(out))}")
+        by_path["real_test_gtav"] = launches
+        log(f"[7 test] {len(names)} GTA5 test frames exported at 1280x640 "
+            f"({', '.join(names)}) in {sec:.1f} s")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return by_path
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1775,8 +2051,10 @@ def main():
     try:
         t0 = time.perf_counter()
         libs = build.build_all()
-        log(f"[build] {len(libs)} kernels built with nvcc "
-            f"({' '.join(build.NVCC_FLAGS)}) in {time.perf_counter() - t0:.1f} s")
+        log(f"[build] {len(libs)} libraries built at once: the kernels "
+            f"with nvcc ({' '.join(build.NVCC_FLAGS)}), the host imaging "
+            f"library with g++ ({' '.join(build.GXX_FLAGS)}), in "
+            f"{time.perf_counter() - t0:.1f} s")
         smi = card()
         log(f"[card] {smi}; torch {torch.__version__}, CUDA "
             f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
@@ -1804,6 +2082,8 @@ def main():
         check_source_shapes(dw)
         torch.cuda.empty_cache()
         driver_launches = train_phase(counted)
+        torch.cuda.empty_cache()
+        driver_launches.update(real_data_phase(counted, smi))
         bn_entries[0]["composite"] = dict(
             bn_composite, ms_covers="one 512x1024 batch-8 bf16 train step: "
             "all four entries of 120 BatchNorm calls; library_ms: "

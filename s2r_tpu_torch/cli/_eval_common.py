@@ -13,8 +13,10 @@ reference val.py / val_adapt.py / test.py / test_adapt.py).
 - ``test_sweep``: the label-free sweep saving the same two PNGs an image
   (test_adapt.py:118-178).
 
-The port never imports PIL: ``nearest_index`` reproduces the index map of
-PIL's NEAREST resize, and utils/png.py encodes the PNGs.
+The port never imports PIL: data/imaging.py ``resize_nearest`` gives PIL's
+NEAREST resize, and utils/png.py encodes the PNGs.  The names come from the
+datasets (ValSet: the ``*_leftImg8bit.png`` of each label; TestSet and GTA5:
+the image's file name; synthetic: ``synthetic_<index>.png``).
 """
 
 from __future__ import annotations
@@ -27,7 +29,9 @@ import torch
 
 from s2r_tpu_torch.config import Config
 from s2r_tpu_torch.core.device import resolve_device
+from s2r_tpu_torch.data.datasets import VALID_CLASSES
 from s2r_tpu_torch.data.device_aug import normalize_u8_batch
+from s2r_tpu_torch.data.imaging import resize_nearest
 from s2r_tpu_torch.data.loader import make_data_loader
 from s2r_tpu_torch.data.palette import decode_segmap_u8
 from s2r_tpu_torch.eval.metrics import Evaluator, evaluate
@@ -42,10 +46,7 @@ EXPORT_SIZE = (1280, 640)  # (w, h): val.py:214-254 / test_adapt.py:118-157
 # trainId -> Cityscapes labelId for the grayscale export (val.py imgsaver
 # :219-224 maps predictions back through valid_classes).
 _TRAINID_TO_LABELID = np.zeros(256, np.uint8)
-for _i, _v in enumerate(
-        (7, 8, 11, 12, 13, 17, 19, 20, 21, 22, 23, 24, 25, 26, 27, 28, 31,
-         32, 33)):
-    _TRAINID_TO_LABELID[_i] = _v
+_TRAINID_TO_LABELID[:len(VALID_CLASSES)] = VALID_CLASSES
 
 # Short class names of the val_info.txt report (val.py:177-195).
 REPORT_CLASS_NAMES = ("road", "sidewalk", "building", "wall", "fence",
@@ -73,25 +74,6 @@ def build_eval(cfg: Config, method: Optional[str] = None,
         test_loader, nclass
 
 
-def nearest_index(n_in: int, n_out: int) -> np.ndarray:
-    """The source index of each of `n_out` positions in PIL's NEAREST
-    resize from `n_in`: PIL starts at scale / 2 and adds scale = n_in /
-    n_out once a position, in double precision, truncating each
-    (Geometry.c ImagingScaleAffine).  A closed form (i + 0.5) * scale
-    rounds differently at some sizes (512 -> 640 among them)."""
-    steps = np.full(n_out, n_in / n_out, np.float64)
-    steps[0] *= 0.5
-    return np.minimum(np.add.accumulate(steps).astype(np.int64), n_in - 1)
-
-
-def resize_nearest(image: np.ndarray, size=EXPORT_SIZE) -> np.ndarray:
-    """[H, W] or [H, W, 3] -> the same at `size` (w, h), pixel for pixel
-    PIL's ``Image.resize(size, Image.NEAREST)``."""
-    w, h = size
-    return image[nearest_index(image.shape[0], h)][
-        :, nearest_index(image.shape[1], w)]
-
-
 def _save_prediction(pred: np.ndarray, name: str, out_dir: str,
                      dataset: str, miou: Optional[float] = None):
     """Grayscale labelId PNG (trainIds mapped back to Cityscapes labelIds)
@@ -100,10 +82,11 @@ def _save_prediction(pred: np.ndarray, name: str, out_dir: str,
     os.makedirs(out_dir, exist_ok=True)
     stem = os.path.splitext(os.path.basename(name))[0]
     write_png(os.path.join(out_dir, f"{stem}_labelId.png"),
-              resize_nearest(_TRAINID_TO_LABELID[pred.astype(np.uint8)]))
+              resize_nearest(_TRAINID_TO_LABELID[pred.astype(np.uint8)],
+                             EXPORT_SIZE))
     tag = f"_color_{miou:.4f}_" if miou is not None else "_color"
     write_png(os.path.join(out_dir, f"{stem}{tag}.png"),
-              resize_nearest(decode_segmap_u8(pred, dataset)))
+              resize_nearest(decode_segmap_u8(pred, dataset), EXPORT_SIZE))
 
 
 def _predictions(eval_step, loader, device):

@@ -5,11 +5,12 @@ with the pixel-wise domain classifier on the summed task + d + d_inv loss
 (feature_adapt).  Per-epoch validation, best-mIoU checkpoints and resume;
 the flags are the JAX package's.
 
-    python -m s2r_tpu_torch.cli.train --dataset synthetic --device-aug \\
-        --epochs 2 --batch-size 8 --crop-size 512 --base-size 512
+    python -m s2r_tpu_torch.cli.train --dataset gtav \\
+        --src_img_root GTA5/images --src_label_root GTA5/labels \\
+        --epochs 50 --batch-size 8 --crop-size 512 --base-size 512
 
-Only ``--dataset synthetic`` loads (``gtav`` raises, ROADMAP A.4).  Runs on
-the card; ``S2R_PLATFORM=cpu`` selects the CPU.
+``--dataset gtav2cityscapes`` takes the roots of train_adapt; ``synthetic``
+needs none.  Runs on the card; ``S2R_PLATFORM=cpu`` selects the CPU.
 """
 
 from __future__ import annotations

@@ -181,15 +181,22 @@ def _normalize(raw: torch.Tensor) -> torch.Tensor:
 def warp_paired_batch(batch: Dict[str, torch.Tensor],
                       params: Dict[str, torch.Tensor], crop_size,
                       blur: bool = True) -> Dict[str, torch.Tensor]:
-    """{'src_image' u8 [N,SH,SW,3], 'tgt_image' u8, 'src_label' u8/int
-    [N,SH,SW]} -> {'src_image', 'tgt_image' float32 [N,c,c,3], 'src_label'
-    int64 [N,c,c]} on the batch's device.  The pair shares the flip, scale,
-    crop and blur gate, and takes the source frame's geometry (as the JAX
-    package's ``_warp_one`` does); the blur radii are independent."""
-    src = batch["src_image"]
+    """{'src_image' u8 [N,SH,SW,3], 'tgt_image' u8 [N,TH,TW,3],
+    'src_label' u8/int [N,SH,SW]} -> {'src_image', 'tgt_image' float32
+    [N,c,c,3], 'src_label' int64 [N,c,c]} on the batch's device.  The pair
+    shares the flip, the scaled extent (oh, ow: drawn from the source
+    frame's shape), the crop corner and the blur gate; the blur radii are
+    independent.  Each frame maps onto that extent from its own size, as
+    the PIL path resizes every entry to the source's (ow, oh): a target of
+    another size than the source is read across its whole frame, where the
+    JAX package's ``_warp_one`` takes the source's size for both and clamps
+    (ROADMAP C.9)."""
+    src, tgt = batch["src_image"], batch["tgt_image"]
     warp = _Warp(params, src.shape[1], src.shape[2], crop_size, src.device)
+    tgt_warp = warp if tgt.shape[1:3] == src.shape[1:3] else _Warp(
+        params, tgt.shape[1], tgt.shape[2], crop_size, tgt.device)
     return {"src_image": warp.image(src, 0, blur),
-            "tgt_image": warp.image(batch["tgt_image"], 1, blur),
+            "tgt_image": tgt_warp.image(tgt, 1, blur),
             "src_label": warp.nearest_label(batch["src_label"])}
 
 

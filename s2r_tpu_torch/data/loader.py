@@ -10,9 +10,12 @@
   the JAX package.  A tuple of ints hashes the same in every process
   (PYTHONHASHSEED salts only str and bytes), so the batches are
   bit-identical to JAX's.
-
-Only ``--dataset synthetic`` is ported; ``gtav`` and ``gtav2cityscapes``
-need a PNG decoder and host transforms without PIL (ROADMAP A.4).
+- ``gtav2cityscapes`` and ``gtav`` read the PNG roots of the config
+  (data/datasets.py), staged for ``--device-aug`` and cached with
+  ``--data-cache`` (up to ``--data-cache-gb``); ``synthetic`` makes scenes.
+  Decode, resampling and blur run in C++ that releases the GIL, so the
+  threads work in parallel.  ``--data-backend native`` (the JAX package's
+  own C++ loader) is not ported (ROADMAP A.4): ``check_ported`` raises.
 """
 
 from __future__ import annotations
@@ -24,7 +27,8 @@ from typing import Dict, Iterator, List, Optional
 
 import numpy as np
 
-from s2r_tpu_torch.config import Config
+from s2r_tpu_torch.config import Config, check_ported
+from s2r_tpu_torch.data import datasets as D
 from s2r_tpu_torch.data import synthetic as S
 
 
@@ -99,18 +103,37 @@ class DataLoader:
 
 
 def make_data_loader(cfg: Config, seed: Optional[int] = None):
-    """(train, val, test, nclass) for ``--dataset synthetic``."""
+    """(train, val, test, nclass), as s2r_tpu/data/loader.py:121-176 makes
+    them (dataloders/__init__.py:4-28, plus the synthetic dataset)."""
     seed = cfg.seed if seed is None else seed
-    if cfg.dataset != "synthetic":
-        raise NotImplementedError(
-            f"s2r_tpu_torch: --dataset {cfg.dataset} is not ported (ROADMAP "
-            "A.4); use --dataset synthetic")
+    check_ported(cfg)
     kw = dict(num_workers=cfg.workers, seed=seed)
-    train_set = S.SyntheticTrainSet(cfg.crop_size, length=8 * cfg.batch_size,
-                                    staged=cfg.device_aug)
-    eval_n = 4 * max(cfg.batch_size, cfg.test_batch_size, 1)
-    val_set = S.SyntheticEvalSet(cfg.crop_size, length=eval_n)
-    test_set = S.SyntheticEvalSet(cfg.crop_size, length=eval_n // 2, seed=2)
+    cache = dict(staged=cfg.device_aug, cache=cfg.data_cache,
+                 cache_bytes=int(cfg.data_cache_gb * 1e9))
+    if cfg.dataset == "gtav2cityscapes":
+        train_set = D.TrainSet(cfg.src_img_root, cfg.src_label_root,
+                               cfg.tgt_img_root, cfg.base_size,
+                               cfg.crop_size, **cache)
+        val_set = D.ValSet(cfg.val_img_root, cfg.val_label_root,
+                           cfg.crop_size)
+        test_set = D.TestSet(cfg.test_img_root, cfg.test_label_root,
+                             cfg.crop_size)
+    elif cfg.dataset == "gtav":
+        roots = (cfg.src_img_root, cfg.src_label_root, cfg.base_size,
+                 cfg.crop_size)
+        train_set = D.GTA5(*roots, "train", **cache)
+        val_set = D.GTA5(*roots, "val")
+        test_set = D.GTA5(*roots, "test")
+    elif cfg.dataset == "synthetic":
+        train_set = S.SyntheticTrainSet(cfg.crop_size,
+                                        length=8 * cfg.batch_size,
+                                        staged=cfg.device_aug)
+        eval_n = 4 * max(cfg.batch_size, cfg.test_batch_size, 1)
+        val_set = S.SyntheticEvalSet(cfg.crop_size, length=eval_n)
+        test_set = S.SyntheticEvalSet(cfg.crop_size, length=eval_n // 2,
+                                      seed=2)
+    else:
+        raise NotImplementedError(cfg.dataset)
     # all three loaders use batch_size (the reference parses
     # --test-batch-size and leaves it unused: dataloders/__init__.py:11-13)
     train = DataLoader(train_set, cfg.batch_size, shuffle=True,

@@ -4,22 +4,22 @@ Structured random scenes with a fixed class -> color map (the Cityscapes
 palette), so the task is learnable.  ``_scene`` draws the same numpy
 RandomState stream as the JAX package, so the scenes are bit-identical.
 
-Samples are raw uint8, and the device finishes them: the train set emits
-the staged triple (``src_image``, ``tgt_image``, ``src_label``) for
-``data/device_aug.py``; the eval set emits ``image`` and ``label`` at
-crop x crop, where the JAX eval transform (FixScaleCrop(crop) + Normalize)
-is an identity resize and crop followed by the normalization that
-``device_aug.normalize_u8_batch`` computes on the device.  The JAX
-package's PIL train transforms (``--dataset synthetic`` without
-``--device-aug``) are not ported: that set raises.
+Scenes flow through the same transforms as real data (data/transforms.py):
+the train set emits the staged triple (``src_image``, ``tgt_image``,
+``src_label``) for ``data/device_aug.py`` with ``staged``, else its
+train-transformed crops; the eval set emits ``image`` and ``label`` through
+the eval transforms.  Samples stay uint8 and the device normalizes them
+(``device_aug.normalize_u8_batch``).
 """
 
 from __future__ import annotations
 
+import random
 from typing import Dict
 
 import numpy as np
 
+from s2r_tpu_torch.data import transforms as T
 from s2r_tpu_torch.data.palette import get_cityscapes_labels
 
 NUM_CLASSES = 19
@@ -59,6 +59,8 @@ class SyntheticTrainSet:
         self.paired = paired
         self.seed = seed
         self.staged = staged
+        self.transform = T.train_transforms(crop_size, crop_size)
+        self.eval_transform = T.eval_transforms(crop_size)
 
     def __len__(self):
         return self.length
@@ -67,15 +69,16 @@ class SyntheticTrainSet:
         r = np.random.RandomState(self.seed * 100003 + index)
         img, lbl = _scene(r, self.crop, self.crop)
         if not self.paired:
-            return {"image": img, "label": lbl.astype(np.uint8),
-                    "name": f"synthetic_{index:05d}.png"}
-        if not self.staged:
-            raise NotImplementedError(
-                "s2r_tpu_torch: --dataset synthetic trains with --device-aug;"
-                " the host train transforms come with gtav (ROADMAP A.4)")
+            out = self.eval_transform({"image": img,
+                                       "label": lbl.astype(np.uint8)})
+            out["name"] = f"synthetic_{index:05d}.png"
+            return out
         tgt, _ = _scene(r, self.crop, self.crop)
-        return {"src_image": img, "tgt_image": tgt,
-                "src_label": lbl.astype(np.uint8)}
+        sample = {"src_image": img, "tgt_image": tgt,
+                  "src_label": lbl.astype(np.uint8)}
+        if self.staged:
+            return sample
+        return self.transform(sample, rng or random)
 
 
 class SyntheticEvalSet:

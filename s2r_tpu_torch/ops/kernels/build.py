@@ -1,15 +1,20 @@
-"""Build the hand-written CUDA kernels with plain nvcc and load them with ctypes.
+"""Build the hand-written CUDA kernels with plain nvcc, and the host imaging
+library with g++, and load them with ctypes.
 
 Each source in ``s2r_tpu_torch/csrc/<name>.cu`` exposes a C interface (raw
 pointers, int64 sizes, a ``cudaStream_t``) and compiles on its own into
 ``s2r_tpu_torch/_build/<name>-<hash>.so``, where the hash covers the source,
 the shared headers (``csrc/*.cuh``) and the flags, so an edited source or
-header builds anew and an unchanged one is reused.  The build directory is
-the only place the package writes, and git ignores it.  Nothing here runs at
-import time: a kernel is built at its first use, or ahead of time by
-``build_all``, which starts one nvcc per source at once.  A failed build
-raises.  ``batch_chunks`` cuts a batch into runs of whole items that a
-kernel indexing in 32 bits can take in one launch.
+header builds anew and an unchanged one is reused.  The host sources
+(``csrc/host/<name>.cpp``, C++ for the data pipeline's threads) build the
+same way with g++ (``GXX_FLAGS``: no ``-march``, and no contraction into
+fused multiply-adds, which would move Pillow's double coefficients by an
+ulp).  The build directory is the only place the package writes, and git
+ignores it.  Nothing here runs at import time: a library is built at its
+first use, or ahead of time by ``build_all``, which starts one compiler per
+source at once.  A failed build raises.  ``batch_chunks`` cuts a batch into
+runs of whole items that a kernel indexing in 32 bits can take in one
+launch.
 """
 
 from __future__ import annotations
@@ -31,6 +36,10 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 SOURCES = ("depthwise", "requant", "batchnorm", "disc_conv")
+HOST_DIR = SRC_DIR / "host"
+GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread",
+             "-ffp-contract=off")
+HOST_SOURCES = ("imaging",)
 
 # Kernels that index in 32 bits take fewer elements than this per launch.
 INDEX_LIMIT = 2 ** 31
@@ -50,23 +59,41 @@ def nvcc_path() -> str:
     return found
 
 
+def gxx_path() -> str:
+    """g++ from $PATH; raises if absent."""
+    found = shutil.which("g++")
+    if found is None:
+        raise RuntimeError("g++ not found: the host imaging library needs it")
+    return found
+
+
+def _source(name: str) -> Path:
+    return HOST_DIR / f"{name}.cpp" if name in HOST_SOURCES \
+        else SRC_DIR / f"{name}.cu"
+
+
 def _target(name: str) -> Path:
-    src = (SRC_DIR / f"{name}.cu").read_bytes()
-    headers = b"".join(h.read_bytes() for h in sorted(SRC_DIR.glob("*.cuh")))
-    digest = hashlib.sha256(src + headers
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    src = _source(name).read_bytes()
+    if name in HOST_SOURCES:
+        extra, flags = b"", GXX_FLAGS
+    else:
+        extra = b"".join(h.read_bytes() for h in sorted(SRC_DIR.glob("*.cuh")))
+        flags = NVCC_FLAGS
+    digest = hashlib.sha256(src + extra + " ".join(flags).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 
 class _Build:
-    """One nvcc process writing `so` through a temporary file."""
+    """One compiler process (nvcc, or g++ for a host source) writing `so`
+    through a temporary file."""
 
     def __init__(self, name: str, so: Path):
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         self.so = so
         self.tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        self.cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(self.tmp),
-                    str(SRC_DIR / f"{name}.cu")]
+        compiler = [gxx_path(), *GXX_FLAGS] if name in HOST_SOURCES \
+            else [nvcc_path(), *NVCC_FLAGS]
+        self.cmd = [*compiler, "-o", str(self.tmp), str(_source(name))]
         self.proc = subprocess.Popen(self.cmd, stdout=subprocess.PIPE,
                                      stderr=subprocess.STDOUT, text=True)
 
@@ -74,7 +101,7 @@ class _Build:
         out, _ = self.proc.communicate()
         if self.proc.returncode != 0:
             self.tmp.unlink(missing_ok=True)
-            raise RuntimeError(f"nvcc failed ({self.proc.returncode}): "
+            raise RuntimeError(f"build failed ({self.proc.returncode}): "
                                f"{' '.join(self.cmd)}\n{out}")
         os.replace(self.tmp, self.so)  # atomic: no reader sees half a file
 
@@ -85,8 +112,9 @@ class _Build:
         self.tmp.unlink(missing_ok=True)
 
 
-def build_all(names: Iterable[str] = SOURCES) -> List[Path]:
-    """Build every named kernel not yet built, one nvcc each, all at once."""
+def build_all(names: Iterable[str] = SOURCES + HOST_SOURCES) -> List[Path]:
+    """Build every named library not yet built, one compiler each, all at
+    once."""
     targets = [(n, _target(n)) for n in names]
     builds = [_Build(n, so) for n, so in targets if not so.exists()]
     try:
@@ -99,7 +127,8 @@ def build_all(names: Iterable[str] = SOURCES) -> List[Path]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel `name`, built first if needed."""
+    """The loaded library `name` (a kernel, or a host source), built first
+    if needed."""
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:

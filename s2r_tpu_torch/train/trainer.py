@@ -62,10 +62,6 @@ class Trainer:
     def __init__(self, cfg: Config, method: Optional[str] = None,
                  device: Optional[Union[str, torch.device]] = None):
         check_ported(cfg, method)
-        if cfg.dataset == "synthetic" and not cfg.device_aug:
-            raise NotImplementedError(
-                "s2r_tpu_torch: --dataset synthetic trains with --device-aug;"
-                " the host train transforms come with gtav (ROADMAP A.4)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.saver = Saver(cfg)

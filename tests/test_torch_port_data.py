@@ -11,6 +11,8 @@ loader.py, device_aug.py, transforms.py eval transforms), on the CPU.
   equal on labels, with the blur on and off.
 - The port's sampler stays inside JAX's ranges over many draws.
 - normalize_u8_batch within 1e-7 of JAX's.
+- Only --data-backend native raises; the synthetic train set without
+  --device-aug (the host transforms) gives JAX's batches.
 """
 
 import numpy as np
@@ -199,12 +201,23 @@ def test_normalize_u8_batch_matches_jax():
 
 
 def test_unported_datasets_raise():
-    for name in ("gtav", "gtav2cityscapes"):
+    """Every dataset loads now; what is left unported of the data path is
+    the JAX package's own C++ loader (--data-backend native).  The
+    synthetic train set without --device-aug goes through the host train
+    transforms: its uint8 crops, normalized, are JAX's PIL batches."""
+    for name in ("gtav", "gtav2cityscapes", "synthetic"):
         with pytest.raises(NotImplementedError, match="A.4"):
-            make_data_loader(Config(**dict(KW, dataset=name)))
-    train = make_data_loader(Config(**dict(KW, device_aug=False)))[0]
-    with pytest.raises(NotImplementedError, match="--device-aug"):
-        next(iter(train))
+            make_data_loader(Config(**dict(KW, dataset=name,
+                                           data_backend="native")))
+    cfg = dict(KW, device_aug=False)
+    got = next(iter(make_data_loader(Config(**cfg))[0]))
+    want = next(iter(jax_loaders(JaxConfig(**cfg))[0]))
+    assert got["src_image"].dtype == np.uint8
+    out = PA.normalize_u8_batch({k: torch.as_tensor(v)
+                                 for k, v in got.items()})
+    for k in ("src_image", "tgt_image"):
+        np.testing.assert_allclose(out[k].numpy(), want[k], rtol=0, atol=1e-6)
+    np.testing.assert_array_equal(out["src_label"].numpy(), want["src_label"])
 
 
 def test_class_weights_match_jax(tmp_path):

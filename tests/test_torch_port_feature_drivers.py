@@ -213,8 +213,8 @@ EXPORT_FROM = [(64, 64), (513, 513), (512, 1024), (1024, 2048), (1052, 1914)]
 
 @pytest.mark.parametrize("hw", EXPORT_FROM)
 def test_nearest_index_equals_pil(hw):
-    from s2r_tpu_torch.cli._eval_common import (EXPORT_SIZE, nearest_index,
-                                                resize_nearest)
+    from s2r_tpu_torch.cli._eval_common import EXPORT_SIZE
+    from s2r_tpu_torch.data.imaging import nearest_index, resize_nearest
 
     h, w = hw
     rows = np.asarray(Image.fromarray(
@@ -232,7 +232,7 @@ def test_nearest_index_equals_pil(hw):
         img = rs.randint(0, 256, shape).astype(np.uint8)
         want = np.asarray(Image.fromarray(img).resize(EXPORT_SIZE,
                                                       Image.NEAREST))
-        assert np.array_equal(resize_nearest(img), want), shape
+        assert np.array_equal(resize_nearest(img, EXPORT_SIZE), want), shape
 
 
 @pytest.mark.parametrize("miou", [None, 0.123456])

@@ -65,7 +65,11 @@ def test_port_imports_no_jax_flax_or_jax_package():
                 "s2r_tpu_torch.cli.train_adapt", "s2r_tpu_torch.cli.val_adapt",
                 "s2r_tpu_torch.cli.val", "s2r_tpu_torch.cli._eval_common",
                 "s2r_tpu_torch.models.domain", "s2r_tpu_torch.cli.train",
-                "s2r_tpu_torch.cli.test", "s2r_tpu_torch.cli.test_adapt"):
+                "s2r_tpu_torch.cli.test", "s2r_tpu_torch.cli.test_adapt",
+                "s2r_tpu_torch.data.imaging", "s2r_tpu_torch.data.transforms",
+                "s2r_tpu_torch.data.datasets", "s2r_tpu_torch.data.hostcrop",
+                "s2r_tpu_torch.tools.fixtures",
+                "s2r_tpu_torch.tools.profile_driver"):
         assert mod in result["modules"]
     leaked = [m for m in FORBIDDEN if m in result["loaded"]]
     assert not leaked, leaked

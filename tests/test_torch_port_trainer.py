@@ -14,7 +14,8 @@ the CPU.
   val_adapt on model_best.ckpt reproduces the Trainer's mIoU, with and
   without the per-image PNG export.
 - 2 epochs straight are bit-equal to 1 epoch + resume (ft=False) + 1 epoch.
-- --resume of a JAX checkpoint or a reference .pth raises.
+- --resume of a JAX checkpoint or a reference .pth raises, and so does
+  --data-backend native; --dataset synthetic trains without --device-aug.
 """
 
 import argparse
@@ -439,8 +440,23 @@ def test_resume_of_foreign_checkpoint_raises(tmp_path, kind):
 
 
 def test_synthetic_without_device_aug_raises(tmp_path):
+    """The host train transforms are ported, so --dataset synthetic trains
+    without --device-aug on uint8 crops that the device normalizes; what
+    still raises on the data path is --data-backend native (A.4)."""
     from s2r_tpu_torch.train.trainer import Trainer
 
-    with pytest.raises(NotImplementedError, match="--device-aug"):
-        Trainer(PC.Config(dataset="synthetic", run_root=str(tmp_path)),
-                device="cpu")
+    with pytest.raises(NotImplementedError, match="A.4"):
+        Trainer(PC.Config(dataset="synthetic", data_backend="native",
+                          run_root=str(tmp_path)), device="cpu")
+    with torch_threads():
+        t = Trainer(PC.Config(dataset="synthetic", batch_size=2,
+                              crop_size=32, base_size=32, workers=1,
+                              run_root=str(tmp_path)), device="cpu")
+    batch = next(iter(t.train_loader))
+    assert batch["src_image"].dtype == np.uint8
+    assert batch["src_image"].shape == (2, 32, 32, 3)
+    arrays = t._finish_batch({k: torch.as_tensor(v)
+                              for k, v in batch.items()}, 0, 0)
+    assert arrays["src_image"].dtype == torch.float32
+    assert arrays["src_label"].dtype == torch.int64
+    t.writer.close()
