@@ -129,14 +129,34 @@ Phases, each of which must pass:
    (source-only) and test, one PNG pair per frame of the GTA5 test split.
    Each run's launches as predicted, its epoch images/s, and one more
    epoch profiled for its idle share.
-8. Print the kernels line (each kernel's launches by path), the card's
+8. Checkpoints in, frames out, at the phase 5 cell and the serving width.
+   (a) Phase 5's final output_adapt state written in the JAX package's
+   msgpack format (io/checkpoint.py save_jax_checkpoint) and read back
+   bit-equal leaf by leaf (weights, statistics, optimizer buffers, step,
+   dropout generator); a Trainer resumed from it with ft off, bit-equal,
+   and one epoch with finite losses and launches as predicted.  (b)
+   cli.export --format torch: the single schema from that file, the four
+   schema from phase 6d's best checkpoint; each .pth.tar resumed gives G
+   (and the domain classifier) bit-equal, and val_adapt / val on it give
+   phase 5's / 6d's mIoU within 1e-4.  (c) cli.export --format servable
+   at 2048x1024 batch 8 rgb8, exact and decoder-int8 (calibrated on 4
+   synthetic val batches).  (d) cli.infer over 16 Cityscapes-sized and 8
+   GTA5-sized PNG fixtures (three batches; the GTA5 frames resized on the
+   host) with each servable: labels identical to make_serving_fn on the
+   same decoded, resized batch in this process, every PNG decoding to what
+   _save_prediction maps the labels to, 14 depthwise launches a batch and
+   1 requant a batch in int8 mode; ms/image including host IO, steady
+   state after batch 0, and the decode/device/save split (host clock,
+   unprofiled).
+9. Print the kernels line (each kernel's launches by path), the card's
    name and power limit, and as the last line {"ok": true, "device":
    {...}}.
 
 Without a CUDA device, or outside a checkout holding s2r_tpu_torch, it exits
 non-zero and prints no result.  Float32 convs run with TF32 off.  It writes
 the kernel build directory, and phase 5's run root in the temporary
-directory (and phase 6d's and 7's), which it removes.
+directory (and phase 6d's, 7's and 8's, and the checkpoints phases 5 and
+6d hand to phase 8), which it removes.
 """
 
 import dataclasses
@@ -209,6 +229,10 @@ REAL_TEST_BATCH = 2
 REAL_ARGV = ["--crop-size", str(ADAPT_HW[0]), "--base-size", str(ADAPT_HW[0]),
              "--batch-size", str(ADAPT_BATCH), "--epochs", "1",
              "--precision", "bf16", "--workers", "4"]
+# phase 8: checkpoints in, frames out.  The frames: 16 Cityscapes-sized
+# and 8 GTA5-sized PNGs (tools/fixtures.py), three servable batches of
+# BATCH at FULL_HW; the GTA5 frames take the host resize.
+INFER_FRAMES = dict(n_gta=8, n_city=16, n_val=0, n_test=0)
 DEV = "cuda"
 
 
@@ -1377,9 +1401,11 @@ def fit_eval_forwards(trainer):
     return trainer.cfg.epochs * (len(range(0, n_tr, vis_every)) + n_val)
 
 
-def train_adapt_phase(counted):
+def train_adapt_phase(counted, carry):
     """Phase 5: the train_adapt driver, resume, val_adapt, the device
-    augmentation, and the driver's rates beside the bare step's."""
+    augmentation, and the driver's rates beside the bare step's.  Puts
+    the final state's checkpoint and its mIoU in carry['adapt'] (for
+    phase 8)."""
     from s2r_tpu_torch.cli import _eval_common, train_adapt, val_adapt
     from s2r_tpu_torch.io.checkpoint import host_tree
     from s2r_tpu_torch.train.trainer import Trainer
@@ -1454,6 +1480,10 @@ def train_adapt_phase(counted):
             f"ms (the device snapshot), saver.wait() {wait_ms:.3f} ms (to "
             f"host, torch.save, {os.path.getsize(path) / 2 ** 20:.1f} MiB)")
         live = host_tree(trainer.state)
+        carry["adapt"] = {"ckpt": os.path.join(carry["dir"],
+                                               "adapt_final.ckpt"),
+                          "miou": miou_again, "cfg": cfg}
+        shutil.copyfile(path, carry["adapt"]["ckpt"])
         resumed = Trainer(dataclasses.replace(cfg, resume=path, ft=False),
                           method="output_adapt")
         got = host_tree(resumed.state)
@@ -1719,10 +1749,12 @@ def check_exports(out_dir, n_images, with_miou):
     require(sizes == {(1280, 640)}, f"{out_dir}: PNG sizes {sizes}")
 
 
-def train_phase(counted):
+def train_phase(counted, carry):
     """Phase 6d: the train driver (feature_adapt) for one epoch, a resume
     with ft off for one more, then val with the per-image export and test
-    on its best checkpoint.  Returns the launches of each entry point."""
+    on its best checkpoint.  Returns the launches of each entry point, and
+    puts the best checkpoint and its mIoU in carry['feature'] (for phase
+    8)."""
     from s2r_tpu_torch.cli import test, train, val
     from s2r_tpu_torch.io.checkpoint import host_tree
     from s2r_tpu_torch.train.trainer import Trainer
@@ -1804,6 +1836,10 @@ def train_phase(counted):
             f"export; launches {by_path['val']}")
         require(abs(miou_val - sc["val/mIoU"][0][1]) <= 1e-4,
                 "val disagrees with the Trainer's mIoU")
+        carry["feature"] = {"ckpt": os.path.join(carry["dir"],
+                                                 "feature_best.ckpt"),
+                            "miou": miou_val}
+        shutil.copyfile(best, carry["feature"]["ckpt"])
         # validation_sep and validation: one forward a batch each
         require(by_path["val"] == dict(
             dict.fromkeys(by_path["val"], 0),
@@ -2027,6 +2063,226 @@ def real_data_phase(counted, smi):
     return by_path
 
 
+def checkpoint_phase(counted, smi, carry):
+    """Phase 8: checkpoints in, frames out, from what phases 5 and 6d put
+    in `carry`.  Returns the launches of each path it drives."""
+    from s2r_tpu_torch.cli import export, infer, val, val_adapt
+    from s2r_tpu_torch.cli._eval_common import (_TRAINID_TO_LABELID,
+                                                EXPORT_SIZE)
+    from s2r_tpu_torch.data import imaging
+    from s2r_tpu_torch.data.palette import decode_segmap_u8
+    from s2r_tpu_torch.io.checkpoint import (host_tree, load_checkpoint,
+                                             save_jax_checkpoint)
+    from s2r_tpu_torch.io.serving import load_servable, make_serving_fn
+    from s2r_tpu_torch.tools import fixtures
+    from s2r_tpu_torch.train.setup import build_method
+    from s2r_tpu_torch.train.trainer import Trainer, resume_into
+
+    os.environ.pop("S2R_PLATFORM", None)  # the card, as a user runs it
+    root = tempfile.mkdtemp(prefix="s2r_ckpt_")
+    run = ["--run-root", os.path.join(root, "run")]
+    by_path = {}
+    try:
+        # (a) phase 5's final output_adapt state, written in the JAX
+        # package's format, read back, resumed with ft off for an epoch
+        adapt, feat = carry["adapt"], carry["feature"]
+        cfg = dataclasses.replace(adapt["cfg"], run_root=run[1],
+                                  resume=adapt["ckpt"], ft=False)
+        source = Trainer(cfg, method="output_adapt")
+        live = host_tree(source.state)
+        jpath = os.path.join(root, "adapt.ckpt")
+        t0 = time.perf_counter()
+        save_jax_checkpoint(jpath, source.state, cfg.epochs,
+                            source.best_pred, seed=cfg.seed,
+                            prng_impl=cfg.prng_impl)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        payload = load_checkpoint(jpath)
+        read_s = time.perf_counter() - t0
+        require(payload["format"] == "jax" and payload["epoch"] == cfg.epochs
+                and trees_equal(payload["state"], live),
+                "the JAX-format checkpoint reads back other than written")
+        t0 = time.perf_counter()
+        resumed = Trainer(dataclasses.replace(cfg, resume=jpath),
+                          method="output_adapt")
+        resume_s = time.perf_counter() - t0
+        require(resumed.start_epoch == cfg.epochs
+                and trees_equal(host_tree(resumed.state), live),
+                "resume from the JAX-format checkpoint: the state differs")
+        n_tr, n_val = len(resumed.train_loader), len(resumed.val_loader)
+        vis_every = max(n_tr // 10, 1) if n_tr >= 10 else max(n_tr, 1)
+        means, launches, epoch_s = drive(counted, resumed.training,
+                                         resumed.start_epoch)
+        resumed.saver.wait()
+        resumed.writer.close()
+        want = predicted("output_adapt", n_tr, len(range(0, n_tr, vis_every)))
+        require(launches == want, f"resumed epoch launches {launches}, "
+                f"expected {want}")
+        require(all(np.isfinite(means[k]) for k in ("seg_loss", "adv_loss",
+                                                    "d_loss")),
+                f"resumed epoch losses {means}")
+        by_path["resume_jax_ckpt"] = launches
+        log(f"[8a JAX .ckpt] {os.path.getsize(jpath) / 2 ** 20:.1f} MiB "
+            f"written in {write_s:.3f} s, read back in {read_s:.3f} s: "
+            f"weights, statistics, optimizer buffers, step {live['step']} "
+            f"and generator bit-equal; Trainer resumed (ft off) in "
+            f"{resume_s:.2f} s, bit-equal, start_epoch {cfg.epochs}; one "
+            f"epoch of {n_tr} steps in {epoch_s:.2f} s: seg_loss "
+            f"{means['seg_loss']:.4f}, adv_loss {means['adv_loss']:.4f}, "
+            f"d_loss {means['d_loss']:.4f}, launches as predicted ({smi})")
+        del resumed
+
+        # (b) cli.export --format torch, each schema; each file resumed
+        # gives the source bit for bit, and its val mIoU is phase 5's / 6d's
+        single = os.path.join(root, "single.pth.tar")
+        four = os.path.join(root, "four.pth.tar")
+        t0 = time.perf_counter()
+        export.main(ADAPT_ARGV + run + ["--resume", jpath, "--out", single])
+        single_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        export.main(TRAIN_ARGV + run + ["--resume", feat["ckpt"], "--out",
+                                        four, "--schema", "four",
+                                        "--method", "feature_adapt"])
+        four_s = time.perf_counter() - t0
+        feature_src = build_method(cfg, 1, method="feature_adapt",
+                                   device=DEV).init_state()
+        resume_into(feature_src, feat["ckpt"], ft=False)
+        for method, path, src in (("output_adapt", single, live),
+                                  ("feature_adapt", four,
+                                   host_tree(feature_src))):
+            got = build_method(cfg, 1, method=method, device=DEV).init_state()
+            resume_into(got, path, ft=False)
+            got = host_tree(got)
+            nets = ("G",) if method == "output_adapt" else ("G", "D")
+            require(all(trees_equal(got[k], src[k]) for k in nets),
+                    f"{os.path.basename(path)} resumed: {nets} differ from "
+                    "the source")
+        del feature_src, source
+        (miou_s, _), launches, val_s = drive(
+            counted, val_adapt.main, ADAPT_ARGV + run + [
+                "--resume", single, "--skip-sep", "--out-dir",
+                os.path.join(root, "val_single")])
+        require(launches == predicted("output_adapt", 0, n_val),
+                f"val_adapt of the .pth.tar: launches {launches}")
+        by_path["val_pth_single"] = launches
+        (miou_f, _), launches, val_f = drive(
+            counted, val.main, TRAIN_ARGV + run + [
+                "--resume", four, "--skip-sep", "--out-dir",
+                os.path.join(root, "val_four")])
+        require(launches == predicted("feature_adapt", 0, n_val),
+                f"val of the .pth.tar: launches {launches}")
+        by_path["val_pth_four"] = launches
+        log(f"[8b export torch] single schema from the JAX .ckpt in "
+            f"{single_s:.2f} s, four from phase 6d's in {four_s:.2f} s; "
+            f"each resumed bit-equal (G; G and D); val_adapt mIoU "
+            f"{miou_s:.6f} against phase 5's {adapt['miou']:.6f} "
+            f"({val_s:.1f} s), val {miou_f:.6f} against phase 6d's "
+            f"{feat['miou']:.6f} ({val_f:.1f} s)")
+        require(abs(miou_s - adapt["miou"]) <= 1e-4
+                and abs(miou_f - feat["miou"]) <= 1e-4,
+                "the exported checkpoints validate to another mIoU")
+
+        # (c) servables at full width, exact and decoder-int8
+        serve_argv = ADAPT_ARGV + run + [
+            "--resume", jpath, "--format", "servable", "--serve-shape",
+            str(BATCH), str(FULL_HW[0]), str(FULL_HW[1]), "--serve-input",
+            "rgb8"]
+        servables = {"exact": os.path.join(root, "exact.s2rt"),
+                     "int8": os.path.join(root, "int8.s2rt")}
+        t0 = time.perf_counter()
+        export.main(serve_argv + ["--out", servables["exact"]])
+        exact_s = time.perf_counter() - t0
+        info, launches, int8_s = drive(
+            counted, export.main, serve_argv + [
+                "--out", servables["int8"], "--serve-quant", "decoder-int8"])
+        calib = min(4, n_val)  # --calib-batches 4 of the val loader
+        require(launches == predicted("output_adapt", 0, calib)
+                and info["quant"] == "decoder_int8",
+                f"int8 export: launches {launches}, {info['quant']}")
+        by_path["export_int8_calibration"] = launches
+        log(f"[8c export servable] {BATCH}x{FULL_HW[0]}x{FULL_HW[1]} rgb8: "
+            f"exact in {exact_s:.2f} s, decoder-int8 in {int8_s:.2f} s "
+            f"(calibrated on {calib} synthetic val batches: "
+            f"{info['quant_scales']}), "
+            f"{os.path.getsize(servables['exact']) / 2 ** 20:.1f} MiB")
+
+        # (d) cli.infer over 24 full-size frames, three batches
+        frames = os.path.join(root, "frames")
+        t0 = time.perf_counter()
+        fixtures.write_fixtures(frames, **INFER_FRAMES)
+        shutil.rmtree(os.path.join(frames, "gta5", "labels"))
+        fx_s = time.perf_counter() - t0
+        log(f"[8d fixtures] {INFER_FRAMES['n_city']} Cityscapes-sized and "
+            f"{INFER_FRAMES['n_gta']} GTA5-sized frames written in "
+            f"{fx_s:.2f} s")
+        paths = infer.list_frames(frames)
+        n_frames = INFER_FRAMES["n_gta"] + INFER_FRAMES["n_city"]
+        n_batches = -(-n_frames // BATCH)
+        require(len(paths) == n_frames, f"{len(paths)} frames")
+        workers = os.cpu_count() or 1
+        for mode, path in servables.items():
+            out = os.path.join(root, f"infer_{mode}")
+            res, launches, _ = drive(
+                counted, lambda a: infer.main(a, keep_predictions=True),
+                ["--servable", path, "--images", frames, "--out-dir", out])
+            want = dict.fromkeys(launches, 0)
+            want.update(depthwise_conv3x3=14 * n_batches,
+                        requant_s32_to_s8=n_batches if mode == "int8" else 0)
+            require(res["images"] == n_frames and launches == want,
+                    f"infer {mode}: {res['images']} images, launches "
+                    f"{launches}, expected {want}")
+            by_path[f"infer_{mode}"] = launches
+            serve = load_servable(path, DEV)
+            fn = make_serving_fn(serve.model, input="rgb8",
+                                 quant=serve.meta["quant"],
+                                 quant_scales=serve.meta["quant_scales"])
+            for i in range(0, n_frames, BATCH):
+                chunk = paths[i:i + BATCH]
+                batch = np.stack([infer.decode_frame(p, *FULL_HW, "rgb8")
+                                  for p in chunk])
+                labels = fn(torch.from_numpy(batch)).cpu().numpy()
+                require(all(np.array_equal(res["predictions"][p], labels[j])
+                            for j, p in enumerate(chunk)),
+                        f"infer {mode}: labels differ from make_serving_fn "
+                        "on the same frames")
+            for p in paths:
+                pred = res["predictions"][p]
+                stem = os.path.join(out, os.path.basename(p)[:-4])
+                gray = imaging.resize_nearest(
+                    _TRAINID_TO_LABELID[pred.astype(np.uint8)], EXPORT_SIZE)
+                color = imaging.resize_nearest(
+                    decode_segmap_u8(pred, "cityscapes"), EXPORT_SIZE)
+                require(np.array_equal(imaging.load_raw(
+                    stem + "_labelId.png"), gray) and np.array_equal(
+                    imaging.load_rgb(stem + "_color.png"), color),
+                    f"infer {mode}: {stem} PNGs decode to other labels")
+            del serve, fn, res["predictions"]
+            sec = res["seconds"]
+            per = {"decode": 1e3 * sec["decode"] / n_frames / workers,
+                   "device": 1e3 * sec["device"] / n_frames,
+                   "save": 1e3 * sec["save"] / n_frames / 2}
+            later = res["device_batches"][1:]
+            dev_later = 1e3 * sum(later) / max(1, len(later) * BATCH)
+            log(f"[8d infer {mode}] {n_frames} frames (16 Cityscapes-sized, "
+                f"8 GTA5-sized resized on the host) in {n_batches} batches "
+                f"of {BATCH}: {res['ms_per_image']:.3f} ms/image including "
+                f"host IO, steady-state {res['steady_ms_per_image']:.3f} "
+                f"after batch 0 (wall {res['wall']:.3f} s, unprofiled); per "
+                f"image, summed over threads: decode+resize "
+                f"{1e3 * sec['decode'] / n_frames:.3f} ms ({workers} "
+                f"threads), device {1e3 * sec['device'] / n_frames:.3f} ms "
+                f"(H2D + forward + D2H; {dev_later:.3f} after batch 0), "
+                f"save {1e3 * sec['save'] / n_frames:.3f}"
+                f" ms (2 threads); per image of wall by stage "
+                + ", ".join(f"{k} {v:.3f}" for k, v in per.items())
+                + f": paced by {max(per, key=per.get)}; labels equal to "
+                f"make_serving_fn, every PNG as _save_prediction maps it, "
+                f"launches as predicted ({smi})")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return by_path
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2048,6 +2304,8 @@ def main():
                bn.batch_norm_stats, bn.batch_norm_apply,
                bn.batch_norm_grad_sums, bn.batch_norm_dx, dc.disc_conv1)
     t_start = time.perf_counter()
+    # phases 5 and 6d hand phase 8 their checkpoints in this directory
+    carry = {"dir": tempfile.mkdtemp(prefix="s2r_carry_")}
     try:
         t0 = time.perf_counter()
         libs = build.build_all()
@@ -2074,16 +2332,18 @@ def main():
         torch.cuda.empty_cache()
         step_ms, train_launches, bn_copies = train_full(counted)
         torch.cuda.empty_cache()
-        adapt_launches = train_adapt_phase(counted)
+        adapt_launches = train_adapt_phase(counted, carry)
         torch.cuda.empty_cache()
         feature_check_small(counted)
         torch.cuda.empty_cache()
         full = feature_full(counted)
         check_source_shapes(dw)
         torch.cuda.empty_cache()
-        driver_launches = train_phase(counted)
+        driver_launches = train_phase(counted, carry)
         torch.cuda.empty_cache()
         driver_launches.update(real_data_phase(counted, smi))
+        torch.cuda.empty_cache()
+        driver_launches.update(checkpoint_phase(counted, smi, carry))
         bn_entries[0]["composite"] = dict(
             bn_composite, ms_covers="one 512x1024 batch-8 bf16 train step: "
             "all four entries of 120 BatchNorm calls; library_ms: "
@@ -2111,6 +2371,8 @@ def main():
     except (Failed, RuntimeError, subprocess.SubprocessError, OSError) as e:
         print(f"chip_smoke: FAILED: {type(e).__name__}: {e}", file=sys.stderr)
         return 1
+    finally:
+        shutil.rmtree(carry["dir"], ignore_errors=True)
     log(f"[done] ms/image exact {ms['exact']:.3f}, decoder-int8 "
         f"{ms['decoder_int8']:.3f} (bf16, rgb8 {FULL_HW[1]}x{FULL_HW[0]} "
         f"batch {BATCH}); train step {step_ms:.3f} ms ({TRAIN_HW[1]}x"

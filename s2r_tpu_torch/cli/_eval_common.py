@@ -58,8 +58,9 @@ REPORT_CLASS_NAMES = ("road", "sidewalk", "building", "wall", "fence",
 def build_eval(cfg: Config, method: Optional[str] = None,
                device: Optional[Union[str, torch.device]] = None):
     """(method, G, eval_step, val_loader, test_loader, nclass); `cfg.resume`
-    (a checkpoint of the port, or 'auto') is loaded as Trainer._resume
-    loads it.  `method` None infers it from ``cfg.dataset``."""
+    (a checkpoint of any format train/trainer.py ``resume_into`` reads, or
+    'auto') is loaded as Trainer._resume loads it.  `method` None infers it
+    from ``cfg.dataset``."""
     device = resolve_device(device)
     train_loader, val_loader, test_loader, nclass = make_data_loader(cfg)
     m = build_method(cfg, max(len(train_loader), 1), method=method,
@@ -69,7 +70,7 @@ def build_eval(cfg: Config, method: Optional[str] = None,
     if path == "auto":
         path = latest_checkpoint(Saver(cfg, create=False).directory)
     if path:
-        resume_into(state, path, cfg.ft)
+        resume_into(state, path, cfg.ft, cfg.out_stride)
     return m, m.eval_variables(state), m.eval_step, val_loader, \
         test_loader, nclass
 
@@ -81,12 +82,14 @@ def _save_prediction(pred: np.ndarray, name: str, out_dir: str,
     carries the per-image mIoU when given (val.py imgsaver:246-247)."""
     os.makedirs(out_dir, exist_ok=True)
     stem = os.path.splitext(os.path.basename(name))[0]
+    # NEAREST picks pixels, so it commutes with the per-pixel maps: resize
+    # the labels once, then map the 1280x640 of them
+    small = resize_nearest(pred, EXPORT_SIZE)
     write_png(os.path.join(out_dir, f"{stem}_labelId.png"),
-              resize_nearest(_TRAINID_TO_LABELID[pred.astype(np.uint8)],
-                             EXPORT_SIZE))
+              _TRAINID_TO_LABELID[small.astype(np.uint8)])
     tag = f"_color_{miou:.4f}_" if miou is not None else "_color"
     write_png(os.path.join(out_dir, f"{stem}{tag}.png"),
-              resize_nearest(decode_segmap_u8(pred, dataset), EXPORT_SIZE))
+              decode_segmap_u8(small, dataset))
 
 
 def _predictions(eval_step, loader, device):

@@ -5,7 +5,13 @@ The parser accepts every flag the JAX package's parser accepts.  A flag
 whose feature the port lacks raises NotImplementedError, naming the flag
 and the ROADMAP item, when it is set to anything but its default
 (``check_ported``); ``--batch-pad auto`` means off, as it does off a TPU,
-and ``--prng-impl`` (a JAX setting) is read and ignored.
+and ``--prng-impl`` (a JAX setting) is read and ignored, except that a
+JAX-format checkpoint the port writes carries a dropout key of that
+implementation (io/convert.py ``jax_rng``).  ``--data-backend native``
+raises only with ``--dataset gtav2cityscapes``: the JAX package has its
+native loader in that arm alone and loads ``gtav`` and ``synthetic`` on
+its PIL path whatever the flag says (s2r_tpu/data/loader.py:130-176), and
+so does the port.
 """
 
 from __future__ import annotations
@@ -123,13 +129,11 @@ _UNPORTED = (
     ("num_devices", "--num-devices", (None, 1), "A.8"),
     ("spatial_shard", "--spatial-shard", (1,), "A.8"),
     ("eval_spatial_shard", "--eval-spatial-shard", (False,), "A.8"),
-    ("data_backend", "--data-backend", ("pil",), "A.4"),
     ("remat", "--remat", (False,), "A.9"),
     ("pad_stats", "--fast-pad-stats", (True,), "A.9"),
     ("logits_dtype", "--logits-dtype", ("f32",), "A.5"),
     ("split_concat", "--split-concat", (False,), "A.5"),
     ("profile_dir", "--profile-dir", (None,), "A.9"),
-    ("backbone_init", "--backbone-init", (None,), "A.3"),
 )
 
 
@@ -147,6 +151,10 @@ def check_ported(cfg: Config, method: Optional[str] = None) -> None:
             raise NotImplementedError(
                 f"s2r_tpu_torch: {flag} {value!r} is not ported (ROADMAP "
                 f"{item})")
+    if cfg.data_backend != "pil" and cfg.dataset == "gtav2cityscapes":
+        raise NotImplementedError(
+            f"s2r_tpu_torch: --data-backend {cfg.data_backend!r} is not "
+            "ported for --dataset gtav2cityscapes (ROADMAP A.4)")
     if method is not None and method not in METHODS:
         raise ValueError(f"s2r_tpu_torch: unknown method {method!r}; the "
                          f"methods are {', '.join(METHODS)}")
@@ -229,12 +237,17 @@ def add_common_flags(parser: argparse.ArgumentParser) -> None:
     p.add_argument("--prng-impl", type=str, default=d.prng_impl,
                    choices=["rbg", "threefry2x32", "unsafe_rbg"],
                    dest="prng_impl",
-                   help="a JAX setting, accepted and ignored: the port draws "
-                        "dropout masks from a torch.Generator")
+                   help="a JAX setting: the port draws dropout masks from a "
+                        "torch.Generator, and writes a key of this "
+                        "implementation into JAX-format checkpoints")
     p.add_argument("--resume", type=str, default=None,
-                   help="a checkpoint the port wrote, or 'auto'")
+                   help="a checkpoint: the port's, the JAX package's "
+                        "msgpack .ckpt or a reference .pth/.pth.tar; or "
+                        "'auto'")
     p.add_argument("--backbone-init", type=str, default=None,
-                   dest="backbone_init")
+                   dest="backbone_init",
+                   help="a torch MobileNetV2 state dict to initialize the "
+                        "backbone (reference: mobilenet_VOC.pth)")
     p.add_argument("--profile-dir", type=str, default=None,
                    dest="profile_dir")
     p.add_argument("--checkname", type=str, default=None)

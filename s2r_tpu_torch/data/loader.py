@@ -15,7 +15,9 @@
   ``--data-cache`` (up to ``--data-cache-gb``); ``synthetic`` makes scenes.
   Decode, resampling and blur run in C++ that releases the GIL, so the
   threads work in parallel.  ``--data-backend native`` (the JAX package's
-  own C++ loader) is not ported (ROADMAP A.4): ``check_ported`` raises.
+  own C++ loader, in its ``gtav2cityscapes`` arm only) is not ported
+  (ROADMAP A.4): ``check_ported`` raises for that dataset; ``gtav`` and
+  ``synthetic`` ignore the flag, as they do in the JAX package.
 """
 
 from __future__ import annotations

@@ -34,8 +34,10 @@ def decode_segmap(label_mask: np.ndarray, dataset: str = "gtav2cityscapes"
 
 def decode_segmap_u8(label_mask: np.ndarray,
                      dataset: str = "gtav2cityscapes") -> np.ndarray:
-    """The uint8 variant, for PNG export."""
-    return (decode_segmap(label_mask, dataset) * 255.0).astype(np.uint8)
+    """The uint8 variant, for PNG export: (decode_segmap * 255) truncated
+    to uint8, through a table of that arithmetic's 256 results."""
+    lut = (decode_segmap(np.arange(256), dataset) * 255.0).astype(np.uint8)
+    return lut[np.clip(label_mask.astype(np.int64), 0, 255)]
 
 
 def decode_seg_map_sequence(label_masks: np.ndarray,

@@ -23,10 +23,17 @@ part of DeepLab's under f = backbone + ASPP, in the same order.
 
 ``train_state_from_jax`` carries the numpy trees of a JAX TrainState
 (params, batch_stats, opt_state, step) of either layout, output_adapt or
-feature_adapt / source_only, into the port's TrainState: the weights and
-statistics through the converters above, and each flat optimizer buffer
-leaf by leaf (``flat_to_port``), since the two packages list the leaves in
-one order but each in its own layout (ROADMAP C.5).
+feature_adapt / source_only, into the port's TrainState (through
+``state_tree_from_jax``): the weights and statistics through the
+converters above, and each flat optimizer buffer leaf by leaf
+(``flat_to_port``), since the two packages list the leaves in one order
+but each in its own layout (ROADMAP C.5).
+
+The other way, ``to_jax_variables``, ``to_jax_discriminator``,
+``to_jax_domain`` and ``port_to_flat`` invert those converters bit for
+bit, and ``train_state_to_jax`` makes the state dict of a JAX TrainState
+from the port's, which io/checkpoint.py writes as a JAX-format checkpoint
+the JAX package resumes.
 
 Layouts: conv kernels HWIO -> OIHW (a depthwise [3,3,1,C] becomes
 [C,1,3,3]); BatchNorm scale/bias/mean/var -> weight/bias/running_mean/
@@ -121,9 +128,7 @@ def from_jax_variables(params: Mapping, batch_stats: Mapping,
             _bn(out, key, _get(params, path), _get(batch_stats, path))
         else:
             _conv(out, key, _get(params, path))
-    for k in [k for k in out if k.startswith("backbone.features.")]:
-        out[_alias(k)] = out[k]
-    return out
+    return with_aliases(out)
 
 
 def from_jax_discriminator(params: Mapping) -> Dict[str, torch.Tensor]:
@@ -186,6 +191,54 @@ def domain_param_order() -> List[str]:
     return [k for _, k in sorted(leaves)]
 
 
+_TORCH_PARAMS = {"conv": ("weight",), "conv_bias": ("weight", "bias"),
+                 "bn": ("weight", "bias")}
+_BN_BUFFERS = ("running_mean", "running_var", "num_batches_tracked")
+
+
+def reference_param_order(output_stride: int = 16,
+                          parts: Sequence[str] = ("backbone", "aspp",
+                                                  "decoder")) -> List[str]:
+    """DeepLab's parameter names (canonical keys) under `parts`, in the
+    order the reference's torch modules register them: the param ids of
+    its optimizers (the backbone's 1x group, then ASPP and the decoder in
+    the 10x group; s2r_tpu/io/torch_import.py ``order_sink``)."""
+    prefixes = tuple(f"{p}." for p in parts)
+    return [f"{key}.{t}" for _, key, kind in _layout(output_stride)
+            if key.startswith(prefixes) for t in _TORCH_PARAMS[kind]]
+
+
+def domain_reference_order() -> List[str]:
+    """The DomainClassifier's parameter names in torch registration
+    order."""
+    return [f"{key}.{t}" for _, key, kind in DOMAIN_LAYOUT
+            for t in _TORCH_PARAMS[kind]]
+
+
+def deeplab_state_keys(output_stride: int = 16) -> List[str]:
+    """DeepLab's state_dict keys without the backbone aliases: parameters
+    and BatchNorm buffers, in module order."""
+    return [f"{key}.{t}" for _, key, kind in _layout(output_stride)
+            for t in _TORCH_PARAMS[kind] + (_BN_BUFFERS if kind == "bn"
+                                            else ())]
+
+
+def domain_state_keys() -> List[str]:
+    """The DomainClassifier's state_dict keys."""
+    return [f"{key}.{t}" for _, key, kind in DOMAIN_LAYOUT
+            for t in _TORCH_PARAMS[kind] + (_BN_BUFFERS if kind == "bn"
+                                            else ())]
+
+
+def with_aliases(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """`sd` plus the ``low_level_features``/``high_level_features`` alias
+    of every ``backbone.features`` key (the same tensor)."""
+    out = dict(sd)
+    for k in [k for k in sd if k.startswith("backbone.features.")]:
+        out[_alias(k)] = sd[k]
+    return out
+
+
 def _leaves(tree) -> List[np.ndarray]:
     """The leaves of nested dicts in jax.tree order (keys sorted at every
     level)."""
@@ -217,19 +270,19 @@ def flat_to_port(flat, tree: Mapping, convert: Callable[[Mapping], Dict],
     return torch.cat([sd[k].reshape(-1) for k in order])
 
 
-def train_state_from_jax(state, params: Mapping, batch_stats: Mapping,
-                         opt_state: Mapping, step: int,
-                         output_stride: int = 16):
-    """Load a JAX TrainState's numpy trees into the port's TrainState
-    `state` (in place; returned): G's and D's weights and BatchNorm
-    statistics, the step, and the optimizer buffers converted leaf by leaf
-    to the port's layout on the modules' device.  The layout follows
-    `opt_state`: output_adapt's {'G': {'momentum'}, 'D': {'m', 'v',
-    'count'}} with D the FCDiscriminator and batch_stats G's; or
-    feature_adapt's {'task' over G, 'd' over D, 'd_inv' over f = backbone +
-    ASPP, 'c' over G}, each SGD {'momentum'} or Adam {'m', 'v', 'count'},
-    with D the DomainClassifier and batch_stats {'G', 'D'}.  The dropout
-    generator keeps its state: a JAX PRNG key has no torch counterpart."""
+def state_tree_from_jax(params: Mapping, batch_stats: Mapping,
+                        opt_state: Mapping, step,
+                        output_stride: int = 16) -> Dict:
+    """A JAX TrainState's numpy trees (params, batch_stats, opt_state,
+    step) of either layout -> the port's state tree (io/checkpoint.py
+    ``state_tree``) on the CPU: {'step', 'G', 'D' (state_dicts),
+    'opt_state' (flat buffers, each leaf in the port's layout), 'generator':
+    None}.  The layout follows `opt_state`: output_adapt's {'G':
+    {'momentum'}, 'D': {'m', 'v', 'count'}} with D the FCDiscriminator and
+    batch_stats G's; or feature_adapt's {'task' over G, 'd' over D, 'd_inv'
+    over f = backbone + ASPP, 'c' over G}, each SGD {'momentum'} or Adam
+    {'m', 'v', 'count'}, with D the DomainClassifier and batch_stats {'G',
+    'D'}.  A JAX PRNG key has no torch counterpart: 'generator' is None."""
     feature = "task" in opt_state
     g_stats = batch_stats["G"] if feature else batch_stats
 
@@ -242,25 +295,183 @@ def train_state_from_jax(state, params: Mapping, batch_stats: Mapping,
         d_order = domain_param_order()
     else:
         d_tree, d_order = from_jax_discriminator, discriminator_param_order()
-    state.G.load_state_dict(g_tree(params["G"]), strict=True)
-    state.D.load_state_dict(d_tree(params["D"]), strict=True)
-    dev = state.G.device
     f = {k: params["G"][k] for k in ("backbone", "aspp")}
     # (the tree a buffer runs over, its converter, its flatten order)
     over = {"G": (params["G"], g_tree, deeplab_param_order(output_stride)),
             "D": (params["D"], d_tree, d_order),
             "f": (f, lambda t: g_tree({**params["G"], **t}),
                   feature_param_order(output_stride))}
-    nets = ({"task": "G", "d": "D", "d_inv": "f", "c": "G"} if feature
-            else {"G": "G", "D": "D"})
 
     def buffers(s, net):
         tree, convert, order = over[net]
         return {k: int(np.asarray(v)) if k == "count" else
-                flat_to_port(v, tree, convert, order).to(dev)
+                flat_to_port(v, tree, convert, order)
                 for k, v in s.items()}
 
-    state.opt_state = {name: buffers(opt_state[name], net)
-                       for name, net in nets.items()}
-    state.step = int(np.asarray(step))
+    return {"step": int(np.asarray(step)), "G": g_tree(params["G"]),
+            "D": d_tree(params["D"]),
+            "opt_state": {name: buffers(opt_state[name], net)
+                          for name, net in _nets(feature).items()},
+            "generator": None}
+
+
+def _nets(feature: bool) -> Dict[str, str]:
+    """Each optimizer state's name -> the net its buffer runs over."""
+    return ({"task": "G", "d": "D", "d_inv": "f", "c": "G"} if feature
+            else {"G": "G", "D": "D"})
+
+
+def train_state_from_jax(state, params: Mapping, batch_stats: Mapping,
+                         opt_state: Mapping, step: int,
+                         output_stride: int = 16):
+    """Load a JAX TrainState's numpy trees into the port's TrainState
+    `state` (in place; returned): G's and D's weights and BatchNorm
+    statistics, the step, and the optimizer buffers converted leaf by leaf
+    to the port's layout on the modules' device (``state_tree_from_jax``
+    gives the layouts).  The dropout generator keeps its state."""
+    tree = state_tree_from_jax(params, batch_stats, opt_state, step,
+                               output_stride)
+    state.G.load_state_dict(tree["G"], strict=True)
+    state.D.load_state_dict(tree["D"], strict=True)
+    dev = state.G.device
+    state.opt_state = {name: {k: v.to(dev) if torch.is_tensor(v) else v
+                              for k, v in s.items()}
+                       for name, s in tree["opt_state"].items()}
+    state.step = tree["step"]
     return state
+
+
+# ------------------------------------------------- the port -> JAX layouts
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().to(torch.float32).numpy().copy()
+
+
+def _set(tree: Dict, path: Tuple[str, ...], leaf) -> None:
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[path[-1]] = leaf
+
+
+def _jax_conv(sd: Mapping, key: str, bias: bool) -> Dict:
+    leaf = {"kernel": np.ascontiguousarray(
+        np.transpose(_np(sd[f"{key}.weight"]), (2, 3, 1, 0)))}
+    if bias:
+        leaf["bias"] = _np(sd[f"{key}.bias"])
+    return leaf
+
+
+def _jax_bn(sd: Mapping, key: str) -> Tuple[Dict, Dict]:
+    return ({"scale": _np(sd[f"{key}.weight"]),
+             "bias": _np(sd[f"{key}.bias"])},
+            {"mean": _np(sd[f"{key}.running_mean"]),
+             "var": _np(sd[f"{key}.running_var"])})
+
+
+def to_jax_variables(sd: Mapping[str, torch.Tensor], output_stride: int = 16
+                     ) -> Tuple[Dict, Dict]:
+    """The inverse of ``from_jax_variables``: DeepLab's state_dict (the
+    canonical ``backbone.features`` keys; the aliases are not read) ->
+    (params, batch_stats), nested dicts of float32 numpy arrays with conv
+    kernels HWIO.  num_batches_tracked has no JAX counterpart."""
+    params: Dict = {}
+    stats: Dict = {}
+    for path, key, kind in _layout(output_stride):
+        if kind == "bn":
+            p, s = _jax_bn(sd, key)
+            _set(params, path, p)
+            _set(stats, path, s)
+        else:
+            _set(params, path, _jax_conv(sd, key, kind == "conv_bias"))
+    return params, stats
+
+
+def to_jax_discriminator(sd: Mapping[str, torch.Tensor]) -> Dict:
+    """The inverse of ``from_jax_discriminator``."""
+    return {name: _jax_conv(sd, name, True) for name in DISC_NAMES}
+
+
+def to_jax_domain(sd: Mapping[str, torch.Tensor]) -> Tuple[Dict, Dict]:
+    """The inverse of ``from_jax_domain``: (params, batch_stats)."""
+    params: Dict = {}
+    stats: Dict = {}
+    for jname, key, kind in DOMAIN_LAYOUT:
+        if kind == "bn":
+            params[jname], stats[jname] = _jax_bn(sd, key)
+        else:
+            params[jname] = _jax_conv(sd, key, kind == "conv_bias")
+    return params, stats
+
+
+def port_to_flat(flat: torch.Tensor, template: Mapping[str, torch.Tensor],
+                 to_jax: Callable[[Mapping], Mapping],
+                 order: Sequence[str]) -> np.ndarray:
+    """The inverse of ``flat_to_port``: the port's flat buffer (leaves in
+    `order`, each in the port's layout) -> the JAX FusedOptimizer buffer
+    (the same leaf order, each in JAX's layout).  `template` (a state_dict)
+    gives the leaves' shapes and fills what the buffer does not cover, and
+    `to_jax` maps a state_dict to the params tree the buffer runs over."""
+    parts = flat.detach().cpu().to(torch.float32).split(
+        [template[k].numel() for k in order])
+    sd = dict(template)
+    sd.update({k: q.view(template[k].shape) for k, q in zip(order, parts)})
+    return np.concatenate([np.asarray(leaf, np.float32).reshape(-1)
+                           for leaf in _leaves(to_jax(sd))])
+
+
+def jax_rng(seed: int, prng_impl: str = "rbg") -> np.ndarray:
+    """The uint32 bits of ``jax.random.PRNGKey(seed)`` (seed below 2^32):
+    [0, seed] under threefry2x32; [0, seed, 0, seed] under the rbg
+    implementations (the JAX Config's default 'rbg')."""
+    words = [0, int(seed) & 0xFFFFFFFF]
+    if prng_impl in ("rbg", "unsafe_rbg"):
+        words = words * 2
+    elif prng_impl != "threefry2x32":
+        raise ValueError(f"unknown PRNG implementation {prng_impl!r}")
+    return np.asarray(words, np.uint32)
+
+
+def train_state_to_jax(state, seed: int = 1, prng_impl: str = "rbg",
+                       output_stride: int = 16) -> Dict:
+    """The inverse of ``train_state_from_jax``: the port's TrainState ->
+    the state dict of a JAX TrainState of the same method ({'step',
+    'params', 'batch_stats', 'opt_state', 'rng'}, numpy leaves in the
+    dtypes the JAX package keeps: step and Adam counts int32, buffers
+    float32, each leaf in JAX's layout), what s2r_tpu/io/checkpoint.py
+    writes under 'state'.  'rng' is ``jax_rng(seed, prng_impl)``; the
+    dropout generator has no JAX counterpart (io/checkpoint.py keeps it
+    beside the state)."""
+    feature = "task" in state.opt_state
+    g_sd = {k: v for k, v in state.G.state_dict().items()}
+    d_sd = {k: v for k, v in state.D.state_dict().items()}
+    g_params, g_stats = to_jax_variables(g_sd, output_stride)
+    if feature:
+        d_params, d_stats = to_jax_domain(d_sd)
+        batch_stats = {"G": g_stats, "D": d_stats}
+        d_conv, d_order = (lambda sd: to_jax_domain(sd)[0],
+                           domain_param_order())
+    else:
+        d_params, batch_stats = to_jax_discriminator(d_sd), g_stats
+        d_conv, d_order = to_jax_discriminator, discriminator_param_order()
+
+    def g_conv(sd):
+        return to_jax_variables(sd, output_stride)[0]
+
+    over = {"G": (g_sd, g_conv, deeplab_param_order(output_stride)),
+            "D": (d_sd, d_conv, d_order),
+            "f": (g_sd, lambda sd: {k: v for k, v in g_conv(sd).items()
+                                    if k != "decoder"},
+                  feature_param_order(output_stride))}
+
+    def buffers(s, net):
+        template, conv, order = over[net]
+        return {k: np.asarray(v, np.int32) if k == "count" else
+                port_to_flat(v, template, conv, order)
+                for k, v in s.items()}
+
+    return {"step": np.asarray(state.step, np.int32),
+            "params": {"G": g_params, "D": d_params},
+            "batch_stats": batch_stats,
+            "opt_state": {name: buffers(state.opt_state[name], net)
+                          for name, net in _nets(feature).items()},
+            "rng": jax_rng(seed, prng_impl)}

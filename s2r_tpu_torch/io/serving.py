@@ -1,9 +1,22 @@
 """Serving: an image batch in, labels, logits or probabilities out.
 
-The port of s2r_tpu/io/serving.py ``make_serving_fn``: the same arguments,
-validation and results.  Images are NHWC, as in the JAX package; the model
-runs NCHW on a channels-last view of them.  The StableHLO artifact
-(export_servable/load_servable) has no counterpart yet.
+The port of s2r_tpu/io/serving.py: ``make_serving_fn`` with the same
+arguments, validation and results, and a servable artifact of the port's
+own in place of the JAX package's StableHLO one (``export_servable``,
+``load_servable``, ``Servable``).  Images are NHWC, as in the JAX package;
+the model runs NCHW on a channels-last view of them.
+
+Servable layout: the 8-byte magic ``S2RTRCH1`` (the JAX artifact's is
+``S2RSHLO1``), a little-endian u64 length, a JSON meta block with the JAX
+meta's keys (``format`` naming the port's format) plus the compute
+``precision``, then the float32 weights of the segmenter as ``torch.save``
+writes its state_dict, read back with ``weights_only=True``.  The artifact
+holds weights, not compiled code: ``load_servable`` rebuilds DeepLab on
+the card and serves through ``make_serving_fn``, so the hand-written
+depthwise and requant kernels run.  Its call refuses another input shape
+than the exported one, as a fixed-shape JAX export does (with
+``batch_polymorphic`` only N may differ), and a JAX ``.shlo`` raises: the
+port cannot run StableHLO.
 
 Float32 convs on the card follow PyTorch's ``torch.backends.cudnn.allow_tf32``
 (True by default: TF32); a caller that needs float32 convs sets it False.
@@ -11,16 +24,26 @@ Float32 convs on the card follow PyTorch's ``torch.backends.cudnn.allow_tf32``
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+import dataclasses
+import io
+import json
+import os
+import struct
+from typing import Callable, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 from s2r_tpu_torch.data.normalize import normalize_rgb8
+from s2r_tpu_torch.utils.tree import map_tensors
 from s2r_tpu_torch.ops.argmax import argmax_first
 from s2r_tpu_torch.ops.resize import resize_bilinear_align_corners
 
 _OUTPUTS = ("labels", "logits", "probs")
+MAGIC = b"S2RTRCH1"
+JAX_MAGIC = b"S2RSHLO1"
+FORMAT = "s2r_tpu_torch.servable"
+PLATFORMS = ("cuda", "cpu")
 
 
 def _nearest_ac_indices(out_size: int, in_size: int) -> np.ndarray:
@@ -127,3 +150,127 @@ def make_serving_fn(model, *, output: str = "labels",
         return logits.contiguous()
 
     return fn
+
+
+def export_servable(model, input_shape: Sequence[int], path: str, *,
+                    output: str = "labels", input: str = "normalized",
+                    argmax_res: str = "full", label_dtype: str = "int32",
+                    quant: str = "none",
+                    quant_scales: Optional[dict] = None,
+                    pad_batch_to: Optional[int] = None,
+                    platforms: Optional[Sequence[str]] = None,
+                    batch_polymorphic: bool = False,
+                    meta: Optional[dict] = None) -> dict:
+    """Write `model`'s (models.deeplab.DeepLab) weights and the serving
+    options to `path`; returns the meta written in the header.
+
+    input_shape: [N, H, W, 3], the shape the servable accepts (any N with
+    `batch_polymorphic`).  platforms: the devices it is meant for, 'cuda'
+    and/or 'cpu' (default: the model's device type), recorded only.  The
+    other options are make_serving_fn's, checked by building it here."""
+    platforms = list(platforms or [model.device.type])
+    bad = [p for p in platforms if p not in PLATFORMS]
+    if bad:
+        raise ValueError(f"platforms {bad}: the port serves on "
+                         f"{', '.join(PLATFORMS)}")
+    if len(input_shape) != 4 or input_shape[3] != 3:
+        raise ValueError(f"input_shape {list(input_shape)}: want [N, H, W, 3]")
+    make_serving_fn(model, output=output, input=input, argmax_res=argmax_res,
+                    label_dtype=label_dtype, quant=quant,
+                    quant_scales=quant_scales, pad_batch_to=pad_batch_to)
+    precision = {torch.float32: "f32", torch.bfloat16: "bf16",
+                 torch.float64: "f64"}[model.compute_dtype]
+    info = {"format": FORMAT, "output": output, "input": input,
+            "argmax_res": argmax_res, "label_dtype": label_dtype,
+            "quant": quant,
+            "quant_requant": "kernel" if quant != "none" else None,
+            "pad_batch_to": pad_batch_to,
+            "quant_scales": ({k: float(v) for k, v in quant_scales.items()}
+                             if quant != "none" else None),
+            "input_shape": [int(d) for d in input_shape],
+            "input_dtype": "uint8" if input == "rgb8" else "float32",
+            "batch_polymorphic": bool(batch_polymorphic),
+            "platforms": platforms, "backbone": "mobilenet",
+            "output_stride": model.output_stride,
+            "num_classes": model.num_classes,
+            "normalization": ("baked-in (raw RGB8 in)" if input == "rgb8"
+                              else "(x/255 - IMAGENET_MEAN) / IMAGENET_STD"),
+            "precision": precision}
+    if meta:
+        info.update(meta)
+    weights = io.BytesIO()  # one copy per storage: the aliases stay aliases
+    torch.save(map_tensors(model.state_dict(),
+                           lambda t: t.detach().to("cpu", copy=True)),
+               weights)
+    payload = json.dumps(info).encode()
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        f.write(MAGIC)
+        f.write(struct.pack("<Q", len(payload)))
+        f.write(payload)
+        f.write(weights.getbuffer())
+    os.replace(tmp, path)
+    return info
+
+
+@dataclasses.dataclass
+class Servable:
+    """A loaded servable: ``serve(images)`` runs on the model's device and
+    returns what make_serving_fn returns (a tensor on that device)."""
+    meta: dict
+    model: torch.nn.Module
+    fn: Callable
+
+    def __call__(self, images):
+        shape = list(images.shape)
+        want = list(self.meta["input_shape"])
+        if self.meta["batch_polymorphic"]:
+            shape[0] = want[0] = "N"
+        if shape != want:
+            raise ValueError(f"servable input shape {list(images.shape)}: "
+                             f"the artifact takes {want}")
+        dtype = str(images.dtype).replace("torch.", "")
+        if dtype != self.meta["input_dtype"]:
+            raise ValueError(f"servable input dtype {dtype}: the artifact "
+                             f"takes {self.meta['input_dtype']}")
+        return self.fn(images)
+
+
+def read_servable(path: str):
+    """(meta, state_dict on the CPU) of a servable of the port."""
+    with open(path, "rb") as f:
+        magic = f.read(len(MAGIC))
+        if magic == JAX_MAGIC:
+            raise ValueError(
+                f"{path} is a StableHLO artifact of the JAX package "
+                "(jax.export); the port cannot run StableHLO: export a "
+                "servable with python -m s2r_tpu_torch.cli.export")
+        if magic != MAGIC:
+            raise ValueError(f"{path}: not a servable of s2r_tpu_torch "
+                             f"(bad magic {magic!r})")
+        (n,) = struct.unpack("<Q", f.read(8))
+        meta = json.loads(f.read(n).decode())
+        weights = torch.load(io.BytesIO(f.read()), map_location="cpu",
+                             weights_only=True)
+    return meta, weights
+
+
+def load_servable(path: str,
+                  device: Optional[Union[str, torch.device]] = None
+                  ) -> Servable:
+    """Rebuild the servable's DeepLab on `device` (``cuda`` when None) and
+    its serving function."""
+    from s2r_tpu_torch.models.deeplab import DeepLab
+
+    meta, weights = read_servable(path)
+    model = DeepLab(num_classes=meta["num_classes"],
+                    output_stride=meta["output_stride"],
+                    dtype=meta["precision"], device=device)
+    model.load_state_dict(weights, strict=True)
+    fn = make_serving_fn(model, output=meta["output"], input=meta["input"],
+                         argmax_res=meta["argmax_res"],
+                         label_dtype=meta["label_dtype"],
+                         quant=meta["quant"],
+                         quant_scales=meta["quant_scales"],
+                         pad_batch_to=meta["pad_batch_to"])
+    return Servable(meta, model, fn)

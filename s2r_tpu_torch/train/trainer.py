@@ -32,6 +32,7 @@ from s2r_tpu_torch.data import device_aug as DA
 from s2r_tpu_torch.data.loader import make_data_loader
 from s2r_tpu_torch.eval.metrics import evaluate
 from s2r_tpu_torch.io.checkpoint import load_checkpoint, restore_state
+from s2r_tpu_torch.io.torch_import import apply_reference, init_backbone
 from s2r_tpu_torch.io.saver import CKPT_NAME, Saver
 from s2r_tpu_torch.parallel.feed import prefetch_to_device
 from s2r_tpu_torch.train.setup import Method, build_method
@@ -45,16 +46,27 @@ def latest_checkpoint(directory: str) -> Optional[str]:
     return max(candidates, key=os.path.getmtime) if candidates else None
 
 
-def resume_into(state, path: str, ft: bool):
-    """Load checkpoint `path` into `state`: with `ft` (the reference's
+def resume_into(state, path: str, ft: bool, output_stride: int = 16):
+    """Load checkpoint `path` into `state`: the port's own, the JAX
+    package's msgpack ``.ckpt`` or a reference ``.pth``/``.pth.tar``
+    (io/checkpoint.py tells them apart).  With `ft` (the reference's
     default) the weights and BatchNorm statistics only, a fresh optimizer,
-    step and dropout generator; else everything.  Returns (epoch,
-    best_pred) of the checkpoint."""
+    step and dropout generator; else everything the file holds (a
+    reference file: the optimizer buffers, with the JAX Trainer's rules,
+    io/torch_import.py ``apply_reference``).  Returns (epoch, best_pred) of
+    the checkpoint."""
     if not os.path.isfile(path):
         raise RuntimeError(f"=> no checkpoint found at '{path}'")
-    payload = load_checkpoint(path)
-    restore_state(state, payload["state"], full=not ft)
-    print(f"=> loaded checkpoint '{path}' (epoch {payload['epoch']})")
+    payload = load_checkpoint(path, output_stride)
+    if payload["format"] == "reference":
+        ref = payload["reference"]
+        apply_reference(state, ref, ft, output_stride)
+        print(f"=> imported reference checkpoint '{path}' (epoch "
+              f"{ref['epoch']}, schema {ref['schema']})")
+    else:
+        restore_state(state, payload["state"], full=not ft)
+        print(f"=> loaded {'JAX ' if payload['format'] == 'jax' else ''}"
+              f"checkpoint '{path}' (epoch {payload['epoch']})")
     return payload["epoch"], payload["best_pred"]
 
 
@@ -83,23 +95,26 @@ class Trainer:
         self.eval_step = self.method.eval_step
         self.best_pred = 0.0
         self.start_epoch = cfg.start_epoch
+        if cfg.backbone_init:
+            init_backbone(self.state.G, cfg.backbone_init, cfg.out_stride)
+            print(f"=> initialized backbone from '{cfg.backbone_init}'")
         if cfg.resume:
             self._resume(cfg.resume)
 
     # ------------------------------------------------------------------
     def _resume(self, path: str):
-        """Resume from a checkpoint of the port (train.py:120-142,
-        train_adapt.py:94-113):
-        with --ft (the default) the optimizer state is not restored and
-        start_epoch stays; ``auto`` takes the newest checkpoint of this
-        run directory."""
+        """Resume from a checkpoint of any format resume_into reads
+        (train.py:120-142, train_adapt.py:94-113): with --ft (the default)
+        the optimizer state is not restored and start_epoch stays;
+        ``auto`` takes the newest checkpoint.ckpt of this run directory."""
         if path == "auto":
             path = latest_checkpoint(self.saver.directory)
             if path is None:
                 print("=> --resume auto: no prior checkpoint found, "
                       "starting fresh")
                 return
-        epoch, self.best_pred = resume_into(self.state, path, self.cfg.ft)
+        epoch, self.best_pred = resume_into(self.state, path, self.cfg.ft,
+                                            self.cfg.out_stride)
         if not self.cfg.ft:
             self.start_epoch = epoch
 

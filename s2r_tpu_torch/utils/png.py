@@ -30,6 +30,10 @@ def filter_rows(rows: np.ndarray, bpp: int, filters: Sequence[int]
                 ) -> np.ndarray:
     """uint8 scanlines [H, N] -> [H, 1 + N], each row filtered with
     filters[y % len(filters)] (PNG spec 9.2) behind its filter-type byte."""
+    if not any(filters):  # None on every row: the bytes as they are
+        out = np.zeros((rows.shape[0], rows.shape[1] + 1), np.uint8)
+        out[:, 1:] = rows
+        return out
     x = rows.astype(np.int16)
     prev = np.zeros_like(x)
     prev[1:] = x[:-1]

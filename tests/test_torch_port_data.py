@@ -11,9 +11,12 @@ loader.py, device_aug.py, transforms.py eval transforms), on the CPU.
   equal on labels, with the blur on and off.
 - The port's sampler stays inside JAX's ranges over many draws.
 - normalize_u8_batch within 1e-7 of JAX's.
-- Only --data-backend native raises; the synthetic train set without
-  --device-aug (the host transforms) gives JAX's batches.
+- --data-backend native raises only for gtav2cityscapes (gtav and
+  synthetic ignore it, as the JAX package does); the synthetic train set
+  without --device-aug (the host transforms) gives JAX's batches.
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -200,15 +203,38 @@ def test_normalize_u8_batch_matches_jax():
                                   np.asarray(want["label"]))
 
 
-def test_unported_datasets_raise():
-    """Every dataset loads now; what is left unported of the data path is
-    the JAX package's own C++ loader (--data-backend native).  The
-    synthetic train set without --device-aug goes through the host train
+def test_unported_datasets_raise(tmp_path):
+    """Every dataset loads now.  --data-backend native (the JAX package's
+    own C++ loader) raises only for gtav2cityscapes, the one arm where the
+    JAX package has it; gtav and synthetic ignore the flag and load the
+    same batches as without it, as in the JAX package.  The synthetic
+    train set without --device-aug goes through the host train
     transforms: its uint8 crops, normalized, are JAX's PIL batches."""
-    for name in ("gtav", "gtav2cityscapes", "synthetic"):
-        with pytest.raises(NotImplementedError, match="A.4"):
-            make_data_loader(Config(**dict(KW, dataset=name,
-                                           data_backend="native")))
+    from s2r_tpu_torch.utils.png import write_png
+
+    with pytest.raises(NotImplementedError, match="A.4"):
+        make_data_loader(Config(**dict(KW, dataset="gtav2cityscapes",
+                                       data_backend="native")))
+    rs = np.random.RandomState(3)
+    roots = {"src_img_root": str(tmp_path / "img"),
+             "src_label_root": str(tmp_path / "lbl")}
+    for d in roots.values():
+        os.makedirs(d)
+    for i in range(20):  # GTA5's 70/20/10 split: 7, 2 and 1 batches
+        write_png(os.path.join(roots["src_img_root"], f"{i:05d}.png"),
+                  rs.randint(0, 256, (30, 40, 3)).astype(np.uint8))
+        write_png(os.path.join(roots["src_label_root"], f"{i:05d}.png"),
+                  rs.randint(0, 34, (30, 40)).astype(np.uint8))
+    for name, extra in (("gtav", roots), ("synthetic", {})):
+        plain = dict(KW, dataset=name, **extra)
+        for split in range(3):
+            got = make_data_loader(Config(**dict(plain,
+                                                 data_backend="native")))
+            want = make_data_loader(Config(**plain))
+            want_j = jax_loaders(JaxConfig(**dict(plain,
+                                                  data_backend="native")))
+            assert len(got[split]) == len(want[split]) == len(want_j[split])
+            _assert_batches_equal(list(got[split]), list(want[split]))
     cfg = dict(KW, device_aug=False)
     got = next(iter(make_data_loader(Config(**cfg))[0]))
     want = next(iter(jax_loaders(JaxConfig(**cfg))[0]))

@@ -14,8 +14,10 @@ the CPU.
   val_adapt on model_best.ckpt reproduces the Trainer's mIoU, with and
   without the per-image PNG export.
 - 2 epochs straight are bit-equal to 1 epoch + resume (ft=False) + 1 epoch.
-- --resume of a JAX checkpoint or a reference .pth raises, and so does
-  --data-backend native; --dataset synthetic trains without --device-aug.
+- --resume of a JAX checkpoint or a reference .pth loads; --data-backend
+  native with --dataset synthetic loads the default batches (the JAX
+  package ignores it there); --dataset synthetic trains without
+  --device-aug.
 """
 
 import argparse
@@ -62,8 +64,7 @@ UNPORTED = [(["--backbone", "resnet"], "--backbone"),
             (["--fast-pad-stats"], "--fast-pad-stats"),
             (["--logits-dtype", "bf16"], "--logits-dtype"),
             (["--split-concat"], "--split-concat"),
-            (["--profile-dir", "p"], "--profile-dir"),
-            (["--backbone-init", "m.pth"], "--backbone-init")]
+            (["--profile-dir", "p"], "--profile-dir")]
 
 
 def _parse(mod, argv):
@@ -422,37 +423,71 @@ def test_resume_with_ft_loads_weights_only(tmp_path, fitted):
 
 
 @pytest.mark.parametrize("kind", ["jax", "pth"])
-def test_resume_of_foreign_checkpoint_raises(tmp_path, kind):
+def test_resume_of_foreign_checkpoint_loads(tmp_path, kind):
+    """A JAX msgpack checkpoint and a reference .pth resume into the
+    Trainer with ft off: the weights, epoch and best_pred of the file
+    (tests/test_torch_port_checkpoint_io.py and test_torch_port_interop.py
+    hold the optimizer state and both layouts); a file of neither format
+    raises."""
+    from s2r_tpu.config import Config as JaxConfig
     from s2r_tpu.io.checkpoint import save_checkpoint as jax_save
+    from s2r_tpu.io.torch_export import save_reference_checkpoint
+    from s2r_tpu.train.setup import build_method as jax_build
+    from s2r_tpu_torch.io.convert import from_jax_variables
     from s2r_tpu_torch.train.trainer import Trainer
 
+    jm = jax_build(JaxConfig(dataset="synthetic", crop_size=32,
+                             base_size=32, batch_size=2), 1,
+                   method="output_adapt")
+    js = jm.init_state(jax.random.PRNGKey(3))
+    params = jax.tree_util.tree_map(np.asarray, js.params)
+    stats = jax.tree_util.tree_map(np.asarray, js.batch_stats)
     if kind == "jax":
         path = str(tmp_path / "jax.ckpt")
-        jax_save(path, {"w": np.ones(2, np.float32)}, 1, 0.5)
+        jax_save(path, js, 3, 0.5)
     else:
         path = str(tmp_path / "ref.pth")
-        torch.save({"state_dict": {}}, path)
-    with pytest.raises(NotImplementedError, match="A.3"):
-        Trainer(PC.Config(dataset="synthetic", device_aug=True, batch_size=2,
-                          crop_size=32, base_size=32, workers=1,
-                          run_root=str(tmp_path / "run"), resume=path),
-                device="cpu")
+        save_reference_checkpoint(path, params["G"], stats, epoch=3,
+                                  best_pred=0.5)
+    cfg = PC.Config(dataset="synthetic", device_aug=True, batch_size=2,
+                    crop_size=32, base_size=32, workers=1, precision="f32",
+                    run_root=str(tmp_path / "run"), resume=path, ft=False)
+    with torch_threads():
+        t = Trainer(cfg, method="output_adapt", device="cpu")
+    want = from_jax_variables(params["G"], stats)
+    got = t.state.G.state_dict()
+    assert all(torch.equal(got[k], want[k]) for k in want)
+    assert (t.start_epoch, t.best_pred) == (3, 0.5)
+    t.writer.close()
+    bad = str(tmp_path / "bad.ckpt")
+    with open(bad, "wb") as f:
+        f.write(b"not a checkpoint")
+    with pytest.raises(ValueError, match="not a checkpoint"):
+        Trainer(dataclasses.replace(cfg, resume=bad), device="cpu")
 
 
 def test_synthetic_without_device_aug_raises(tmp_path):
     """The host train transforms are ported, so --dataset synthetic trains
-    without --device-aug on uint8 crops that the device normalizes; what
-    still raises on the data path is --data-backend native (A.4)."""
+    without --device-aug on uint8 crops that the device normalizes; and
+    --data-backend native, which the JAX package ignores for synthetic
+    (only its gtav2cityscapes arm has the native loader), gives the same
+    batches as the default (ROADMAP C.10)."""
     from s2r_tpu_torch.train.trainer import Trainer
 
-    with pytest.raises(NotImplementedError, match="A.4"):
-        Trainer(PC.Config(dataset="synthetic", data_backend="native",
-                          run_root=str(tmp_path)), device="cpu")
     with torch_threads():
+        native = Trainer(PC.Config(dataset="synthetic", data_backend="native",
+                                   batch_size=2, crop_size=32, base_size=32,
+                                   workers=1, run_root=str(tmp_path)),
+                         device="cpu")
         t = Trainer(PC.Config(dataset="synthetic", batch_size=2,
                               crop_size=32, base_size=32, workers=1,
                               run_root=str(tmp_path)), device="cpu")
     batch = next(iter(t.train_loader))
+    other = next(iter(native.train_loader))
+    assert sorted(other) == sorted(batch)
+    for k in batch:
+        np.testing.assert_array_equal(other[k], batch[k])
+    native.writer.close()
     assert batch["src_image"].dtype == np.uint8
     assert batch["src_image"].shape == (2, 32, 32, 3)
     arrays = t._finish_batch({k: torch.as_tensor(v)
