@@ -97,7 +97,7 @@ Phases, each of which must pass:
    depthwise 56/28, dk 28/14, BatchNorm stats and apply 124/60, grad_sums
    and dx 121/60 (the target logits feed no loss, so the decoder's three
    BatchNorms of the target forward take no backward), disc_conv1 and
-   requant 0 (STEP_LAUNCHES).  (c) The kernels at this path's new
+   requant 0 (step_launches).  (c) The kernels at this path's new
    shapes against their plain versions: depthwise forward, dx and dk at
    the 513x513 batch-4 layers; the BatchNorm entries (in phase 2d's loop)
    at the source-only cell's inputs and the domain classifier's C = 1024
@@ -148,15 +148,43 @@ Phases, each of which must pass:
    1 requant a batch in int8 mode; ms/image including host IO, steady
    state after batch 0, and the decode/device/save split (host clock,
    unprofiled).
-9. Print the kernels line (each kernel's launches by path), the card's
+9. The other backbones at full width, with seeded weights and perturbed
+   BatchNorm statistics: ResNet-101 and -50, Aligned Xception-65 (os 16)
+   and DRN-D-54 (os 8).  (a) The depthwise forward, dx and dk kernels at
+   Xception's 56 stride-1 depthwise shapes (C 64-1536, dilations 1 and 2)
+   of the 512x1024 batch-8 train cell and the 2048x1024 batch-8 serving
+   forward, and at 513x513 batch 1 at os 16 (33x33 at dilation 2) and os
+   8 (65x65 at dilation 4), at phase 2's tolerances, timed against cuDNN
+   (per_shape under serve_xception and train_step_xception); each
+   backbone's BatchNorm inputs at the train cell in phase 2d's loop (C up
+   to 2048).  (b) ResNet-101, Xception and DRN served as phase 3 serves
+   MobileNetV2 (513x513 float32 against the CPU, exact and int8; rgb8
+   2048x1024 batch 8 bf16 timed, with peak memory, and for ResNet-101 and
+   Xception the exact call's eval-BatchNorm share: the call timed again
+   with every BatchNorm the identity, tools/profile_serving.py
+   eval_bn_share; DRN, ~3.2 s a call, over 2 calls after 1 warm-up).
+   (c) The output step of each backbone at 512x1024 batch 8 bf16 as
+   phase 4b, its launches
+   against step_launches (LAYERS: each backbone's stride-1 depthwise convs
+   and BatchNorms, held to the modules' own counts); the 64x64 batch-2
+   float32 step of Xception and ResNet-50 on the card against the CPU
+   and float64 as phase 4a; Xception's feature step at the same cell.
+   (d) ``cli.train_adapt --backbone xception`` for one epoch at the phase
+   5 cell, launches as predicted, its state written in the JAX format and
+   read back bit-equal, exported as a 2048x1024 batch-8 rgb8 servable
+   (``cli.export --format servable``) and swept over phase 8's 24 frames
+   by ``cli.infer``: labels equal to make_serving_fn in this process, 56
+   depthwise launches a batch.
+10. Print the kernels line (each kernel's launches by path), the card's
    name and power limit, and as the last line {"ok": true, "device":
    {...}}.
 
 Without a CUDA device, or outside a checkout holding s2r_tpu_torch, it exits
 non-zero and prints no result.  Float32 convs run with TF32 off.  It writes
 the kernel build directory, and phase 5's run root in the temporary
-directory (and phase 6d's, 7's and 8's, and the checkpoints phases 5 and
-6d hand to phase 8), which it removes.
+directory (and phase 6d's, 7's, 8's and 9's, the checkpoints phases 5
+and 6d hand to phase 8 and the frames phase 8 hands to phase 9), which it
+removes.
 """
 
 import dataclasses
@@ -203,22 +231,38 @@ TRAIN_ARGV = ["--dataset", "synthetic", "--device-aug",
               "--crop-size", str(ADAPT_HW[0]), "--base-size", str(ADAPT_HW[0]),
               "--batch-size", str(ADAPT_BATCH), "--epochs", "1",
               "--precision", "bf16", "--workers", "4"]
-# each kernel's launches in one step of each method.  The feature step's
-# target logits feed no loss (only its ASPP feature does), so the
-# decoder's 3 BatchNorms of the target forward take no backward: 124
-# forward and 121 backward calls of each BatchNorm entry.
 _BN = ("batch_norm_stats", "batch_norm_apply", "batch_norm_grad_sums",
        "batch_norm_dx")
-STEP_LAUNCHES = {
-    "output_adapt": {"depthwise_conv3x3": 56, "requant_s32_to_s8": 0,
-                     "depthwise_dk": 28, **dict.fromkeys(_BN, 120),
-                     "disc_conv1": 3},
-    "feature_adapt": {"depthwise_conv3x3": 56, "requant_s32_to_s8": 0,
-                      "depthwise_dk": 28, **dict.fromkeys(_BN[:2], 124),
-                      **dict.fromkeys(_BN[2:], 121), "disc_conv1": 0},
-    "source_only": {"depthwise_conv3x3": 28, "requant_s32_to_s8": 0,
-                    "depthwise_dk": 14, **dict.fromkeys(_BN, 60),
-                    "disc_conv1": 0}}
+# (stride-1 depthwise convs, BatchNorms of G) in one forward of each
+# backbone at output stride 16: MobileNetV2's 14 inverted residuals'
+# depthwise convs; Xception's separable convs at stride 1 (1 in each of
+# blocks 1-3, 48 in the middle flow, 2 in block 20 and the exit flow's 3).
+# G's BatchNorms: the backbone's, ASPP's 6 and the decoder's 3.  Phase 9
+# holds each model's modules (layer_counts) to these.
+LAYERS = {"mobilenet": (14, 60), "resnet101": (0, 113), "resnet50": (0, 62),
+          "xception": (56, 133), "drn": (0, 65)}
+
+
+def step_launches(method, backbone="mobilenet"):
+    """Each kernel's launches in one step of `method` on `backbone`: the
+    depthwise forward and dx of the source and target forwards and their
+    dk, the four BatchNorm entries of each G forward (the feature
+    methods' domain classifier adds 2 BatchNorms a forward, and its target
+    logits feed no loss, so the decoder's 3 BatchNorms of the target
+    forward take no backward), the discriminator's first conv on 3
+    softmax maps (output_adapt)."""
+    dw, bn = LAYERS[backbone]
+    out = {"depthwise_conv3x3": 4 * dw, "requant_s32_to_s8": 0,
+           "depthwise_dk": 2 * dw, **dict.fromkeys(_BN, 2 * bn),
+           "disc_conv1": 3}
+    if method == "feature_adapt":
+        out.update({**dict.fromkeys(_BN[:2], 2 * bn + 4),
+                    **dict.fromkeys(_BN[2:], 2 * bn + 1), "disc_conv1": 0})
+    elif method == "source_only":
+        out.update({"depthwise_conv3x3": 2 * dw, "depthwise_dk": dw,
+                    **dict.fromkeys(_BN, bn), "disc_conv1": 0})
+    return out
+
 # phase 7: the real datasets, from full-size PNG fixtures (tools/fixtures.py:
 # 16 GTA5-sized sources with P-mode labels, 16 Cityscapes-sized targets, 8
 # val pairs, 8 test frames), the drivers at the phase 5 cell.  GTA5's
@@ -233,6 +277,15 @@ REAL_ARGV = ["--crop-size", str(ADAPT_HW[0]), "--base-size", str(ADAPT_HW[0]),
 # and 8 GTA5-sized PNGs (tools/fixtures.py), three servable batches of
 # BATCH at FULL_HW; the GTA5 frames take the host resize.
 INFER_FRAMES = dict(n_gta=8, n_city=16, n_val=0, n_test=0)
+# phase 9: the other backbones at full width (os 16; DRN's ASPP at 8):
+# served at CHECK_HW against the CPU and at FULL_HW batch BATCH, the
+# output step at TRAIN_HW batch BATCH, the small float32 step against the
+# CPU and float64 at BACKBONE_CHECK_HW, and train_adapt on Xception at the
+# phase 5 cell for one epoch
+SERVE_BACKBONES = ("resnet101", "xception", "drn")
+STEP_BACKBONES = ("resnet101", "resnet50", "xception", "drn")
+CHECK_BACKBONES = ("xception", "resnet50")
+BACKBONE_CHECK_HW = (64, 64)
 DEV = "cuda"
 
 
@@ -491,16 +544,46 @@ def check_requant(rq):
     return entry
 
 
-def build_model(dtype, device):
+_WARM = {}  # backbone -> its BatchNorm statistics, warmed on the CPU
+
+
+def build_model(dtype, device, backbone="mobilenet"):
+    """DeepLab on `backbone` from seed SEED: MobileNetV2 with its BatchNorm
+    statistics perturbed; the other backbones with the statistics of a
+    seeded 2x3x129x129 batch (warm_batchnorm, on the CPU in float32, the
+    same for every copy)."""
     from s2r_tpu_torch.models.deeplab import DeepLab
+    from s2r_tpu_torch.tools.step_conditioning import (perturb_batchnorm,
+                                                       warm_batchnorm)
 
-    from s2r_tpu_torch.tools.step_conditioning import perturb_batchnorm
+    def make(dtype, device):
+        return DeepLab(num_classes=19, output_stride=16, dtype=dtype,
+                       device=device, backbone=backbone,
+                       generator=torch.Generator().manual_seed(SEED))
 
-    model = DeepLab(num_classes=19, output_stride=16, dtype=dtype,
-                    device=device,
-                    generator=torch.Generator().manual_seed(SEED))
-    perturb_batchnorm(model, SEED + 1)
-    return model
+    if backbone == "mobilenet":
+        model = make(dtype, device)
+        perturb_batchnorm(model, SEED + 1)
+        return model
+    if backbone not in _WARM:
+        cpu = make("f32", "cpu")
+        images = np.random.RandomState(SEED + 5).randn(2, 3, 129, 129)
+        warm_batchnorm(cpu, torch.from_numpy(images.astype(np.float32)))
+        _WARM[backbone] = cpu.state_dict()
+        del cpu
+    model = make(dtype, "cpu")
+    model.load_state_dict(_WARM[backbone], strict=True)
+    return model.to(device)
+
+
+def layer_counts(model):
+    """(stride-1 depthwise convs, train-mode BatchNorms) of one forward of
+    `model`, counted from its modules."""
+    from s2r_tpu_torch.models.layers import BatchNorm, Conv2d
+
+    mods = list(model.modules())
+    return (sum(isinstance(m, Conv2d) and m.dw_stride1_3x3 for m in mods),
+            sum(isinstance(m, BatchNorm) for m in mods))
 
 
 def reset(counted):
@@ -508,22 +591,26 @@ def reset(counted):
         fn.launches = 0
 
 
-def serve_check_513(dw, rq):
-    """Phase 3a: 513x513 batch 1 float32, card against CPU."""
+def serve_check_513(dw, rq, backbone="mobilenet"):
+    """Phase 3a (and 9b): 513x513 batch 1 float32, card against CPU."""
     from s2r_tpu_torch.io.quant import calibrate_decoder_int8
     from s2r_tpu_torch.io.serving import make_serving_fn
 
-    gpu, cpu = build_model("f32", DEV), build_model("f32", "cpu")
+    gpu = build_model("f32", DEV, backbone)
+    cpu = build_model("f32", "cpu", backbone)
     sd_g, sd_c = gpu.state_dict(), cpu.state_dict()
     require(all(torch.equal(sd_g[k].cpu(), sd_c[k]) for k in sd_c),
             "card and CPU models hold different weights")
+    tag = "serve 513" if backbone == "mobilenet" else f"9b {backbone} 513"
     rs = np.random.RandomState(SEED)
     image = rs.randn(1, *CHECK_HW, 3).astype(np.float32)
     reset((dw.depthwise_conv3x3, rq.requant_s32_to_s8))
     got = make_serving_fn(gpu, output="logits")(image)
     torch.cuda.synchronize()
-    require(dw.depthwise_conv3x3.launches == 14,
-            f"513 forward: {dw.depthwise_conv3x3.launches} depthwise launches")
+    n_dw = LAYERS[backbone][0]
+    require(dw.depthwise_conv3x3.launches == n_dw,
+            f"{tag} forward: {dw.depthwise_conv3x3.launches} depthwise "
+            f"launches, expected {n_dw}")
     got = got.cpu()
     ref = make_serving_fn(cpu, output="logits")(image)
     require(got.shape == ref.shape == (1, *CHECK_HW, 19)
@@ -531,10 +618,11 @@ def serve_check_513(dw, rq):
     err = float((got - ref).abs().max())
     tol = 1e-4 * max(1.0, float(ref.abs().max()))
     agree = float((got.argmax(-1) == ref.argmax(-1)).float().mean())
-    log(f"[serve 513] float32 logits card vs CPU: max_abs_err {err:.3g} "
+    log(f"[{tag}] float32 logits card vs CPU: max_abs_err {err:.3g} "
         f"(tol {tol:.3g}, max|logit| {float(ref.abs().max()):.3g}), "
         f"label agreement {100 * agree:.4f}%")
-    require(err <= tol and agree >= 0.999, "513 logits disagree with the CPU")
+    require(err <= tol and agree >= 0.999,
+            f"{tag} logits disagree with the CPU")
 
     calib = [rs.randn(1, *CHECK_HW, 3).astype(np.float32) for _ in range(2)]
     scales = calibrate_decoder_int8(cpu, calib)
@@ -544,23 +632,32 @@ def serve_check_513(dw, rq):
     lab_g = make_serving_fn(gpu, quant="decoder_int8",
                             quant_scales=scales)(image)
     torch.cuda.synchronize()
-    require(rq.requant_s32_to_s8.launches == 1, "513 int8: requant not run")
+    require(rq.requant_s32_to_s8.launches == 1,
+            f"{tag} int8: requant not run")
     lab_c = make_serving_fn(cpu, quant="decoder_int8",
                             quant_scales=scales)(image)
     agree8 = float((lab_g.cpu() == lab_c).float().mean())
-    log(f"[serve 513] decoder-int8 labels card vs CPU: agreement "
+    log(f"[{tag}] decoder-int8 labels card vs CPU: agreement "
         f"{100 * agree8:.4f}%; calibration scales card vs CPU rel diff "
         f"{rel:.3g}")
-    require(agree8 >= 0.99 and rel <= 1e-3, "513 int8 disagrees with the CPU")
+    require(agree8 >= 0.99 and rel <= 1e-3,
+            f"{tag} int8 disagrees with the CPU")
     del gpu, cpu
 
 
-def serve_full(counted):
-    """Phase 3b: rgb8 2048x1024 batch 8 to labels, bf16, exact and int8."""
+def serve_full(counted, backbone="mobilenet", timed=5, warmup=2,
+               bn_share=False):
+    """Phase 3b (and 9b): rgb8 2048x1024 batch 8 to labels, bf16, exact and
+    int8, `warmup` and `timed` calls of each.  Returns ({mode: ms/image},
+    the launches of one call of each, peak GiB, and with `bn_share` the
+    exact call's eval-BatchNorm share, else None)."""
     from s2r_tpu_torch.io.quant import calibrate_decoder_int8
     from s2r_tpu_torch.io.serving import make_serving_fn
+    from s2r_tpu_torch.tools.profile_serving import eval_bn_share
 
-    model = build_model("bf16", DEV)
+    model = build_model("bf16", DEV, backbone)
+    tag = ("serve 2048x1024" if backbone == "mobilenet"
+           else f"9b {backbone} 2048x1024")
     gen = torch.Generator(device=DEV).manual_seed(SEED + 2)
 
     def rgb8():
@@ -568,7 +665,7 @@ def serve_full(counted):
                              generator=gen, dtype=torch.uint8)
 
     scales = calibrate_decoder_int8(model, [rgb8(), rgb8()], input="rgb8")
-    log(f"[serve 2048x1024] calibration scales {scales}")
+    log(f"[{tag}] calibration scales {scales}")
     images = rgb8()
     fns = {"exact": make_serving_fn(model, input="rgb8"),
            "decoder_int8": make_serving_fn(model, input="rgb8",
@@ -583,17 +680,17 @@ def serve_full(counted):
                 f"{mode} labels: {tuple(out.shape)} {out.dtype}")
         labels[mode] = out
     agree = float((labels["exact"] == labels["decoder_int8"]).float().mean())
-    log(f"[serve 2048x1024] int8 vs exact label agreement {100 * agree:.3f}% "
+    log(f"[{tag}] int8 vs exact label agreement {100 * agree:.3f}% "
         "(random weights; informational)")
     del labels
 
     ms = {}
     torch.cuda.reset_peak_memory_stats()
     for mode, fn in fns.items():
-        for _ in range(2):
+        for _ in range(warmup):
             fn(images)
         runs = []
-        for _ in range(5):
+        for _ in range(timed):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -602,10 +699,17 @@ def serve_full(counted):
             end.synchronize()
             runs.append(start.elapsed_time(end) / BATCH)
         ms[mode] = statistics.median(runs)
-        log(f"[serve 2048x1024] {mode}: {ms[mode]:.3f} ms/image (median of "
-            f"5 batch-{BATCH} calls: {', '.join(f'{r:.3f}' for r in runs)})")
-    log(f"[serve 2048x1024] peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+        log(f"[{tag}] {mode}: {ms[mode]:.3f} ms/image (median of "
+            f"{timed} batch-{BATCH} calls: "
+            f"{', '.join(f'{r:.3f}' for r in runs)})")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"[{tag}] peak device memory {peak:.2f} GiB")
+    share = None
+    if bn_share:
+        with_bn, without, share = eval_bn_share(fns["exact"], images)
+        log(f"[{tag}] eval BatchNorm: the exact call {with_bn / BATCH:.3f} "
+            f"ms/image, {without / BATCH:.3f} with every BatchNorm the "
+            f"identity: share {share:.3f} (CUDA events, 3 calls each)")
 
     # The main-path run that the kernels line counts: one call per mode.
     reset(counted)
@@ -613,11 +717,13 @@ def serve_full(counted):
         fn(images)
     torch.cuda.synchronize()
     launches = {fn.__name__: fn.launches for fn in counted}
-    log(f"[serve 2048x1024] launches in one exact + one int8 call: {launches}")
+    log(f"[{tag}] launches in one exact + one int8 call: {launches}")
     want = dict.fromkeys(launches, 0)
-    want.update(depthwise_conv3x3=28, requant_s32_to_s8=1)
-    require(launches == want, f"unexpected launch counts {launches}")
-    return ms, launches
+    want.update(depthwise_conv3x3=2 * LAYERS[backbone][0],
+                requant_s32_to_s8=1)
+    require(launches == want, f"{tag}: launches {launches}, expected {want}")
+    del model, fns, images
+    return ms, launches, peak, share
 
 
 def rel_err(got, ref):
@@ -748,26 +854,39 @@ def check_depthwise_bwd(dw):
     return entry, train
 
 
-def bn_input_shapes(hw):
-    """(C, H, W) of every train-mode BatchNorm input of one forward at `hw`,
-    in call order, read by hooks on a throwaway model."""
+def layer_shapes(hw, backbone="mobilenet", output_stride=16):
+    """(dw, bn) of one train-mode forward of `backbone` at `hw`, in call
+    order, read by hooks on a throwaway model: dw the (C, H, W, d) of each
+    stride-1 depthwise conv, bn the (C, H, W) of each BatchNorm input."""
     from s2r_tpu_torch.models.deeplab import DeepLab
-    from s2r_tpu_torch.models.layers import BatchNorm
+    from s2r_tpu_torch.models.layers import BatchNorm, Conv2d
 
-    model = DeepLab(dtype="bf16", device=DEV,
+    model = DeepLab(dtype="bf16", device=DEV, backbone=backbone,
+                    output_stride=output_stride,
                     generator=torch.Generator().manual_seed(SEED))
     model.train()
-    shapes = []
+    dw, bn = [], []
     hooks = [m.register_forward_pre_hook(
-        lambda mod, args: shapes.append(tuple(args[0].shape[1:])))
+        lambda mod, args: bn.append(tuple(args[0].shape[1:])))
         for m in model.modules() if isinstance(m, BatchNorm)]
+    hooks += [m.register_forward_pre_hook(
+        lambda mod, args: dw.append(tuple(args[0].shape[1:])
+                                    + (mod.dilation[0],)))
+        for m in model.modules()
+        if isinstance(m, Conv2d) and m.dw_stride1_3x3]
     with torch.no_grad():
-        model(torch.zeros((1, 3) + hw, device=DEV))
+        model(torch.zeros((1, 3) + tuple(hw), device=DEV))
     for h in hooks:
         h.remove()
     del model
     torch.cuda.empty_cache()
-    return shapes
+    return dw, bn
+
+
+def bn_input_shapes(hw, backbone="mobilenet"):
+    """(C, H, W) of every train-mode BatchNorm input of one forward at
+    `hw`, in call order."""
+    return layer_shapes(hw, backbone)[1]
 
 
 def bn_rel(got, ref):
@@ -795,6 +914,13 @@ def check_batchnorm(bn):
     adapt = sorted(set(bn_input_shapes(ADAPT_HW)))
     source = sorted(set(bn_input_shapes(SOURCE_HW)))
     require(len(shapes) == 60, f"expected 60 BatchNorms, got {len(shapes)}")
+    # phase 9a: each other backbone's BatchNorm inputs at the train cell
+    others = {}
+    for b in STEP_BACKBONES:
+        bs = bn_input_shapes(TRAIN_HW, b)
+        require(len(bs) == LAYERS[b][1],
+                f"{b}: {len(bs)} BatchNorms, expected {LAYERS[b][1]}")
+        others.update(dict.fromkeys(bs))
     counts = Counter(shapes)
     # (batch, (C, H, W), count in one forward, timed, ring width)
     cases = [(BATCH, s, mult, True, 1) for s, mult in sorted(counts.items())]
@@ -805,6 +931,7 @@ def check_batchnorm(bn):
     cases += [(SOURCE_BATCH, s, 0, False, 1) for s in source]
     cases += [(n, (1024, hw[0] // 16, hw[1] // 16), 0, False, 0)
               for n, hw in ((BATCH, TRAIN_HW), (ADAPT_BATCH, ADAPT_HW))]
+    cases += [(BATCH, s, 0, False, 0) for s in sorted(others)]
     gen = torch.Generator(device=DEV).manual_seed(SEED + 4)
     names = ("batch_norm_stats", "batch_norm_apply", "batch_norm_grad_sums",
              "batch_norm_dx")
@@ -973,6 +1100,9 @@ def check_batchnorm(bn):
                          sums_library_ms=sums_lib)
     log(f"[batchnorm] {len(adapt)} train_adapt shapes ({ADAPT_HW[1]}x"
         f"{ADAPT_HW[0]} batch {ADAPT_BATCH}) pass")
+    log(f"[9a batchnorm] {len(others)} shapes of {', '.join(STEP_BACKBONES)} "
+        f"({TRAIN_HW[1]}x{TRAIN_HW[0]} batch {BATCH}, C up to "
+        f"{max(c for c, _, _ in others)}) pass, f32 and bf16")
     log(f"[6c batchnorm] {len(source)} source-only shapes ({SOURCE_HW[1]}x"
         f"{SOURCE_HW[0]} batch {SOURCE_BATCH}) and the domain classifier's "
         f"C=1024 rows ({BATCH}x{TRAIN_HW[0] // 16}x{TRAIN_HW[1] // 16}, "
@@ -1198,16 +1328,20 @@ def snapshot(method):
     return g, d, s
 
 
-def train_check_small(counted):
-    """Phase 4a: one 128x128 batch-2 float32 step on the card against the CPU
-    (float32 and the float64 reference), dropout off, from weights with
-    the BatchNorm scale and bias perturbed (perturb_batchnorm says why)."""
+def train_check_small(counted, backbone="mobilenet", hw=None):
+    """Phase 4a (and 9c): one `hw` (TRAIN_CHECK_HW when None) batch-2
+    float32 step on the card against the CPU (float32 and the float64
+    reference), dropout off, from weights with the BatchNorm scale and
+    bias perturbed (perturb_batchnorm says why)."""
     from s2r_tpu_torch.config import Config
+    from s2r_tpu_torch.io.convert import deeplab_param_order
     from s2r_tpu_torch.models.layers import set_dropout
     from s2r_tpu_torch.tools.step_conditioning import sgd_gradients
 
     rs = np.random.RandomState(SEED)
-    n, (h, w) = 2, TRAIN_CHECK_HW
+    n, (h, w) = 2, hw or TRAIN_CHECK_HW
+    tag = f"train {h}x{w}" + ("" if backbone == "mobilenet" else
+                              f" {backbone}")
     label = rs.randint(0, 19, (n, h, w)).astype(np.int64)
     label[:, :3] = 255
     batch = {"src_image": rs.randn(n, h, w, 3).astype(np.float32),
@@ -1217,7 +1351,8 @@ def train_check_small(counted):
     runs = {}
     for name, device, precision in (("card", DEV, "f32"), ("cpu", "cpu", "f32"),
                                     ("exact", "cpu", "f64")):
-        method = train_method(precision, device, affine=True)
+        method = train_method(precision, device, affine=True,
+                              backbone=backbone)
         set_dropout(method.deeplab, False)
         state = method.init_state()
         before = snapshot(method)
@@ -1229,21 +1364,21 @@ def train_check_small(counted):
         runs[name] = ({k: float(v) for k, v in metrics.items()}, before,
                       snapshot(method),
                       sgd_gradients(state.opt_state["G"]["momentum"],
-                                    before[0], wd))
+                                    before[0], wd,
+                                    order=deeplab_param_order(backbone)))
         del method, state
-    log(f"[train {h}x{w}] launches in the card's step: {launches}")
-    require(all(v > 0 for k, v in launches.items()
-                if k != "requant_s32_to_s8"),
-            f"{h}x{w} step missed a kernel: {launches}")
+    log(f"[{tag}] launches in the card's step: {launches}")
+    require(launches == step_launches("output_adapt", backbone),
+            f"{tag} step: launches {launches}")
     (m_card, b_card, a_card, gr_card), (m_cpu, b_cpu, a_cpu, gr_cpu), \
         (_, b_ex, a_ex, gr_ex) = runs["card"], runs["cpu"], runs["exact"]
     for k in ("seg_loss", "adv_loss", "d_loss"):
         err = abs(m_card[k] - m_cpu[k]) / abs(m_cpu[k])
         require(np.isfinite(m_card[k]) and err <= 1e-4,
-                f"{h}x{w} {k}: card {m_card[k]} cpu {m_cpu[k]}")
+                f"{tag} {k}: card {m_card[k]} cpu {m_cpu[k]}")
     stats_err = max(float((a_card[2][k] - a_cpu[2][k]).abs().max()
                           / a_cpu[2][k].abs().max()) for k in a_cpu[2])
-    require(stats_err <= 1e-3, f"{h}x{w} BN running stats: {stats_err}")
+    require(stats_err <= 1e-3, f"{tag} BN running stats: {stats_err}")
 
     def upd(before, after, i):
         return torch.cat([(after[i][k] - before[i][k]).reshape(-1)
@@ -1267,7 +1402,7 @@ def train_check_small(counted):
                            for g in (gr_card, gr_cpu, gr_ex))
     d_card, d_cpu = upd(b_card, a_card, 1), upd(b_cpu, a_cpu, 1)
     sign = float((torch.sign(d_card) == torch.sign(d_cpu)).double().mean())
-    log(f"[train {h}x{w}] losses card {m_card} vs cpu {m_cpu}; BN running "
+    log(f"[{tag}] losses card {m_card} vs cpu {m_cpu}; BN running "
         f"stats rel err {stats_err:.3g}; G gradient, {len(kept)} of "
         f"{len(gr_ex)} leaves resolved: worst leaf card-exact "
         f"{leaf[worst][0]:.3g} ({worst}; cpu-exact {leaf[worst][1]:.3g}), "
@@ -1277,20 +1412,24 @@ def train_check_small(counted):
         f"card-exact {rel(g_card, g_ex):.3g}, cpu-exact "
         f"{rel(g_cpu, g_ex):.3g}, card-cpu {rel(g_card, g_cpu):.3g}; D "
         f"update sign agreement card-cpu {100 * sign:.3f}%")
-    require(not bad, f"{h}x{w} G gradient: leaves off the float64 run {bad}")
-    require(sign >= 0.99, f"{h}x{w} D update sign agreement {sign}")
+    require(not bad, f"{tag} G gradient: leaves off the float64 run {bad}")
+    require(sign >= 0.99, f"{tag} D update sign agreement {sign}")
 
 
 def time_step(name, counted, hw, n, **fields):
     """A bf16 step of method `name` at `hw` batch `n` (train_method,
     Config `fields`): 2 warm-up and 5 timed steps by CUDA events, then the
-    launch counts of one step, which must be STEP_LAUNCHES[name].  Returns
-    (median ms, the 5 ms, peak GiB, the last metrics as floats, launches,
-    BatchNorm layout copies of the counted step)."""
+    launch counts of one step, which must be step_launches(name, the
+    backbone).  Returns (median ms, the 5 ms, peak GiB, the last metrics
+    as floats, launches, BatchNorm layout copies of the counted step)."""
     from s2r_tpu_torch.ops.kernels.batchnorm import channels_last_rows
     from s2r_tpu_torch.tools.profile_train import bench_batch
 
     method = train_method("bf16", DEV, name=name, **fields)
+    backbone = fields.get("backbone", "mobilenet")
+    require(layer_counts(method.deeplab) == LAYERS[backbone],
+            f"{backbone}: (depthwise, BatchNorm) layers "
+            f"{layer_counts(method.deeplab)}, expected {LAYERS[backbone]}")
     state = method.init_state()
     batch = bench_batch(name, n, hw, DEV,
                         torch.Generator(device=DEV).manual_seed(SEED + 6))
@@ -1317,9 +1456,9 @@ def time_step(name, counted, hw, n, **fields):
     state, metrics = method.step_fn(state, batch)
     torch.cuda.synchronize()
     launches = {fn.__name__: fn.launches for fn in counted}
-    require(launches == STEP_LAUNCHES[name],
-            f"{name} step: launches {launches}, expected "
-            f"{STEP_LAUNCHES[name]}")
+    want = step_launches(name, backbone)
+    require(launches == want,
+            f"{name} {backbone} step: launches {launches}, expected {want}")
     del method, state, batch
     return (statistics.median(runs), runs, peak, values, launches,
             channels_last_rows.copies)
@@ -1385,11 +1524,11 @@ def check_device_aug(loader, cfg):
     return card
 
 
-def predicted(method, steps, eval_fwd):
+def predicted(method, steps, eval_fwd, backbone="mobilenet"):
     """Each kernel's launches in `steps` steps of `method` and `eval_fwd`
-    eval forwards (14 depthwise each)."""
-    want = {k: v * steps for k, v in STEP_LAUNCHES[method].items()}
-    want["depthwise_conv3x3"] += 14 * eval_fwd
+    eval forwards (14 depthwise each on MobileNetV2) on `backbone`."""
+    want = {k: v * steps for k, v in step_launches(method, backbone).items()}
+    want["depthwise_conv3x3"] += LAYERS[backbone][0] * eval_fwd
     return want
 
 
@@ -1591,7 +1730,7 @@ def feature_check_small(counted):
                          snapshot(method), grads)
             del method, state
         launches = all_launches[name]
-        want = STEP_LAUNCHES[name]
+        want = step_launches(name)
         require(all(launches[k] > 0 for k in want if want[k]),
                 f"{name} {h}x{w} step missed a kernel: {launches}")
         (m_card, b_card, a_card, gr_card), (m_cpu, _, a_cpu, gr_cpu), \
@@ -2206,8 +2345,9 @@ def checkpoint_phase(counted, smi, carry):
             f"{info['quant_scales']}), "
             f"{os.path.getsize(servables['exact']) / 2 ** 20:.1f} MiB")
 
-        # (d) cli.infer over 24 full-size frames, three batches
-        frames = os.path.join(root, "frames")
+        # (d) cli.infer over 24 full-size frames, three batches (kept in
+        # carry['frames'] for phase 9d)
+        frames = carry["frames"] = os.path.join(carry["dir"], "frames")
         t0 = time.perf_counter()
         fixtures.write_fixtures(frames, **INFER_FRAMES)
         shutil.rmtree(os.path.join(frames, "gta5", "labels"))
@@ -2283,6 +2423,249 @@ def checkpoint_phase(counted, smi, carry):
     return by_path
 
 
+def check_xception_depthwise(dw):
+    """Phase 9a (depthwise): the forward, dx and dk kernels at Xception's
+    stride-1 depthwise shapes against their plain versions, at phase 2's
+    tolerances: the 512x1024 batch-8 train cell (forward, dx, dk), the
+    2048x1024 batch-8 serving forward, and 513x513 batch 1 at output
+    stride 16 (33x33 at dilation 2) and 8 (65x65 at dilation 4).  Times
+    (bf16) each train and serving shape's kernels against cuDNN.  Returns
+    {'serve': per_shape rows of the forward, 'train_step': forward + dx
+    rows, 'dk': dk rows} (ms, library_ms and bound_ms a launch) and the
+    totals of one forward, one step's forward + dx, and one step's dk."""
+    import torch.nn.functional as F
+
+    serve = layer_shapes(FULL_HW, "xception")[0]
+    train = layer_shapes(TRAIN_HW, "xception")[0]
+    s16 = layer_shapes(CHECK_HW, "xception")[0]
+    s8 = layer_shapes(CHECK_HW, "xception", 8)[0]
+    require(len(serve) == len(train) == len(s16) == 56 and len(s8) == 57,
+            f"xception stride-1 depthwise convs: {len(serve)}, {len(train)}, "
+            f"{len(s16)}, {len(s8)} (os 8)")
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 9)
+    rows = {"serve": [], "train_step": [], "dk": []}
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    log("[9a depthwise] N C H W d: bf16 ms kernel / cuDNN (forward; "
+        "forward + dx; dk)")
+    for path, shapes in (("serve", serve), ("train_step", train)):
+        for c, h, w, d in sorted(set(shapes)):
+            count = shapes.count((c, h, w, d))
+            for dtype in (torch.float32, torch.bfloat16):
+                x = randn((BATCH, h, w, c), dtype, gen)
+                k = (randn((3, 3, c), torch.float32, gen) / 3).to(dtype)
+                worst[dtype] = max(worst[dtype], dw_check(dw, x, k, d))
+                g = kf = None
+                if path == "train_step":
+                    g = randn((BATCH, h, w, c), dtype, gen)
+                    kf = k.flip((0, 1)).contiguous()
+                    worst[dtype] = max(worst[dtype], dw_check(dw, g, kf, d))
+                    dk_check(dw, x, g, d)
+                if dtype == torch.float32:
+                    del x, k, g, kf
+                    continue
+                xv = x.permute(0, 3, 1, 2)
+                wt = k.permute(2, 0, 1).unsqueeze(1)
+                isz = x.element_size()
+                fwd = (cuda_ms(lambda: dw.depthwise_conv3x3(x, k, d)),
+                       cuda_ms(lambda: F.conv2d(xv, wt, padding=d, dilation=d,
+                                                groups=c)))
+                bnd, _ = bound_ms(2 * x.numel() * isz + k.numel() * isz,
+                                  18 * x.numel(), dtype)
+                row = {"C": c, "H": h, "W": w, "d": d, "ms": fwd[0],
+                       "library_ms": fwd[1], "bound_ms": bnd}
+                if path == "serve":
+                    rows["serve"].append(dict(row, launches=count))
+                    log(f"[9a depthwise] {BATCH} {c} {h} {w} {d} x{count} "
+                        f"serve: {fwd[0]:.4f} / {fwd[1]:.4f}")
+                    del x, k, xv
+                    continue
+                # forward on x and dx on g: the kernel's two launches a
+                # layer, for the source and target forwards
+                gv = g.permute(0, 3, 1, 2)
+                wtf = kf.permute(2, 0, 1).unsqueeze(1)
+                dx = (cuda_ms(lambda: dw.depthwise_conv3x3(g, kf, d)),
+                      cuda_ms(lambda: F.conv2d(gv, wtf, padding=d,
+                                               dilation=d, groups=c)))
+                dk = (cuda_ms(lambda: dw.depthwise_dk(x, g, d)),
+                      cuda_ms(lambda: torch.nn.grad.conv2d_weight(
+                          xv, (c, 1, 3, 3), gv, padding=d, dilation=d,
+                          groups=c)))
+                dk_bnd, _ = bound_ms(2 * x.numel() * isz + 9 * c * 4,
+                                     18 * x.numel(), dtype)
+                rows["train_step"].append(dict(
+                    row, launches=4 * count, ms=(fwd[0] + dx[0]) / 2,
+                    library_ms=(fwd[1] + dx[1]) / 2))
+                rows["dk"].append({"C": c, "H": h, "W": w, "d": d,
+                                   "launches": 2 * count, "ms": dk[0],
+                                   "library_ms": dk[1], "bound_ms": dk_bnd})
+                log(f"[9a depthwise] {BATCH} {c} {h} {w} {d} x{count} train: "
+                    f"{fwd[0] + dx[0]:.4f} / {fwd[1] + dx[1]:.4f}; dk "
+                    f"{dk[0]:.4f} / {dk[1]:.4f}")
+                del x, k, xv, g, kf, gv
+    for c, h, w, d in sorted(set(s16) | set(s8)):
+        for dtype in (torch.float32, torch.bfloat16):
+            x = randn((1, h, w, c), dtype, gen)
+            g = randn((1, h, w, c), dtype, gen)
+            k = (randn((3, 3, c), torch.float32, gen) / 3).to(dtype)
+            worst[dtype] = max(worst[dtype], dw_check(dw, x, k, d),
+                               dw_check(dw, g, k.flip((0, 1)).contiguous(),
+                                        d))
+            dk_check(dw, x, g, d)
+    totals = {p: {key: sum(r[key] * r["launches"] for r in rs)
+                  for key in ("ms", "library_ms", "bound_ms")}
+              for p, rs in rows.items()}
+    log(f"[9a depthwise] Xception's shapes pass (forward, dx, dk; "
+        f"{len(set(s16) | set(s8))} 513x513 shapes at os 16 and 8); worst "
+        f"max_abs_err f32 {worst[torch.float32]:.3g}, bf16 "
+        f"{worst[torch.bfloat16]:.3g}; one 2048x1024 batch-8 forward (56 "
+        f"launches) {totals['serve']['ms']:.3f} ms, cuDNN "
+        f"{totals['serve']['library_ms']:.3f}; one 512x1024 batch-8 step: "
+        f"forward + dx (224) {totals['train_step']['ms']:.3f}, cuDNN "
+        f"{totals['train_step']['library_ms']:.3f}, dk (112) "
+        f"{totals['dk']['ms']:.3f}, cuDNN {totals['dk']['library_ms']:.3f}; "
+        f"slower than cuDNN at {slower(rows['serve'])} / "
+        f"{slower(rows['train_step'])} / {slower(rows['dk'])} of "
+        f"{len(rows['serve'])} / {len(rows['train_step'])} / "
+        f"{len(rows['dk'])} shapes")
+    return rows, totals
+
+
+def backbones_phase(counted, smi, dw, rq, carry):
+    """Phase 9: the other backbones.  (b) serving, (c) the train steps, (d)
+    the train_adapt driver on Xception with a JAX-format checkpoint, a
+    servable and cli.infer.  Returns the launches of each path it drives
+    and a summary of its numbers."""
+    from s2r_tpu_torch.cli import export, infer, train_adapt
+    from s2r_tpu_torch.io.checkpoint import (host_tree, load_checkpoint,
+                                             save_jax_checkpoint)
+    from s2r_tpu_torch.io.serving import load_servable, make_serving_fn
+
+    by_path, summary = {}, {}
+    # (b) serving.  DRN's call takes ~3.2 s a batch (its ASPP's dilated
+    # convs at os 8 run cuDNN's grouped direct kernel; PERF.md §5), so it
+    # is timed over fewer calls, and its eval-BatchNorm share is not taken
+    for b in SERVE_BACKBONES:
+        serve_check_513(dw, rq, b)
+        torch.cuda.empty_cache()
+        depth = dict(timed=2, warmup=1) if b == "drn" else {}
+        ms, launches, peak, share = serve_full(counted, b, bn_share=b != "drn",
+                                               **depth)
+        by_path[f"serve_{b}"] = launches
+        summary[f"serve_{b}"] = dict(ms, peak_gib=peak, eval_bn_share=share)
+        torch.cuda.empty_cache()
+    # (c) the output step of each backbone, the small float32 checks, and
+    # the feature step on Xception
+    for b in STEP_BACKBONES:
+        ms, runs, peak, values, launches, copies = time_step(
+            "output_adapt", counted, TRAIN_HW, BATCH, backbone=b)
+        log(f"[9c {b} train {TRAIN_HW[1]}x{TRAIN_HW[0]}] {ms:.3f} ms/step "
+            f"(median of 5 batch-{BATCH} bf16 steps: "
+            f"{', '.join(f'{r:.3f}' for r in runs)}), "
+            f"{BATCH * 1e3 / ms:.2f} source images/s, peak device memory "
+            f"{peak:.2f} GiB; losses after 7 steps {values}; launches in "
+            f"one step {launches} (as predicted); BatchNorm layout copies "
+            f"{copies}")
+        by_path[f"train_step_{b}"] = launches
+        summary[f"train_step_{b}"] = {"ms": ms, "peak_gib": peak}
+        torch.cuda.empty_cache()
+    for b in CHECK_BACKBONES:
+        train_check_small(counted, b, BACKBONE_CHECK_HW)
+        torch.cuda.empty_cache()
+    ms, runs, peak, values, launches, _ = time_step(
+        "feature_adapt", counted, TRAIN_HW, BATCH, backbone="xception",
+        epochs=200)
+    log(f"[9c xception feature_adapt {TRAIN_HW[1]}x{TRAIN_HW[0]}] {ms:.3f} "
+        f"ms/step (median of 5: {', '.join(f'{r:.3f}' for r in runs)}), "
+        f"peak device memory {peak:.2f} GiB; metrics {values}; launches "
+        f"{launches} (as predicted)")
+    by_path["feature_step_xception"] = launches
+    summary["feature_step_xception"] = {"ms": ms, "peak_gib": peak}
+    torch.cuda.empty_cache()
+
+    # (d) train_adapt --backbone xception for one epoch, its state in the
+    # JAX format, a servable of it, and cli.infer over phase 8's frames
+    os.environ.pop("S2R_PLATFORM", None)  # the card, as a user runs it
+    root = tempfile.mkdtemp(prefix="s2r_backbone_")
+    try:
+        argv = TRAIN_ARGV + ["--backbone", "xception", "--run-root", root]
+        trainer, launches, fit_s = drive(counted, train_adapt.main, argv)
+        steps, n_tr = trainer.state.step, len(trainer.train_loader)
+        want = predicted("output_adapt", steps, fit_eval_forwards(trainer),
+                         "xception")
+        require(steps == n_tr and launches == want,
+                f"9d train_adapt xception: {steps} steps, launches "
+                f"{launches}, expected {want}")
+        by_path["train_adapt_xception"] = launches
+        sc = read_scalars(trainer.saver.experiment_dir)
+        require(all(np.isfinite(v) for _, v in sc["train/seg_loss"])
+                and all(0.0 <= v <= 1.0 for _, v in sc["val/mIoU"]),
+                f"9d train_adapt xception: {sc['train/seg_loss']}, "
+                f"{sc['val/mIoU']}")
+        cfg = trainer.cfg
+        live = host_tree(trainer.state)
+        jpath = os.path.join(root, "xception.ckpt")
+        save_jax_checkpoint(jpath, trainer.state, 1, trainer.best_pred,
+                            seed=cfg.seed, prng_impl=cfg.prng_impl)
+        payload = load_checkpoint(jpath, "xception")
+        require(payload["format"] == "jax"
+                and trees_equal(payload["state"], live),
+                "9d: the Xception JAX-format checkpoint reads back other "
+                "than written")
+        log(f"[9d train_adapt xception] one epoch of {n_tr} steps and "
+            f"{len(trainer.val_loader)} validation batches in {fit_s:.1f} s, "
+            f"epoch {sc['train/images_per_sec'][0][1]:.2f} images/s, "
+            f"seg_loss {sc['train/seg_loss'][0][1]:.4f}, val mIoU "
+            f"{sc['val/mIoU'][0][1]:.4f}; launches {launches} (as "
+            f"predicted); its state as a JAX .ckpt "
+            f"({os.path.getsize(jpath) / 2 ** 20:.1f} MiB) read back "
+            "bit-equal")
+        trainer.saver.wait()
+        trainer.writer.close()
+        del trainer, payload, live
+
+        servable = os.path.join(root, "xception.s2rt")
+        export.main(argv + ["--resume", jpath, "--format", "servable",
+                            "--serve-shape", str(BATCH), str(FULL_HW[0]),
+                            str(FULL_HW[1]), "--serve-input", "rgb8",
+                            "--out", servable])
+        frames = carry["frames"]
+        paths = infer.list_frames(frames)
+        n_batches = -(-len(paths) // BATCH)
+        res, launches, _ = drive(
+            counted, lambda a: infer.main(a, keep_predictions=True),
+            ["--servable", servable, "--images", frames, "--out-dir",
+             os.path.join(root, "infer")])
+        want = dict.fromkeys(launches, 0)
+        want.update(depthwise_conv3x3=56 * n_batches)
+        require(res["images"] == len(paths) and launches == want,
+                f"9d infer xception: {res['images']} images, launches "
+                f"{launches}, expected {want}")
+        by_path["infer_xception"] = launches
+        serve = load_servable(servable, DEV)
+        require(serve.meta["backbone"] == "xception"
+                and serve.model.backbone_name == "xception",
+                f"9d servable meta {serve.meta['backbone']}")
+        fn = make_serving_fn(serve.model, input="rgb8")
+        for i in range(0, len(paths), BATCH):
+            chunk = paths[i:i + BATCH]
+            batch = np.stack([infer.decode_frame(p, *FULL_HW, "rgb8")
+                              for p in chunk])
+            labels = fn(torch.from_numpy(batch)).cpu().numpy()
+            require(all(np.array_equal(res["predictions"][p], labels[j])
+                        for j, p in enumerate(chunk)),
+                    "9d infer xception: labels differ from make_serving_fn "
+                    "on the same frames")
+        log(f"[9d infer xception] {len(paths)} frames in {n_batches} "
+            f"batches: {res['ms_per_image']:.3f} ms/image including host "
+            f"IO; labels equal to make_serving_fn; launches as predicted "
+            f"({smi})")
+        summary["infer_xception_ms_per_image"] = res["ms_per_image"]
+        del serve, fn, res
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return by_path, summary
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2326,7 +2709,7 @@ def main():
         torch.cuda.empty_cache()
         serve_check_513(dw, rq)
         torch.cuda.empty_cache()
-        ms, serve_launches = serve_full(counted)
+        ms, serve_launches, _, _ = serve_full(counted)
         torch.cuda.empty_cache()
         train_check_small(counted)
         torch.cuda.empty_cache()
@@ -2344,6 +2727,12 @@ def main():
         driver_launches.update(real_data_phase(counted, smi))
         torch.cuda.empty_cache()
         driver_launches.update(checkpoint_phase(counted, smi, carry))
+        torch.cuda.empty_cache()
+        xdw_rows, xdw_totals = check_xception_depthwise(dw)
+        torch.cuda.empty_cache()
+        backbone_launches, backbones = backbones_phase(counted, smi, dw, rq,
+                                                       carry)
+        driver_launches.update(backbone_launches)
         bn_entries[0]["composite"] = dict(
             bn_composite, ms_covers="one 512x1024 batch-8 bf16 train step: "
             "all four entries of 120 BatchNorm calls; library_ms: "
@@ -2367,12 +2756,26 @@ def main():
         dw_entry["by_path"] = {
             "serve": {key: dw_entry[key] for key in
                       ("ms", "plain_ms", "bound_ms", "library_ms")},
-            "train_step": dw_train}
+            "train_step": dw_train,
+            "serve_xception": xdw_totals["serve"],
+            "train_step_xception": xdw_totals["train_step"]}
+        dk_entry["by_path"] = {"train_step_xception": xdw_totals["dk"]}
+        for entry, key, path in ((dw_entry, "serve", "serve_xception"),
+                                 (dw_entry, "train_step",
+                                  "train_step_xception"),
+                                 (dk_entry, "dk", "train_step_xception")):
+            entry["per_shape"][path] = xdw_rows[key]
+            entry["slower_than_library"][path] = slower(xdw_rows[key])
     except (Failed, RuntimeError, subprocess.SubprocessError, OSError) as e:
         print(f"chip_smoke: FAILED: {type(e).__name__}: {e}", file=sys.stderr)
         return 1
     finally:
         shutil.rmtree(carry["dir"], ignore_errors=True)
+    log("[9 summary] " + "; ".join(
+        f"{k}: " + ", ".join(f"{n} {v:.3f}" for n, v in d.items()
+                             if v is not None)
+        if isinstance(d, dict) else f"{k}: {d:.3f}"
+        for k, d in backbones.items()) + f" ({smi})")
     log(f"[done] ms/image exact {ms['exact']:.3f}, decoder-int8 "
         f"{ms['decoder_int8']:.3f} (bf16, rgb8 {FULL_HW[1]}x{FULL_HW[0]} "
         f"batch {BATCH}); train step {step_ms:.3f} ms ({TRAIN_HW[1]}x"

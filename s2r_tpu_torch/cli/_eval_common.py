@@ -70,7 +70,7 @@ def build_eval(cfg: Config, method: Optional[str] = None,
     if path == "auto":
         path = latest_checkpoint(Saver(cfg, create=False).directory)
     if path:
-        resume_into(state, path, cfg.ft, cfg.out_stride)
+        resume_into(state, path, cfg.ft)
     return m, m.eval_variables(state), m.eval_step, val_loader, \
         test_loader, nclass
 

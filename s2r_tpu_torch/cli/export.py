@@ -21,8 +21,11 @@ reference ``.pth``/``.pth.tar`` (train/trainer.py ``resume_into``).
   artifact holds weights, not compiled code.  ``--serve-split-concat``
   raises (ROADMAP A.5).
 
-The checkpoint is read with ft off, so the artifact's epoch is the
-checkpoint's own.  Runs on the card; ``S2R_PLATFORM=cpu`` selects the CPU.
+``--backbone`` names the checkpoint's backbone (a JAX or reference file
+does not record it); the servable's meta records it, and cli/infer.py
+rebuilds that model.  The checkpoint is read with ft off, so the
+artifact's epoch is the checkpoint's own.  Runs on the card;
+``S2R_PLATFORM=cpu`` selects the CPU.
 """
 
 from __future__ import annotations
@@ -106,7 +109,7 @@ def main(argv=None):
     state = m.init_state()
     # ft off (the resume default would keep epoch 0): the exported 'epoch'
     # is the checkpoint's own
-    epoch, best_pred = resume_into(state, cfg.resume, False, cfg.out_stride)
+    epoch, best_pred = resume_into(state, cfg.resume, False)
     model = m.eval_variables(state)
 
     if args.format == "servable":
@@ -148,7 +151,8 @@ def main(argv=None):
     domain = (state.D if args.schema == "four" and m.name != "output_adapt"
               else None)
     save_reference_checkpoint(args.out, model, domain, epoch=epoch,
-                              best_pred=best_pred, schema=args.schema)
+                              best_pred=best_pred, schema=args.schema,
+                              backbone=cfg.backbone)
     print(f"exported {args.schema}-schema checkpoint to {args.out}")
     return {"schema": args.schema, "epoch": int(epoch),
             "best_pred": float(best_pred)}

@@ -125,7 +125,6 @@ class Config:
 # (field, flag, the values the port runs, ROADMAP item) of every feature
 # the port lacks.
 _UNPORTED = (
-    ("backbone", "--backbone", ("mobilenet",), "A.7"),
     ("num_devices", "--num-devices", (None, 1), "A.8"),
     ("spatial_shard", "--spatial-shard", (1,), "A.8"),
     ("eval_spatial_shard", "--eval-spatial-shard", (False,), "A.8"),
@@ -246,8 +245,9 @@ def add_common_flags(parser: argparse.ArgumentParser) -> None:
                         "'auto'")
     p.add_argument("--backbone-init", type=str, default=None,
                    dest="backbone_init",
-                   help="a torch MobileNetV2 state dict to initialize the "
-                        "backbone (reference: mobilenet_VOC.pth)")
+                   help="a torch state dict of --backbone to initialize "
+                        "the backbone (reference: mobilenet_VOC.pth; "
+                        "resnet: torchvision's layout)")
     p.add_argument("--profile-dir", type=str, default=None,
                    dest="profile_dir")
     p.add_argument("--checkname", type=str, default=None)

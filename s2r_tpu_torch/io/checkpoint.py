@@ -197,15 +197,13 @@ def _port_extra(state: TrainState) -> Dict[str, Any]:
 
 def save_jax_checkpoint(path: str, state: TrainState, epoch: int,
                         best_pred: float, seed: int = 1,
-                        prng_impl: str = "rbg",
-                        output_stride: int = 16) -> None:
+                        prng_impl: str = "rbg") -> None:
     """Write `state` as s2r_tpu/io/checkpoint.py ``save_checkpoint`` does
     (the JAX TrainState of the same method; its rng the bits of
     PRNGKey(seed) under `prng_impl`, by default the JAX Config's 'rbg'),
     atomically."""
     payload = {"epoch": int(epoch), "best_pred": float(best_pred),
-               "state": train_state_to_jax(state, seed, prng_impl,
-                                           output_stride),
+               "state": train_state_to_jax(state, seed, prng_impl),
                "extra": {PORT_EXTRA: _port_extra(state)}}
     tmp = path + ".tmp"
     with open(tmp, "wb") as f:
@@ -213,11 +211,11 @@ def save_jax_checkpoint(path: str, state: TrainState, epoch: int,
     os.replace(tmp, path)
 
 
-def _from_jax(payload: Dict[str, Any], output_stride: int) -> Dict[str, Any]:
+def _from_jax(payload: Dict[str, Any], backbone: str) -> Dict[str, Any]:
     """A JAX payload with its state converted to the port's tree."""
     js = payload["state"]
     tree = state_tree_from_jax(js["params"], js["batch_stats"],
-                               js["opt_state"], js["step"], output_stride)
+                               js["opt_state"], js["step"], backbone)
     mine = (payload.get("extra") or {}).get(PORT_EXTRA)
     if mine:
         tree["generator"] = torch.from_numpy(
@@ -231,22 +229,24 @@ def _from_jax(payload: Dict[str, Any], output_stride: int) -> Dict[str, Any]:
             "extra": payload.get("extra") or {}}
 
 
-def load_checkpoint(path: str, output_stride: int = 16) -> Dict[str, Any]:
-    """A checkpoint of any of the three formats, on the CPU: {'format':
+def load_checkpoint(path: str, backbone: str = "mobilenet"
+                    ) -> Dict[str, Any]:
+    """A checkpoint of any of the three formats of a DeepLab on `backbone`
+    (the JAX and reference files do not name it), on the CPU: {'format':
     'port', 'jax' or 'reference', 'epoch', 'best_pred', ...}.  The port's
     and the JAX package's hold 'state', the port's state tree (the JAX
     one's 'generator' None unless the port wrote the file), and 'extra';
     a reference file holds 'reference', what io/torch_import.py
     ``import_reference_checkpoint`` returns."""
     if checkpoint_format(path) == "jax":
-        return _from_jax(read_jax_checkpoint(path), output_stride)
+        return _from_jax(read_jax_checkpoint(path), backbone)
     obj = torch_load(path)
     if isinstance(obj, dict) and {"epoch", "best_pred", "state",
                                   "extra"} <= set(obj):
         return {"format": "port", **obj}
     if isinstance(obj, dict) and ("state_dict" in obj or
                                   "backbone_model_state_dict" in obj):
-        ref = import_reference_checkpoint(obj, output_stride)
+        ref = import_reference_checkpoint(obj, backbone)
         return {"format": "reference", "epoch": ref["epoch"],
                 "best_pred": ref["best_pred"], "reference": ref}
     raise ValueError(f"{path}: a torch file that is neither a checkpoint of "

@@ -1,25 +1,35 @@
-"""JAX/flax variables of DeepLab (MobileNetV2) and of the FCDiscriminator ->
+"""JAX/flax variables of DeepLab (any backbone) and of the FCDiscriminator ->
 the port's state_dicts, and the JAX package's parameter order.
 
-``from_jax_variables(params, batch_stats)`` takes the flax-style nested dicts
-of numpy arrays that ``DeepLab.init`` produces (or a checkpoint holds) and
-returns the reference torch key schema, the one s2r_tpu/io/torch_export.py
-``export_deeplab`` writes: ``backbone.features.N.conv.j`` with its
-``low_level_features``/``high_level_features`` aliases, ``aspp.aspp{k}``,
+``from_jax_variables(params, batch_stats, backbone)`` takes the flax-style
+nested dicts of numpy arrays that ``DeepLab.init`` produces (or a
+checkpoint holds) and returns the torch key schema that
+s2r_tpu/io/torch_export.py ``export_deeplab(..., backbone=)`` writes:
+MobileNetV2's reference keys ``backbone.features.N.conv.j`` with their
+``low_level_features``/``high_level_features`` aliases, torchvision's
+``backbone.layer{L}.{B}.*`` for ResNet, and the JAX package's canonical
+schemas for Xception (``backbone.block{k}.sep{r}.*``) and DRN
+(``backbone.level{L}.*``); then ``aspp.aspp{k}``,
 ``aspp.global_avg_pool.{1,2}``, ``decoder.last_conv.{0,1,4,5,8}``.  The
-result loads into ``models.deeplab.DeepLab`` with ``strict=True``.
-``from_jax_discriminator(params)`` does the same for the discriminator's
-``conv1``..``conv4`` and ``classifier`` (s2r_tpu/io/torch_import.py:265),
-and ``from_jax_domain(params, batch_stats)`` for the domain classifier's
-``DC_adnn1.{0,1}``, ``DC_adnn2.{0,1}`` and ``DC_adnn3`` (the keys
-s2r_tpu/io/torch_export.py ``export_domain`` writes).
+result loads into ``models.deeplab.DeepLab(backbone=...)`` with
+``strict=True``.  ``from_jax_discriminator(params)`` does the same for the
+discriminator's ``conv1``..``conv4`` and ``classifier``
+(s2r_tpu/io/torch_import.py:265), and ``from_jax_domain(params,
+batch_stats)`` for the domain classifier's ``DC_adnn1.{0,1}``,
+``DC_adnn2.{0,1}`` and ``DC_adnn3`` (the keys s2r_tpu/io/torch_export.py
+``export_domain`` writes).  Each backbone's rows (JAX path, torch key,
+kind) come from its model module's ``param_layout``; no layout depends on
+the output stride.
 
 ``deeplab_param_order``, ``discriminator_param_order`` and
 ``domain_param_order`` list the port's parameter names in the order
-jax.tree flattens the JAX parameters (dict keys sorted at every level),
-the order of the JAX package's flat optimizer buffers
-(s2r_tpu/train/optim.py FusedOptimizer); ``feature_param_order`` is the
-part of DeepLab's under f = backbone + ASPP, in the same order.
+jax.tree flattens the JAX parameters (dict keys sorted as strings at every
+level, so ``block10`` comes before ``block2``), the order of the JAX
+package's flat optimizer buffers (s2r_tpu/train/optim.py FusedOptimizer);
+``feature_param_order`` is the part of DeepLab's under f = backbone +
+ASPP, in the same order.  ``reference_param_order`` lists them in the
+order the JAX package's torch importers record (``order_sink``), the
+param ids of a reference optimizer.
 
 ``train_state_from_jax`` carries the numpy trees of a JAX TrainState
 (params, batch_stats, opt_state, step) of either layout, output_adapt or
@@ -42,11 +52,14 @@ running_var, plus the num_batches_tracked buffer torch expects.
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Dict, List, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from s2r_tpu_torch.models import drn, resnet, xception
+from s2r_tpu_torch.models.deeplab import family
 from s2r_tpu_torch.models.discriminator import NAMES as DISC_NAMES
 from s2r_tpu_torch.models.domain import DOMAIN_LAYOUT
 from s2r_tpu_torch.models.mobilenet import LOW_LEVEL_SPLIT, block_plan
@@ -71,20 +84,39 @@ def _bn(out: Dict, key: str, p: Mapping, s: Mapping) -> None:
     out[f"{key}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
 
 
-def _layout(output_stride: int) -> List[Tuple[Tuple[str, ...], str, str]]:
-    """(JAX path, torch key, kind) of every conv and BatchNorm of DeepLab;
-    kind is 'conv', 'conv_bias' (a conv with a bias) or 'bn'."""
-    out = [(("backbone", "features_0_conv"), "backbone.features.0.0", "conv"),
-           (("backbone", "features_0_bn"), "backbone.features.0.1", "bn")]
-    for i, (_, _, _, _, t) in enumerate(block_plan(output_stride)):
+def _mobilenet_layout() -> List[Tuple[Tuple[str, ...], str, str]]:
+    out = [(("features_0_conv",), "features.0.0", "conv"),
+           (("features_0_bn",), "features.0.1", "bn")]
+    # the parameters do not depend on the output stride
+    for i, (_, _, _, _, t) in enumerate(block_plan(16)):
         subs = ("dw_conv", "dw_bn", None, "project_conv", "project_bn")
         if t != 1:
             subs = ("expand_conv", "expand_bn", None) + subs
         for j, sub in enumerate(subs):
             if sub is not None:  # None: ReLU6, no parameters
-                out.append((("backbone", f"features_{i + 1}", sub),
-                            f"backbone.features.{i + 1}.conv.{j}",
+                out.append(((f"features_{i + 1}", sub),
+                            f"features.{i + 1}.conv.{j}",
                             "bn" if sub.endswith("_bn") else "conv"))
+    return out
+
+
+def _backbone_layout(backbone: str) -> List[Tuple[Tuple[str, ...], str, str]]:
+    fam = family(backbone)
+    if fam == "mobilenet":
+        return _mobilenet_layout()
+    if fam == "resnet":
+        return resnet.param_layout(resnet.depth_of(backbone))
+    return (xception if fam == "xception" else drn).param_layout()
+
+
+@functools.lru_cache(maxsize=None)
+def _layout(backbone: str = "mobilenet"
+            ) -> Tuple[Tuple[Tuple[str, ...], str, str], ...]:
+    """(JAX path, torch key, kind) of every conv and BatchNorm of DeepLab
+    on `backbone`, in the order the JAX package's torch importers visit
+    them; kind is 'conv', 'conv_bias' (a conv with a bias) or 'bn'."""
+    out = [(("backbone",) + path, f"backbone.{key}", kind)
+           for path, key, kind in _backbone_layout(backbone)]
     for k in range(1, 5):
         out.append((("aspp", f"aspp{k}", "atrous_conv"),
                     f"aspp.aspp{k}.atrous_conv", "conv"))
@@ -100,7 +132,7 @@ def _layout(output_stride: int) -> List[Tuple[Tuple[str, ...], str, str]]:
             (("decoder", "last_conv_1"), "decoder.last_conv.4", "conv"),
             (("decoder", "last_bn_1"), "decoder.last_conv.5", "bn"),
             (("decoder", "classifier"), "decoder.last_conv.8", "conv_bias")]
-    return out
+    return tuple(out)
 
 
 def _get(tree: Mapping, path: Tuple[str, ...]) -> Mapping:
@@ -119,11 +151,12 @@ def _alias(key: str) -> str:
 
 
 def from_jax_variables(params: Mapping, batch_stats: Mapping,
-                       output_stride: int = 16) -> Dict[str, torch.Tensor]:
+                       backbone: str = "mobilenet"
+                       ) -> Dict[str, torch.Tensor]:
     """{'backbone','aspp','decoder'} params and batch_stats (nested dicts of
-    numpy arrays) -> float32 CPU state_dict in the reference schema."""
+    numpy arrays) -> float32 CPU state_dict in the torch schema."""
     out: Dict[str, torch.Tensor] = {}
-    for path, key, kind in _layout(output_stride):
+    for path, key, kind in _layout(backbone):
         if kind == "bn":
             _bn(out, key, _get(params, path), _get(batch_stats, path))
         else:
@@ -160,13 +193,18 @@ _LEAVES = {"conv": (("kernel", "weight"),),
            "bn": (("bias", "bias"), ("scale", "weight"))}
 
 
-def deeplab_param_order(output_stride: int = 16) -> List[str]:
-    """DeepLab's parameter names (the canonical ``backbone.features`` ones)
-    in the order jax.tree flattens the JAX params."""
+@functools.lru_cache(maxsize=None)
+def _param_order(backbone: str) -> Tuple[str, ...]:
     leaves = [(path + (jname,), f"{key}.{tname}")
-              for path, key, kind in _layout(output_stride)
+              for path, key, kind in _layout(backbone)
               for jname, tname in _LEAVES[kind]]
-    return [k for _, k in sorted(leaves)]
+    return tuple(k for _, k in sorted(leaves))
+
+
+def deeplab_param_order(backbone: str = "mobilenet") -> List[str]:
+    """DeepLab's parameter names (without MobileNetV2's aliases) in the
+    order jax.tree flattens the JAX params."""
+    return list(_param_order(backbone))
 
 
 def discriminator_param_order() -> List[str]:
@@ -175,11 +213,11 @@ def discriminator_param_order() -> List[str]:
             for _, tname in _LEAVES["conv_bias"]]
 
 
-def feature_param_order(output_stride: int = 16) -> List[str]:
+def feature_param_order(backbone: str = "mobilenet") -> List[str]:
     """The names under f = backbone + ASPP, in DeepLab's flatten order
     (the JAX package's ``d_inv`` buffer: {'backbone', 'aspp'} flattens
     'aspp' first, as the whole of G does)."""
-    return [k for k in deeplab_param_order(output_stride)
+    return [k for k in _param_order(backbone)
             if not k.startswith("decoder.")]
 
 
@@ -196,15 +234,18 @@ _TORCH_PARAMS = {"conv": ("weight",), "conv_bias": ("weight", "bias"),
 _BN_BUFFERS = ("running_mean", "running_var", "num_batches_tracked")
 
 
-def reference_param_order(output_stride: int = 16,
+def reference_param_order(backbone: str = "mobilenet",
                           parts: Sequence[str] = ("backbone", "aspp",
                                                   "decoder")) -> List[str]:
     """DeepLab's parameter names (canonical keys) under `parts`, in the
-    order the reference's torch modules register them: the param ids of
-    its optimizers (the backbone's 1x group, then ASPP and the decoder in
-    the 10x group; s2r_tpu/io/torch_import.py ``order_sink``)."""
+    order of a reference optimizer's param ids (the backbone's 1x group,
+    then ASPP and the decoder in the 10x group), as the JAX package's
+    importers record it (s2r_tpu/io/torch_import.py ``order_sink``): the
+    reference's module registration for MobileNetV2; for the other
+    backbones each block's convs before its BatchNorms, and DRN's plain
+    levels before its residual ones, as those importers visit them."""
     prefixes = tuple(f"{p}." for p in parts)
-    return [f"{key}.{t}" for _, key, kind in _layout(output_stride)
+    return [f"{key}.{t}" for _, key, kind in _layout(backbone)
             if key.startswith(prefixes) for t in _TORCH_PARAMS[kind]]
 
 
@@ -215,10 +256,10 @@ def domain_reference_order() -> List[str]:
             for t in _TORCH_PARAMS[kind]]
 
 
-def deeplab_state_keys(output_stride: int = 16) -> List[str]:
+def deeplab_state_keys(backbone: str = "mobilenet") -> List[str]:
     """DeepLab's state_dict keys without the backbone aliases: parameters
     and BatchNorm buffers, in module order."""
-    return [f"{key}.{t}" for _, key, kind in _layout(output_stride)
+    return [f"{key}.{t}" for _, key, kind in _layout(backbone)
             for t in _TORCH_PARAMS[kind] + (_BN_BUFFERS if kind == "bn"
                                             else ())]
 
@@ -272,7 +313,7 @@ def flat_to_port(flat, tree: Mapping, convert: Callable[[Mapping], Dict],
 
 def state_tree_from_jax(params: Mapping, batch_stats: Mapping,
                         opt_state: Mapping, step,
-                        output_stride: int = 16) -> Dict:
+                        backbone: str = "mobilenet") -> Dict:
     """A JAX TrainState's numpy trees (params, batch_stats, opt_state,
     step) of either layout -> the port's state tree (io/checkpoint.py
     ``state_tree``) on the CPU: {'step', 'G', 'D' (state_dicts),
@@ -287,7 +328,7 @@ def state_tree_from_jax(params: Mapping, batch_stats: Mapping,
     g_stats = batch_stats["G"] if feature else batch_stats
 
     def g_tree(t):
-        return from_jax_variables(t, g_stats, output_stride)
+        return from_jax_variables(t, g_stats, backbone)
 
     if feature:
         def d_tree(t):
@@ -297,10 +338,10 @@ def state_tree_from_jax(params: Mapping, batch_stats: Mapping,
         d_tree, d_order = from_jax_discriminator, discriminator_param_order()
     f = {k: params["G"][k] for k in ("backbone", "aspp")}
     # (the tree a buffer runs over, its converter, its flatten order)
-    over = {"G": (params["G"], g_tree, deeplab_param_order(output_stride)),
+    over = {"G": (params["G"], g_tree, deeplab_param_order(backbone)),
             "D": (params["D"], d_tree, d_order),
             "f": (f, lambda t: g_tree({**params["G"], **t}),
-                  feature_param_order(output_stride))}
+                  feature_param_order(backbone))}
 
     def buffers(s, net):
         tree, convert, order = over[net]
@@ -322,15 +363,14 @@ def _nets(feature: bool) -> Dict[str, str]:
 
 
 def train_state_from_jax(state, params: Mapping, batch_stats: Mapping,
-                         opt_state: Mapping, step: int,
-                         output_stride: int = 16):
+                         opt_state: Mapping, step: int):
     """Load a JAX TrainState's numpy trees into the port's TrainState
     `state` (in place; returned): G's and D's weights and BatchNorm
     statistics, the step, and the optimizer buffers converted leaf by leaf
     to the port's layout on the modules' device (``state_tree_from_jax``
     gives the layouts).  The dropout generator keeps its state."""
     tree = state_tree_from_jax(params, batch_stats, opt_state, step,
-                               output_stride)
+                               state.G.backbone_name)
     state.G.load_state_dict(tree["G"], strict=True)
     state.D.load_state_dict(tree["D"], strict=True)
     dev = state.G.device
@@ -368,15 +408,15 @@ def _jax_bn(sd: Mapping, key: str) -> Tuple[Dict, Dict]:
              "var": _np(sd[f"{key}.running_var"])})
 
 
-def to_jax_variables(sd: Mapping[str, torch.Tensor], output_stride: int = 16
-                     ) -> Tuple[Dict, Dict]:
+def to_jax_variables(sd: Mapping[str, torch.Tensor],
+                     backbone: str = "mobilenet") -> Tuple[Dict, Dict]:
     """The inverse of ``from_jax_variables``: DeepLab's state_dict (the
-    canonical ``backbone.features`` keys; the aliases are not read) ->
+    canonical keys; MobileNetV2's aliases are not read) ->
     (params, batch_stats), nested dicts of float32 numpy arrays with conv
     kernels HWIO.  num_batches_tracked has no JAX counterpart."""
     params: Dict = {}
     stats: Dict = {}
-    for path, key, kind in _layout(output_stride):
+    for path, key, kind in _layout(backbone):
         if kind == "bn":
             p, s = _jax_bn(sd, key)
             _set(params, path, p)
@@ -431,8 +471,7 @@ def jax_rng(seed: int, prng_impl: str = "rbg") -> np.ndarray:
     return np.asarray(words, np.uint32)
 
 
-def train_state_to_jax(state, seed: int = 1, prng_impl: str = "rbg",
-                       output_stride: int = 16) -> Dict:
+def train_state_to_jax(state, seed: int = 1, prng_impl: str = "rbg") -> Dict:
     """The inverse of ``train_state_from_jax``: the port's TrainState ->
     the state dict of a JAX TrainState of the same method ({'step',
     'params', 'batch_stats', 'opt_state', 'rng'}, numpy leaves in the
@@ -442,9 +481,10 @@ def train_state_to_jax(state, seed: int = 1, prng_impl: str = "rbg",
     dropout generator has no JAX counterpart (io/checkpoint.py keeps it
     beside the state)."""
     feature = "task" in state.opt_state
+    backbone = state.G.backbone_name
     g_sd = {k: v for k, v in state.G.state_dict().items()}
     d_sd = {k: v for k, v in state.D.state_dict().items()}
-    g_params, g_stats = to_jax_variables(g_sd, output_stride)
+    g_params, g_stats = to_jax_variables(g_sd, backbone)
     if feature:
         d_params, d_stats = to_jax_domain(d_sd)
         batch_stats = {"G": g_stats, "D": d_stats}
@@ -455,13 +495,13 @@ def train_state_to_jax(state, seed: int = 1, prng_impl: str = "rbg",
         d_conv, d_order = to_jax_discriminator, discriminator_param_order()
 
     def g_conv(sd):
-        return to_jax_variables(sd, output_stride)[0]
+        return to_jax_variables(sd, backbone)[0]
 
-    over = {"G": (g_sd, g_conv, deeplab_param_order(output_stride)),
+    over = {"G": (g_sd, g_conv, deeplab_param_order(backbone)),
             "D": (d_sd, d_conv, d_order),
             "f": (g_sd, lambda sd: {k: v for k, v in g_conv(sd).items()
                                     if k != "decoder"},
-                  feature_param_order(output_stride))}
+                  feature_param_order(backbone))}
 
     def buffers(s, net):
         template, conv, order = over[net]

@@ -73,9 +73,11 @@ def _oihw(w_hwio: np.ndarray, device, dtype) -> torch.Tensor:
 
 def make_decoder_tail(decoder, *, scales: Dict[str, float],
                       compute_dtype: torch.dtype = torch.float32) -> Callable:
-    """(ASPP feature [N,256,h,w], low-level [N,24,4h,4w]) -> decoder-
-    resolution logits [N,classes,4h,4w] float32, with the two 3x3 head convs
-    in int8.  `scales` {'a0', 'a1'} come from ``calibrate_decoder_int8``."""
+    """(ASPP feature [N,256,h,w], low-level [N,L,4h,4w]; L is the
+    backbone's low-level width, which the decoder's conv1 takes: 24, 128 or
+    256) -> decoder-resolution logits [N,classes,4h,4w] float32, with the
+    two 3x3 head convs in int8.  `scales` {'a0', 'a1'} come from
+    ``calibrate_decoder_int8``."""
     dev, cd = decoder.conv1.weight.device, compute_dtype
     lc = decoder.last_conv
     w_low, b_low = fold_bn(decoder.conv1, decoder.bn1)

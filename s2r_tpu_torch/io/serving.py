@@ -190,7 +190,7 @@ def export_servable(model, input_shape: Sequence[int], path: str, *,
             "input_shape": [int(d) for d in input_shape],
             "input_dtype": "uint8" if input == "rgb8" else "float32",
             "batch_polymorphic": bool(batch_polymorphic),
-            "platforms": platforms, "backbone": "mobilenet",
+            "platforms": platforms, "backbone": model.backbone_name,
             "output_stride": model.output_stride,
             "num_classes": model.num_classes,
             "normalization": ("baked-in (raw RGB8 in)" if input == "rgb8"
@@ -258,14 +258,15 @@ def read_servable(path: str):
 def load_servable(path: str,
                   device: Optional[Union[str, torch.device]] = None
                   ) -> Servable:
-    """Rebuild the servable's DeepLab on `device` (``cuda`` when None) and
-    its serving function."""
+    """Rebuild the servable's DeepLab (the backbone and output stride of
+    its meta) on `device` (``cuda`` when None) and its serving function."""
     from s2r_tpu_torch.models.deeplab import DeepLab
 
     meta, weights = read_servable(path)
     model = DeepLab(num_classes=meta["num_classes"],
                     output_stride=meta["output_stride"],
-                    dtype=meta["precision"], device=device)
+                    dtype=meta["precision"], device=device,
+                    backbone=meta.get("backbone", "mobilenet"))
     model.load_state_dict(weights, strict=True)
     fn = make_serving_fn(model, output=meta["output"], input=meta["input"],
                          argmax_res=meta["argmax_res"],

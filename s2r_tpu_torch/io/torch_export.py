@@ -3,7 +3,8 @@ torch_export.py ``save_reference_checkpoint``), the inverse of
 io/torch_import.py.
 
 - ``single`` (train_adapt.py:204-209): {'state_dict': DeepLab's state_dict
-  with the backbone aliases, 'optimizer': {}, 'epoch', 'best_pred'};
+  (MobileNetV2's with the backbone aliases), 'optimizer': {}, 'epoch',
+  'best_pred'};
 - ``four`` (train.py:242-253): the backbone's, ASPP's and the decoder's
   state_dicts without their prefixes, the domain classifier's
   ``DC_adnn*`` keys (empty unless a feature-method state gives one), four
@@ -12,8 +13,9 @@ io/torch_import.py.
 The optimizer dicts are empty, as the JAX package writes them.  The port's
 state_dicts already hold the reference keys in its layouts (OIHW convs,
 every BatchNorm's num_batches_tracked), so the tensors are written as they
-are, each storage once.  MobileNetV2 only: config.py ``check_ported``
-refuses the other backbones (ROADMAP A.7) before a state is built.
+are, each storage once.  Every backbone writes its own schema, the one
+s2r_tpu/io/torch_export.py ``export_any_backbone`` writes for it
+(io/convert.py).
 """
 
 from __future__ import annotations
@@ -35,9 +37,14 @@ def _host(sd: Dict[str, torch.Tensor], strip: str = "") -> Dict:
 def save_reference_checkpoint(path: str, G: torch.nn.Module,
                               D: Optional[torch.nn.Module] = None,
                               epoch: int = 0, best_pred: float = 0.0,
-                              schema: str = "single") -> None:
+                              schema: str = "single",
+                              backbone: Optional[str] = None) -> None:
     """Write a reference-format .pth.tar of the segmenter `G` (and, for
-    ``four``, the domain classifier `D` when given)."""
+    ``four``, the domain classifier `D` when given).  `backbone`, when
+    given, is the schema the caller expects: it must be `G`'s."""
+    if backbone is not None and backbone != G.backbone_name:
+        raise ValueError(f"backbone {backbone!r}: the model is a "
+                         f"{G.backbone_name!r} DeepLab")
     sd = G.state_dict()
     if schema == "single":
         ckpt = {"state_dict": _host(sd), "optimizer": {},

@@ -29,8 +29,11 @@ buffer is; a buffer of another kind than the run's raises.
 the JAX Trainer's ``_resume`` semantics (s2r_tpu/train/trainer.py:
 188-221), and ``init_backbone`` is its ``--backbone-init``
 (s2r_tpu/train/trainer.py:144-172).  Files are read with
-``torch.load(weights_only=True)``, numpy scalars allowed.  The backbone is
-MobileNetV2: config.py ``check_ported`` refuses the others (ROADMAP A.7).
+``torch.load(weights_only=True)``, numpy scalars allowed.  Every backbone
+of the JAX package's factory reads its own schema (io/convert.py): the
+reference's MobileNetV2 keys, torchvision's ResNet keys (a torchvision
+file's ``fc.*`` keys are not read), and the JAX package's canonical
+Xception and DRN keys (s2r_tpu/io/torch_export.py).
 """
 
 from __future__ import annotations
@@ -86,11 +89,13 @@ def _take(sd: Mapping, keys: Sequence[str], drop: str = "",
     return out
 
 
-def import_backbone(sd: Mapping, output_stride: int = 16,
+def import_backbone(sd: Mapping, backbone: str = "mobilenet",
                     prefix: str = "") -> Dict[str, torch.Tensor]:
-    """A torch MobileNetV2 state dict (keys ``{prefix}features.N...``) ->
-    the port's ``backbone.*`` keys with their aliases."""
-    keys = [k for k in deeplab_state_keys(output_stride)
+    """A torch state dict of the backbone (keys ``{prefix}features.N...``
+    for MobileNetV2, ``{prefix}layer{L}.{B}...`` for ResNet, ...) -> the
+    port's ``backbone.*`` keys (with MobileNetV2's aliases).  Every key
+    of the schema is required; others are not read."""
+    keys = [k for k in deeplab_state_keys(backbone)
             if k.startswith("backbone.")]
     return with_aliases(_take(sd, keys, "backbone.", prefix))
 
@@ -147,8 +152,9 @@ def import_optimizer_state(opt_sd: Mapping, order: Sequence[str],
     return {"kind": "adam", "m": m, "v": v, "count": count}
 
 
-def import_reference_checkpoint(ckpt, output_stride: int = 16) -> Dict:
-    """A reference checkpoint (a path, or what ``torch_load`` returned) ->
+def import_reference_checkpoint(ckpt, backbone: str = "mobilenet") -> Dict:
+    """A reference checkpoint of `backbone` (a path, or what
+    ``torch_load`` returned) ->
     {'schema': 'single'|'four', 'epoch', 'best_pred', 'G': DeepLab
     state_dict (aliases included), 'D': DomainClassifier state_dict or
     None, 'opt': {name: import_optimizer_state result}} with the names of
@@ -158,8 +164,8 @@ def import_reference_checkpoint(ckpt, output_stride: int = 16) -> Dict:
         ckpt = torch_load(ckpt)
     out = {"epoch": int(ckpt.get("epoch", 0)),
            "best_pred": float(ckpt.get("best_pred", 0.0)), "opt": {}}
-    keys = deeplab_state_keys(output_stride)
-    g_order = reference_param_order(output_stride)
+    keys = deeplab_state_keys(backbone)
+    g_order = reference_param_order(backbone)
 
     def opt(name, key, order, template):
         sd = ckpt.get(key)
@@ -186,7 +192,7 @@ def import_reference_checkpoint(ckpt, output_stride: int = 16) -> Dict:
     out["D"] = _take(d_sd, domain_state_keys()) if d_sd else None
     # train.py:58-82: f = backbone + ASPP, task and c over f + y, d over D,
     # d_inv over f
-    f_order = reference_param_order(output_stride, ("backbone", "aspp"))
+    f_order = reference_param_order(backbone, ("backbone", "aspp"))
     opt("task", "task_optimizer", g_order, out["G"])
     if out["D"] is not None:
         opt("d", "d_optimizer", domain_reference_order(), out["D"])
@@ -196,17 +202,16 @@ def import_reference_checkpoint(ckpt, output_stride: int = 16) -> Dict:
 
 
 def merge_torch_opt_state(opt_imports: Mapping, opt_state: Mapping,
-                          output_stride: int = 16,
+                          backbone: str = "mobilenet",
                           device: Optional[torch.device] = None) -> Dict:
     """Imported optimizer buffers -> a copy of the port's `opt_state` with
     those entries replaced by flat buffers in the port's leaf order (on
     `device`).  An entry the run lacks, or an empty one (a never-stepped
     optimizer), leaves the current zeros."""
-    orders = {"G": deeplab_param_order(output_stride),
-              "task": deeplab_param_order(output_stride),
-              "c": deeplab_param_order(output_stride),
+    g_order = deeplab_param_order(backbone)
+    orders = {"G": g_order, "task": g_order, "c": g_order,
               "D": domain_param_order(), "d": domain_param_order(),
-              "d_inv": feature_param_order(output_stride)}
+              "d_inv": feature_param_order(backbone)}
     new = dict(opt_state)
     for key, imp in opt_imports.items():
         if key not in new or imp["kind"] == "empty":
@@ -230,8 +235,7 @@ def merge_torch_opt_state(opt_imports: Mapping, opt_state: Mapping,
     return new
 
 
-def apply_reference(state, imported: Mapping, ft: bool,
-                    output_stride: int = 16) -> Tuple[int, float]:
+def apply_reference(state, imported: Mapping, ft: bool) -> Tuple[int, float]:
     """Load an imported reference checkpoint into `state` as the JAX
     Trainer does: G's weights and statistics always; D's only from a
     ``four`` file into a feature-method state (output_adapt's D stays at
@@ -244,20 +248,22 @@ def apply_reference(state, imported: Mapping, ft: bool,
         state.D.load_state_dict(imported["D"], strict=True)
     if not ft and imported["opt"]:
         state.opt_state = merge_torch_opt_state(
-            imported["opt"], state.opt_state, output_stride,
+            imported["opt"], state.opt_state, state.G.backbone_name,
             state.G.device)
     return imported["epoch"], imported["best_pred"]
 
 
-def init_backbone(model, path: str, output_stride: int = 16) -> None:
-    """``--backbone-init``: load a torch MobileNetV2 state dict (the
-    reference's mobilenet_VOC.pth; a ``state_dict`` entry is unwrapped)
-    into `model`'s backbone: its weights and running statistics, every
-    key required, as the JAX package's importer reads them."""
+def init_backbone(model, path: str) -> None:
+    """``--backbone-init``: load a torch state dict of `model`'s backbone
+    (the reference's mobilenet_VOC.pth, a torchvision ResNet, or the
+    JAX package's Xception and DRN exports; a ``state_dict`` entry is
+    unwrapped) into that backbone: its weights and running statistics,
+    every key of the schema required, as the JAX package's importers
+    (s2r_tpu/io/torch_import.py ``_backbone_importer``) read them."""
     sd = torch_load(path)
     if "state_dict" in sd:
         sd = sd["state_dict"]
-    new = import_backbone(sd, output_stride)
+    new = import_backbone(sd, model.backbone_name)
     current = model.state_dict()
     current.update({k: v for k, v in new.items()
                     if not k.endswith("num_batches_tracked")})

@@ -1,1 +1,2 @@
-"""DeepLab-V3+ on MobileNetV2, eval forward."""
+"""DeepLab-V3+ and its backbones (MobileNetV2, ResNet, Aligned Xception,
+DRN-D-54), the discriminators, and their layers."""

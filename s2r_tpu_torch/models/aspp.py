@@ -51,8 +51,8 @@ class ASPP(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """x [N,320,h,w] -> [N,256,h,w]; `generator` draws the dropout
-        mask in train mode."""
+        """x [N,inplanes,h,w] -> [N,256,h,w]; `generator` draws the
+        dropout mask in train mode."""
         branches = [self.aspp1(x), self.aspp2(x), self.aspp3(x), self.aspp4(x)]
         gap = self.global_avg_pool
         g = x.to(torch.promote_types(x.dtype, torch.float32)).mean(

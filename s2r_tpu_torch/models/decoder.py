@@ -1,6 +1,7 @@
 """DeepLab-V3+ decoder (s2r_tpu/models/decoder.py).
 
-Low-level path 1x1 24->48 + BN + ReLU; the ASPP output resized to the
+Low-level path 1x1 to 48 (from 24 channels on MobileNetV2, 128 on
+Xception, 256 on ResNet and DRN) + BN + ReLU; the ASPP output resized to the
 low-level size (align-corners bilinear) and concatenated (304 channels);
 head 3x3 -> BN -> ReLU -> Dropout(0.5), 3x3 -> BN -> ReLU -> Dropout(0.1),
 1x1 to the classes with bias.  The modules sit at the reference's
@@ -33,7 +34,7 @@ class Decoder(nn.Module):
 
     def forward(self, x: torch.Tensor, low: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """(x [N,256,h,w], low [N,24,4h,4w]) -> logits [N,classes,4h,4w];
+        """(x [N,256,h,w], low [N,L,4h,4w]) -> logits [N,classes,4h,4w];
         `generator` draws the dropout masks in train mode."""
         low = relu(self.bn1(self.conv1(low)))
         x = resize_bilinear_align_corners(x, low.shape[-2:])

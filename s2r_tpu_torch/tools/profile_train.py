@@ -3,10 +3,11 @@
     python -m s2r_tpu_torch.tools.profile_train
         [--method {output_adapt,feature_adapt,source_only}] [--batch N]
         [--height H] [--width W] [--dtype bf16] [--steps 3] [--rows 30]
-        [--conv-shapes N]
+        [--conv-shapes N] [--backbone mobilenet]
 
 Builds the method's step with s2r_tpu_torch.train.setup.build_method
-(DeepLab-V3+ MobileNetV2 os 16, seeded weights) in bench.py's
+(DeepLab-V3+ on --backbone, by default MobileNetV2, os 16; DRN's ASPP
+runs at output stride 8; seeded weights) in bench.py's
 configuration of that method (``BENCH``; --batch, --height and --width
 override it): output_adapt and feature_adapt at 512x1024 batch 8 (the
 train and train_feature cells), source_only at 513x513 batch 4
@@ -75,6 +76,7 @@ def main():
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--rows", type=int, default=30)
     ap.add_argument("--conv-shapes", type=int, default=0)
+    ap.add_argument("--backbone", default="mobilenet")
     a = ap.parse_args()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -83,15 +85,15 @@ def main():
     (h, w), n, fields = BENCH[a.method]
     a.height, a.width = a.height or h, a.width or w
     a.batch = a.batch or n
-    cfg = Config(precision=a.dtype, **fields)
+    cfg = Config(precision=a.dtype, backbone=a.backbone, **fields)
     method = build_method(cfg, iters_per_epoch=1000, method=a.method,
                           generator=torch.Generator().manual_seed(0))
     state = method.init_state()
     gen = torch.Generator(device="cuda").manual_seed(0)
     batch = bench_batch(a.method, a.batch, (a.height, a.width), "cuda", gen,
                         cfg.num_classes)
-    print(f"[setup] {a.method} {a.height}x{a.width} batch {a.batch}, "
-          f"{a.dtype}")
+    print(f"[setup] {a.method} {a.backbone}, {a.height}x{a.width} batch "
+          f"{a.batch}, {a.dtype}")
     for _ in range(2):
         state, _ = method.step_fn(state, batch)
     torch.cuda.synchronize()

@@ -58,6 +58,31 @@ def perturb_batchnorm(model: torch.nn.Module, stats_seed: int,
                 m.bias.copy_(torch.randn(c, generator=gen) * 0.1)
 
 
+@torch.no_grad()
+def warm_batchnorm(model: torch.nn.Module, images: torch.Tensor) -> None:
+    """Set every BatchNorm's running statistics of `model` to the batch
+    statistics of `images` ([N,3,H,W] on the model's device): one
+    train-mode forward at momentum 1 with dropout off; the model is left
+    in eval mode with its momenta and counters as they were.  A
+    random-weight ResNet, Xception or DRN with random running statistics
+    grows its eval activations by orders of magnitude over the residual
+    stages (logits of 1e6-1e9); warmed, an eval forward stays near unit
+    scale layer by layer, as a trained model's does."""
+    bns = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    saved = [(m.momentum, m.num_batches_tracked.clone()) for m in bns]
+    for m in bns:
+        m.momentum = 1.0
+    set_dropout(model, False)
+    try:
+        model.train()(images)
+    finally:
+        model.eval()
+        set_dropout(model, True)
+        for m, (momentum, count) in zip(bns, saved):
+            m.momentum = momentum
+            m.num_batches_tracked.copy_(count)
+
+
 def sgd_gradients(buf: torch.Tensor, before: Dict[str, torch.Tensor],
                   weight_decay: float, prev: Optional[torch.Tensor] = None,
                   momentum: float = 0.0, order: Optional[List[str]] = None

@@ -1,6 +1,6 @@
 """Method assembly (s2r_tpu/train/setup.py:66-148): models, optimizers, the
 initial TrainState, the step function and the eval step of a training
-method, on MobileNetV2:
+method, on any backbone of ``cfg.backbone`` (models/deeplab.py):
 
 - 'output_adapt' (train_adapt.py): G and the FCDiscriminator, SGD with
   1x/10x groups for G and Adam (0.9, 0.99) for D;
@@ -79,7 +79,7 @@ def build_method(cfg: Config, iters_per_epoch: int,
     deeplab = DeepLab(num_classes=cfg.num_classes,
                       output_stride=cfg.out_stride, dtype=cfg.precision,
                       device=device, generator=generator,
-                      freeze_bn=cfg.freeze_bn)
+                      freeze_bn=cfg.freeze_bn, backbone=cfg.backbone)
     seg_loss_fn = build_seg_loss(cfg.loss_type, class_weights)
     lr_fn = make_lr_schedule(cfg.lr_scheduler, cfg.lr, cfg.epochs,
                              iters_per_epoch, cfg.lr_step, cfg.warmup_epochs)

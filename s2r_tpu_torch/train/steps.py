@@ -76,7 +76,7 @@ def segmenter_params(deeplab) -> Tuple[List[nn.Parameter], List[float]]:
     """DeepLab's parameters in the JAX flatten order, and their learning-
     rate multipliers: 1 for the backbone, 10 for ASPP and decoder
     (deeplab.py:42-72)."""
-    names = deeplab_param_order(deeplab.output_stride)
+    names = deeplab_param_order(deeplab.backbone_name)
     return (_ordered(deeplab, names),
             [1.0 if k.startswith("backbone.") else 10.0 for k in names])
 
@@ -94,7 +94,7 @@ def domain_params(domain_cls) -> List[nn.Parameter]:
 def feature_params(deeplab) -> List[nn.Parameter]:
     """f = backbone + ASPP of DeepLab, in the JAX flatten order."""
     params = dict(deeplab.named_parameters())
-    return [params[k] for k in feature_param_order(deeplab.output_stride)]
+    return [params[k] for k in feature_param_order(deeplab.backbone_name)]
 
 
 def _no_pad(pad_to):

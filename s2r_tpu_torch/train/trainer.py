@@ -46,7 +46,7 @@ def latest_checkpoint(directory: str) -> Optional[str]:
     return max(candidates, key=os.path.getmtime) if candidates else None
 
 
-def resume_into(state, path: str, ft: bool, output_stride: int = 16):
+def resume_into(state, path: str, ft: bool):
     """Load checkpoint `path` into `state`: the port's own, the JAX
     package's msgpack ``.ckpt`` or a reference ``.pth``/``.pth.tar``
     (io/checkpoint.py tells them apart).  With `ft` (the reference's
@@ -57,10 +57,10 @@ def resume_into(state, path: str, ft: bool, output_stride: int = 16):
     the checkpoint."""
     if not os.path.isfile(path):
         raise RuntimeError(f"=> no checkpoint found at '{path}'")
-    payload = load_checkpoint(path, output_stride)
+    payload = load_checkpoint(path, state.G.backbone_name)
     if payload["format"] == "reference":
         ref = payload["reference"]
-        apply_reference(state, ref, ft, output_stride)
+        apply_reference(state, ref, ft)
         print(f"=> imported reference checkpoint '{path}' (epoch "
               f"{ref['epoch']}, schema {ref['schema']})")
     else:
@@ -96,7 +96,7 @@ class Trainer:
         self.best_pred = 0.0
         self.start_epoch = cfg.start_epoch
         if cfg.backbone_init:
-            init_backbone(self.state.G, cfg.backbone_init, cfg.out_stride)
+            init_backbone(self.state.G, cfg.backbone_init)
             print(f"=> initialized backbone from '{cfg.backbone_init}'")
         if cfg.resume:
             self._resume(cfg.resume)
@@ -113,8 +113,7 @@ class Trainer:
                 print("=> --resume auto: no prior checkpoint found, "
                       "starting fresh")
                 return
-        epoch, self.best_pred = resume_into(self.state, path, self.cfg.ft,
-                                            self.cfg.out_stride)
+        epoch, self.best_pred = resume_into(self.state, path, self.cfg.ft)
         if not self.cfg.ft:
             self.start_epoch = epoch
 

@@ -7,6 +7,7 @@ holding the same weights.  Inputs are made with numpy and handed to both.
 """
 
 import contextlib
+import functools
 
 import numpy as np
 
@@ -50,6 +51,20 @@ def jax_deeplab(hw: int = HW):
     stats = perturb_stats(jax.tree_util.tree_map(np.asarray,
                                                  v["batch_stats"]))
     return model, params, stats
+
+
+@functools.lru_cache(maxsize=None)
+def jax_output_adapt(backbone: str):
+    """(JAX output_adapt method on `backbone`, its initial TrainState from
+    PRNGKey(5)), built once a process: both are immutable.  The
+    parameters do not depend on the output stride."""
+    from s2r_tpu.config import Config as JaxConfig
+    from s2r_tpu.train.setup import build_method as jax_build
+
+    jm = jax_build(JaxConfig(backbone=backbone, dataset="synthetic",
+                             crop_size=33, base_size=33, batch_size=2), 4,
+                   method="output_adapt")
+    return jm, jm.init_state(jax.random.PRNGKey(5))
 
 
 def port_deeplab(params, stats, dtype=torch.float32) -> DeepLab:
@@ -120,7 +135,8 @@ def perturb_affine(tree, seed: int = 2):
 
 
 def port_step_from_jax(params, stats, opt_state, step: int, batch,
-                       precision: str, method: str = "output_adapt"):
+                       precision: str, method: str = "output_adapt",
+                       backbone: str = "mobilenet"):
     """One step of the port's `method` started from a JAX TrainState's
     contents (numpy trees: params {'G','D'}, batch_stats, opt_state of the
     method's layout, step), dropout off, on the CPU.  Returns (metrics as
@@ -131,8 +147,8 @@ def port_step_from_jax(params, stats, opt_state, step: int, batch,
     from s2r_tpu_torch.models.layers import set_dropout
     from s2r_tpu_torch.train.setup import build_method
 
-    pm = build_method(Config(precision=precision), iters_per_epoch=10,
-                      method=method, device="cpu")
+    pm = build_method(Config(precision=precision, backbone=backbone),
+                      iters_per_epoch=10, method=method, device="cpu")
     set_dropout(pm.deeplab, False)
     set_dropout(pm.aux_model, False)
     state = train_state_from_jax(pm.init_state(), params, stats, opt_state,

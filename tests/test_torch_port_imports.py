@@ -73,7 +73,9 @@ def test_port_imports_no_jax_flax_or_jax_package():
                 "s2r_tpu_torch.io.msgpack_io", "s2r_tpu_torch.io.torch_import",
                 "s2r_tpu_torch.io.torch_export", "s2r_tpu_torch.cli.export",
                 "s2r_tpu_torch.cli.infer", "s2r_tpu_torch.utils.tree",
-                "s2r_tpu_torch.tools.profile_infer"):
+                "s2r_tpu_torch.tools.profile_infer",
+                "s2r_tpu_torch.models.resnet", "s2r_tpu_torch.models.xception",
+                "s2r_tpu_torch.models.drn"):
         assert mod in result["modules"]
     leaked = [m for m in FORBIDDEN if m in result["loaded"]]
     assert not leaked, leaked

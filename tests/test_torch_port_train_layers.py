@@ -319,9 +319,11 @@ def test_unported_options_raise():
                                            make_output_adapt_step)
 
     cfg = Config(precision="f32")
-    with pytest.raises(NotImplementedError):
-        build_method(Config(backbone="xception"), 10,
+    # the other backbones are ported: xception builds (it raised before)
+    x = build_method(Config(backbone="xception"), 10,
                      method="feature_adapt", device="cpu")
+    assert x.deeplab.backbone_name == "xception"
+    assert x.deeplab.decoder.conv1.in_channels == 128
     m = build_method(cfg, 10, method="output_adapt", device="cpu")
     with pytest.raises(NotImplementedError):
         make_output_adapt_step(m.deeplab, m.aux_model, po.SGD(), po.Adam(),

@@ -55,8 +55,7 @@ ARGVS = [
      "--out-stride", "8", "--src_img_root", "a", "--val_label_root", "b"],
 ]
 
-UNPORTED = [(["--backbone", "resnet"], "--backbone"),
-            (["--num-devices", "2"], "--num-devices"),
+UNPORTED = [(["--num-devices", "2"], "--num-devices"),
             (["--spatial-shard", "2"], "--spatial-shard"),
             (["--eval-spatial-shard"], "--eval-spatial-shard"),
             (["--data-backend", "native"], "--data-backend"),
@@ -99,17 +98,41 @@ def test_unported_flag_raises(argv, flag):
         PC.config_from_args(_parse(PC, argv)[1])
 
 
+@pytest.mark.parametrize("backbone", ["mobilenet", "resnet", "resnet101",
+                                      "resnet50", "xception", "drn"])
+def test_backbone_flag_is_ported(backbone):
+    """--backbone takes every name of the factory (it raised before the
+    other backbones were ported) and reaches the Config as the JAX
+    package's parser puts it there."""
+    argv = ["--backbone", backbone]
+    cfg = PC.config_from_args(_parse(PC, argv)[1])
+    assert cfg.backbone == backbone
+    assert cfg.to_json() == JC.config_from_args(_parse(JC, argv)[1]).to_json()
+    PC.check_ported(cfg, "output_adapt")
+
+
 def test_unported_methods_raise():
-    """All three methods are ported; a name outside them raises, and so do
-    a feature method on an unported backbone and more than one device."""
+    """All three methods are ported; a name outside them raises, and so
+    does more than one device.  The feature methods build and take a step
+    on a ResNet backbone (they raised before it was ported)."""
     from s2r_tpu_torch.train.setup import build_method
 
     with pytest.raises(ValueError, match="unknown method"):
         build_method(PC.Config(), 1, method="output", device="cpu")
+    rs = np.random.RandomState(0)
+    image = torch.from_numpy(rs.randn(2, 33, 33, 3).astype(np.float32))
+    label = torch.from_numpy(rs.randint(0, 19, (2, 33, 33)))
     for method in ("feature_adapt", "source_only"):
-        with pytest.raises(NotImplementedError, match="A.7"):
-            build_method(PC.Config(backbone="resnet"), 1, method=method,
-                         device="cpu")
+        with torch_threads():
+            m = build_method(PC.Config(backbone="resnet50", precision="f32"),
+                             1, method=method, device="cpu")
+            batch = ({"image": image, "label": label}
+                     if method == "source_only" else
+                     {"src_image": image, "src_label": label,
+                      "tgt_image": image.flip(1)})
+            _, met = m.step_fn(m.init_state(), batch)
+        assert m.deeplab.backbone_name == "resnet50"
+        assert np.isfinite(float(met["task_loss"]))
     with pytest.raises(NotImplementedError, match="A.8"):
         build_method(PC.Config(), 1, device="cpu", n_devices=2)
 
