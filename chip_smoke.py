@@ -175,16 +175,47 @@ Phases, each of which must pass:
    (``cli.export --format servable``) and swept over phase 8's 24 frames
    by ``cli.infer``: labels equal to make_serving_fn in this process, 56
    depthwise launches a batch.
-10. Print the kernels line (each kernel's launches by path), the card's
-   name and power limit, and as the last line {"ok": true, "device":
-   {...}}.
+10. Data-parallel training and the model's two flags (ROADMAP A.8, A.5).
+   (a) The split entries of synchronized BatchNorm (sums-only, finish,
+   each direction) at phase 2d's train-cell shapes at a rank's batch
+   (BATCH / 2): on all rows against the fused entries, two row halves'
+   sums added and finished against the fused entries on all rows (the
+   cotangent of shift split between them), each against its plain
+   version, at phase 2d's tolerances; timed against the fused entries,
+   the plain versions and batch_norm_stats /
+   batch_norm_gather_stats_with_counts / batch_norm_backward_reduce.
+   (b) Two ranks on the one card, each a process of
+   s2r_tpu_torch/tools/dist_check.py with a gloo group (NCCL refuses two
+   ranks on one device, "Duplicate GPU detected": tools/profile_dist.py;
+   gloo all-reduces CUDA tensors through the host):
+   the output step at 256x512 global batch 4 float32, dropout off, 2
+   steps, against one process at the whole batch (losses rel 1e-5 at the
+   first step, 1e-4 after; G's update per leaf within LEAF_BOUND or 3x
+   its float32 spread, card against CPU; D's update signs >= 99%; running
+   statistics within 1e-3 of each layer's largest, every rank's state
+   bit-equal, 248 all-reduces a step, launches as predicted); then timed
+   at the train cell (512x1024 global batch 8 bf16, 4 a rank): ms/step,
+   launches and all-reduces a step, peak memory a rank (not a time of
+   NCCL across cards).  (c) cli.train_adapt at the phase 5 cell for one
+   epoch with torchrun's world-1 environment (NCCL), bit-equal to the
+   same run without a group (cuDNN deterministic in both), no collective
+   call, the fused entries.  (d) Serving with split_concat at 2048x1024
+   batch 8, exact and decoder-int8: float32 labels >= 99.9% equal to the
+   concat model's, bf16 labels moved no more than bf16 moves them from
+   float32; timed in bf16, in turns; the output step at the train cell
+   with --logits-dtype bf16 against float32 logits, in turns;
+   cli.export --serve-split-concat of phase 5's final state and cli.infer
+   over phase 8's frames, labels equal to make_serving_fn in this process.
+11. Print the kernels line (each kernel's launches, and by the paths
+   that launched it; floats to 6 significant digits), the card's name
+   and power limit, and as the last line {"ok": true, "device": {...}}.
 
 Without a CUDA device, or outside a checkout holding s2r_tpu_torch, it exits
 non-zero and prints no result.  Float32 convs run with TF32 off.  It writes
 the kernel build directory, and phase 5's run root in the temporary
-directory (and phase 6d's, 7's, 8's and 9's, the checkpoints phases 5
-and 6d hand to phase 8 and the frames phase 8 hands to phase 9), which it
-removes.
+directory (and phase 6d's, 7's, 8's, 9's and 10's, the checkpoints phases
+5 and 6d hand to phases 8 and 10 and the frames phase 8 hands to phases 9
+and 10), which it removes.
 """
 
 import dataclasses
@@ -233,6 +264,10 @@ TRAIN_ARGV = ["--dataset", "synthetic", "--device-aug",
               "--precision", "bf16", "--workers", "4"]
 _BN = ("batch_norm_stats", "batch_norm_apply", "batch_norm_grad_sums",
        "batch_norm_dx")
+# the split entries of synchronized BatchNorm (phase 10), in place of
+# stats and grad_sums at a world of more than one process
+_BN_SPLIT = ("batch_norm_sums", "batch_norm_finish",
+             "batch_norm_grad_sums_local", "batch_norm_grad_finish")
 # (stride-1 depthwise convs, BatchNorms of G) in one forward of each
 # backbone at output stride 16: MobileNetV2's 14 inverted residuals'
 # depthwise convs; Xception's separable convs at stride 1 (1 in each of
@@ -243,24 +278,32 @@ LAYERS = {"mobilenet": (14, 60), "resnet101": (0, 113), "resnet50": (0, 62),
           "xception": (56, 133), "drn": (0, 65)}
 
 
-def step_launches(method, backbone="mobilenet"):
+def step_launches(method, backbone="mobilenet", world=1):
     """Each kernel's launches in one step of `method` on `backbone`: the
     depthwise forward and dx of the source and target forwards and their
     dk, the four BatchNorm entries of each G forward (the feature
     methods' domain classifier adds 2 BatchNorms a forward, and its target
     logits feed no loss, so the decoder's 3 BatchNorms of the target
     forward take no backward), the discriminator's first conv on 3
-    softmax maps (output_adapt)."""
+    softmax maps (output_adapt).  At `world` > 1 (a rank's step) the
+    split entries replace stats (sums and finish) and grad_sums
+    (grad_sums_local and grad_finish)."""
     dw, bn = LAYERS[backbone]
     out = {"depthwise_conv3x3": 4 * dw, "requant_s32_to_s8": 0,
            "depthwise_dk": 2 * dw, **dict.fromkeys(_BN, 2 * bn),
-           "disc_conv1": 3}
+           "disc_conv1": 3, **dict.fromkeys(_BN_SPLIT, 0)}
     if method == "feature_adapt":
         out.update({**dict.fromkeys(_BN[:2], 2 * bn + 4),
                     **dict.fromkeys(_BN[2:], 2 * bn + 1), "disc_conv1": 0})
     elif method == "source_only":
         out.update({"depthwise_conv3x3": 2 * dw, "depthwise_dk": dw,
                     **dict.fromkeys(_BN, bn), "disc_conv1": 0})
+    if world > 1:
+        fwd, bwd = out["batch_norm_stats"], out["batch_norm_grad_sums"]
+        out.update(batch_norm_stats=0, batch_norm_sums=fwd,
+                   batch_norm_finish=fwd, batch_norm_grad_sums=0,
+                   batch_norm_grad_sums_local=bwd,
+                   batch_norm_grad_finish=bwd)
     return out
 
 # phase 7: the real datasets, from full-size PNG fixtures (tools/fixtures.py:
@@ -322,6 +365,18 @@ def cuda_ms(fn, iters=10, warmup=2):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def significant(obj, digits=6):
+    """`obj` with every float rounded to `digits` significant digits (the
+    kernels line stays well inside the 24,000 bytes a run's tail keeps)."""
+    if isinstance(obj, float):
+        return float(f"{obj:.{digits}g}")
+    if isinstance(obj, dict):
+        return {k: significant(v, digits) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [significant(v, digits) for v in obj]
+    return obj
 
 
 def bound_ms(nbytes, flops, dtype):
@@ -2666,6 +2721,573 @@ def backbones_phase(counted, smi, dw, rq, carry):
     return by_path, summary
 
 
+# phase 10: data-parallel training (two ranks on the one card under gloo;
+# one NCCL rank) and the model's --split-concat and --logits-dtype
+DIST_WORLD = 2
+DIST_CHECK_HW, DIST_CHECK_BATCH, DIST_STEPS = (256, 512), 4, 2
+# all-reduces of a rank's output step: 120 BatchNorm sums each way, the
+# batch-axis softmax of the target (max and sum, and one in its backward)
+# and of the source (max and sum), the CE normalizer, the gradients, the
+# logged losses
+DIST_COLLECTIVES = 248
+
+
+def check_split_batchnorm(bn):
+    """Phase 10a: the split entries of synchronized BatchNorm at phase 2d's
+    BatchNorm input shapes of the train cell, at a rank's share of its
+    batch (BATCH / DIST_WORLD), float32 and bfloat16: the sums-only and
+    finish entries on all rows against the fused ones; two row halves'
+    sums, added, then finished (the cotangent of shift split between the
+    halves, each half's added once) against the fused entries on all rows;
+    each entry against its plain version on the same inputs; tolerances
+    as phase 2d.  Times (bf16) each entry against its fused counterpart,
+    its plain version and one PyTorch call (batch_norm_stats,
+    batch_norm_gather_stats_with_counts, batch_norm_backward_reduce; none
+    for the backward finish), with its bound.  Returns the four entries
+    for one rank's step (60 BatchNorms x (src, tgt) = 120 calls each)."""
+    from collections import Counter
+
+    counts = Counter(bn_input_shapes(TRAIN_HW))
+    n = BATCH // DIST_WORLD
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 11)
+    names = _BN_SPLIT
+    totals = {k: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                  "bound_ms": 0.0, "max_abs_err": 0.0, "fused_ms": 0.0}
+              for k in names}
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    bit_equal = True
+    eps, mom = 1e-5, 0.1
+    log("[10a split batchnorm] N C H W x count: worst rel err f32, bf16 | "
+        "bf16 ms kernel/plain/library(/fused): sums, finish, "
+        "grad_sums_local, grad_finish")
+    for (c, h, w), mult in sorted(counts.items()):
+        errs = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            tol = 1e-5 if dtype == torch.float32 else 1e-4
+            x4 = randn((n, h, w, c), dtype, gen)
+            x, g = x4.view(-1, c), randn((n, h, w, c), dtype, gen).view(-1, c)
+            weight = 1 + 0.1 * torch.randn(c, device=DEV, generator=gen)
+            bias = 0.1 * torch.randn(c, device=DEV, generator=gen)
+            gshift = torch.randn(c, device=DEV, generator=gen)
+            gs_b = torch.randn(c, device=DEV, generator=gen)
+            gs_a = gshift - gs_b
+            rm0 = 0.1 * torch.randn(c, device=DEV, generator=gen)
+            rv0 = 0.5 + torch.rand(c, device=DEV, generator=gen)
+            count = n * (h + 2) * (w + 2)  # a ring of 1
+            half = x.shape[0] // 2
+            run = {k: (rm0.clone(), rv0.clone()) for k in ("f", "s", "h")}
+            st = bn.batch_norm_stats(x, weight, bias, count, eps,
+                                     *run["f"], mom)
+            gr = bn.batch_norm_grad_sums(g, x, st, gshift, count)
+            want_g = gr.clone()
+            want_g[bn.SUM_G] = gr[bn.DBIAS]  # G: sum g with d(shift)
+            # split, all rows
+            sums = bn.batch_norm_sums(x)
+            sums_in = sums.clone()
+            s1 = bn.batch_norm_finish(sums, weight, bias, count, eps,
+                                      *run["s"], mom)
+            local = bn.batch_norm_grad_sums_local(g, x, st, gshift)
+            local_in = local.clone()
+            l1 = bn.batch_norm_grad_finish(local, st, count)
+            # two halves, summed between the calls
+            sa = bn.batch_norm_sums(x[:half])
+            sa[:2] += bn.batch_norm_sums(x[half:])[:2]
+            s2 = bn.batch_norm_finish(sa, weight, bias, count, eps,
+                                      *run["h"], mom)
+            la = bn.batch_norm_grad_sums_local(g[:half], x[:half], st, gs_a)
+            lb = bn.batch_norm_grad_sums_local(g[half:], x[half:], st, gs_b)
+            shares = la[bn.DWEIGHT:bn.DBIAS + 1] + lb[bn.DWEIGHT:bn.DBIAS + 1]
+            la[:2] += lb[:2]
+            l2 = bn.batch_norm_grad_finish(la, st, count)
+            torch.cuda.synchronize()
+            bit_equal &= torch.equal(s1, st) and torch.equal(l1, want_g)
+            plain = {
+                "batch_norm_sums": (sums_in[:2],
+                                    bn.batch_norm_sums_plain(x)[:2]),
+                "batch_norm_finish": (s1, bn.batch_norm_finish_plain(
+                    sums_in, weight, bias, count, eps)),
+                "batch_norm_grad_sums_local": (
+                    local_in[:4],
+                    bn.batch_norm_grad_sums_local_plain(g, x, st,
+                                                        gshift)[:4]),
+                "batch_norm_grad_finish": (l1, bn.batch_norm_grad_finish_plain(
+                    local_in, st, count))}
+            e = {"sums+finish": max(bn_rel(s1, st)),
+                 "halves": max(bn_rel(s2, st)),
+                 "running": max(bn_rel(torch.stack([*run["s"], *run["h"]]),
+                                       torch.stack([*run["f"], *run["f"]]))),
+                 "grad all rows": max(bn_rel(l1, want_g)),
+                 "grad halves": max(bn_rel(
+                     l2[[bn.SUM_G, bn.SUM_GX, bn.COEF_B, bn.COEF_C0]],
+                     want_g[[bn.SUM_G, bn.SUM_GX, bn.COEF_B, bn.COEF_C0]])),
+                 "grad shares": max(bn_rel(shares,
+                                           gr[bn.DWEIGHT:bn.DBIAS + 1])),
+                 **{k: max(bn_rel(u, v)) for k, (u, v) in plain.items()}}
+            require(max(e.values()) <= tol, f"10a split batchnorm "
+                    f"{(n, c, h, w)} {dtype}: rel errs {e} > {tol}")
+            errs[dtype] = max(e.values())
+            worst[dtype] = max(worst[dtype], errs[dtype])
+            if dtype != torch.bfloat16:
+                continue
+            for k, (u, v) in plain.items():
+                totals[k]["max_abs_err"] = max(
+                    totals[k]["max_abs_err"],
+                    float((u.float() - v.float()).abs().max()))
+            isz = x.element_size()
+            mc = x.numel()
+            mean, invstd = st[bn.MEAN], st[bn.RSTD]
+            mean2 = torch.stack([mean, mean])
+            invstd2 = torch.stack([invstd, invstd])
+            cnt2 = torch.full((2,), count / 2, device=DEV)
+            rm, rv = rm0.clone(), rv0.clone()
+            x4n = x4.permute(0, 3, 1, 2)
+            g4n = g.view(n, h, w, c).permute(0, 3, 1, 2)
+            fns = {
+                "batch_norm_sums": (
+                    lambda: bn.batch_norm_sums(x),
+                    lambda: bn.batch_norm_sums_plain(x),
+                    lambda: torch.batch_norm_stats(x4n, eps),
+                    lambda: bn.batch_norm_stats(x, weight, bias, count, eps,
+                                                rm, rv, mom)),
+                "batch_norm_finish": (
+                    lambda: bn.batch_norm_finish(sums, weight, bias, count,
+                                                 eps, rm, rv, mom),
+                    lambda: bn.batch_norm_finish_plain(
+                        sums_in, weight, bias, count, eps, rm, rv, mom),
+                    lambda: torch.batch_norm_gather_stats_with_counts(
+                        x4n, mean2, invstd2, rm, rv, mom, eps, cnt2),
+                    None),
+                "batch_norm_grad_sums_local": (
+                    lambda: bn.batch_norm_grad_sums_local(g, x, st, gshift),
+                    lambda: bn.batch_norm_grad_sums_local_plain(g, x, st,
+                                                                gshift),
+                    lambda: torch.batch_norm_backward_reduce(
+                        g4n, x4n, mean, invstd, weight, True, True, True),
+                    lambda: bn.batch_norm_grad_sums(g, x, st, gshift,
+                                                    count)),
+                "batch_norm_grad_finish": (
+                    lambda: bn.batch_norm_grad_finish(local, st, count),
+                    lambda: bn.batch_norm_grad_finish_plain(local_in, st,
+                                                            count),
+                    None, None)}
+            # bytes (each input read once, each output written once; the
+            # per-channel rows float32) and flops of each entry
+            work = {"batch_norm_sums": (mc * isz + 8 * c, 3 * mc),
+                    "batch_norm_finish": (52 * c, 15 * c),
+                    "batch_norm_grad_sums_local": (2 * mc * isz + 28 * c,
+                                                   3 * mc),
+                    "batch_norm_grad_finish": (28 * c, 10 * c)}
+            k2 = 2 * mult  # src and tgt
+            row = []
+            for name in names:
+                ms = [cuda_ms(f) if f is not None else None
+                      for f in fns[name]]
+                bnd, _ = bound_ms(*work[name], torch.float32)
+                tot = totals[name]
+                tot["ms"] += k2 * ms[0]
+                tot["plain_ms"] += k2 * ms[1]
+                if ms[2] is not None:
+                    tot["library_ms"] += k2 * ms[2]
+                if ms[3] is not None:
+                    tot["fused_ms"] += k2 * ms[3]
+                tot["bound_ms"] += k2 * bnd
+                row.append("/".join("-" if v is None else f"{v:.4f}"
+                                    for v in ms))
+            log(f"[10a split batchnorm] {n} {c} {h} {w} x{mult}: "
+                f"{errs[torch.float32]:.3g}, {errs[torch.bfloat16]:.3g} | "
+                + " ".join(row))
+            del fns
+    entries = []
+    for name in names:
+        tot = totals[name]
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "s2r_tpu_torch/csrc/batchnorm.cu",
+            "replaces": ("s2r_tpu/ops/pallas/batchnorm.py:77"
+                         if name in ("batch_norm_sums",
+                                     "batch_norm_grad_sums_local")
+                         else "s2r_tpu/ops/pallas/batchnorm.py:111"),
+            "launches": None, "max_abs_err": tot["max_abs_err"],
+            "ms": tot["ms"], "plain_ms": tot["plain_ms"],
+            "bound_ms": tot["bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": (tot["library_ms"]
+                           if name != "batch_norm_grad_finish" else None),
+            "fused_ms": (tot["fused_ms"] if name in (
+                "batch_norm_sums", "batch_norm_grad_sums_local") else None),
+            "ms_covers": f"a rank's output step at world {DIST_WORLD} "
+                         f"({TRAIN_HW[1]}x{TRAIN_HW[0]}, "
+                         f"{BATCH // DIST_WORLD} a rank, bf16): 120 calls; "
+                         "fused_ms: the fused entry on the same rows"})
+    log(f"[10a split batchnorm] all checks passed at {len(counts)} shapes "
+        f"(batch {n}); worst rel err f32 {worst[torch.float32]:.3g}, bf16 "
+        f"{worst[torch.bfloat16]:.3g}; sums-only + finish on all rows "
+        f"{'bit-equal to' if bit_equal else 'within tolerance of'} the "
+        "fused entries; one rank's step (120 calls each, bf16): "
+        + "; ".join(f"{e['name']} {e['ms']:.3f} ms (plain "
+                    f"{e['plain_ms']:.3f}, library {e['library_ms']}, fused "
+                    f"{e['fused_ms']}, bound {e['bound_ms']:.4f})"
+                    for e in entries))
+    return entries
+
+
+def _leaf_updates(snaps, net):
+    """{leaf: after - before} of a steps task's snapshots (float64)."""
+    before, after = snaps[0][net], snaps[-1][net]
+    return {k: after[k].double() - before[k].double() for k in after
+            if after[k].is_floating_point()
+            and not k.endswith(("running_mean", "running_var"))}
+
+
+def dist_phase(smi):
+    """Phase 10b: two ranks on the one card (gloo, each its own process,
+    s2r_tpu_torch/tools/dist_check.py) against one process.  (i) The
+    output step at DIST_CHECK_HW, global batch DIST_CHECK_BATCH float32
+    (half a rank), dropout off, DIST_STEPS steps, against one process at
+    the whole batch from the same weights: losses rel 1e-5 at the first
+    step and 1e-4 after (tests/test_steps.py:85's bound for the JAX
+    package's sharded step), G's update per leaf within LEAF_BOUND
+    (relative L2) or 3x the leaf's float32 spread (the one-process step
+    on the card against the CPU), D's update of the same sign on >= 99%
+    of elements (phase 4a's bounds), the BatchNorm running statistics
+    within 1e-3 of each layer's largest, every rank's state
+    bit-equal, the all-reduces a step (DIST_COLLECTIVES) and each kernel's
+    launches as step_launches(world=2) predicts.  (ii) The output step at
+    the train cell (global batch BATCH, bf16): ms/step, each BatchNorm
+    entry's launches and the all-reduces a step, peak memory per rank.
+    Gloo stages every all-reduce through the host: the time is not
+    NCCL's across cards.  Returns ({path: launches summed over the
+    ranks}, summary)."""
+    from s2r_tpu_torch.tools import dist_check
+
+    check = dict(kind="steps", method="output_adapt",
+                 hw=list(DIST_CHECK_HW), batch=DIST_CHECK_BATCH,
+                 steps=DIST_STEPS, precision="f32")
+    timing = dict(kind="timing", method="output_adapt", hw=list(TRAIN_HW),
+                  batch=BATCH, precision="bf16", warmup=2, timed=5)
+    t0 = time.perf_counter()
+    ranks = dist_check.spawn({"tasks": [check, timing]}, DIST_WORLD, "cuda",
+                             backend="gloo", timeout=600)
+    spawn_s = time.perf_counter() - t0
+    ref = dist_check.run_tasks({"tasks": [check]}, torch.device(DEV, 0))[0]
+    torch.cuda.empty_cache()
+    cpu = dist_check.run_tasks({"tasks": [check]}, "cpu")[0]
+    got = ranks[0][0]
+    require(all(r[0]["ranks_equal"] and r[1]["ranks_equal"] for r in ranks),
+            "10b: the ranks' states differ")
+    for i in range(DIST_STEPS):
+        # step 0 starts from one state; later steps also carry the first
+        # step's float32 rounding: the JAX package's own bound for its
+        # sharded step against one device (tests/test_steps.py:85)
+        tol = 1e-5 if i == 0 else 1e-4
+        for k in ("seg_loss", "adv_loss", "d_loss"):
+            a, b = got["metrics"][i][k], ref["metrics"][i][k]
+            require(np.isfinite(a) and abs(a - b) <= tol * abs(b),
+                    f"10b step {i} {k}: 2 ranks {a}, one process {b}")
+
+    def rel(a, b):
+        den = float(b.norm())
+        return float((a - b).norm()) / den if den else float(a.norm())
+
+    gu, wu, cu = (_leaf_updates(r["snapshots"], "G") for r in (got, ref, cpu))
+    # G per leaf, as phase 4a bounds the card against float64: within
+    # LEAF_BOUND of one process, or 3x that leaf's float32 spread (one
+    # process on the card against one on the CPU) if larger
+    leaf = {k: (rel(gu[k], wu[k]), rel(cu[k], wu[k])) for k in wu}
+    bad = {k: v for k, v in leaf.items() if v[0] > max(LEAF_BOUND, 3 * v[1])}
+    worst = max(leaf, key=lambda k: leaf[k][0])
+    require(not bad, f"10b G update per leaf off one process: {bad}")
+    d_got, d_ref = (torch.cat([v.reshape(-1) for v in _leaf_updates(
+        r["snapshots"], "D").values()]) for r in (got, ref))
+    sign = float((torch.sign(d_got) == torch.sign(d_ref)).double().mean())
+    require(sign >= 0.99, f"10b D update sign agreement {sign}")
+    value = max(rel(got["snapshots"][-1]["G"][k].double(),
+                    ref["snapshots"][-1]["G"][k].double()) for k in wu)
+    stats = [k for k in ref["snapshots"][-1]["G"]
+             if k.endswith(("running_mean", "running_var"))]
+    stats_err = max(float((got["snapshots"][-1]["G"][k].double()
+                           - ref["snapshots"][-1]["G"][k].double()).abs().max()
+                          / ref["snapshots"][-1]["G"][k].abs().max())
+                    for k in stats)
+    require(stats_err <= 1e-3, f"10b BatchNorm running stats {stats_err}")
+    per_step = step_launches("output_adapt", world=DIST_WORLD)
+    for r in ranks:
+        for task, steps in ((0, DIST_STEPS), (1, 7)):
+            want = {k: v * steps for k, v in per_step.items()}
+            require(r[task]["kernel_launches"] == want,
+                    f"10b rank launches {r[task]['kernel_launches']}, "
+                    f"expected {want}")
+            require(r[task]["collectives_per_step"] == DIST_COLLECTIVES,
+                    f"10b all-reduces a step "
+                    f"{r[task]['collectives_per_step']}")
+    require(ref["collectives_per_step"] == 0, "10b: one process all-reduced")
+    log(f"[10b dist check] {DIST_WORLD} ranks on one card (gloo), "
+        f"{DIST_CHECK_HW[1]}x{DIST_CHECK_HW[0]} global batch "
+        f"{DIST_CHECK_BATCH} f32, {DIST_STEPS} steps against one process: "
+        "losses " + "; ".join(
+            f"step {i} " + ", ".join(
+                f"{k} {got['metrics'][i][k]:.7g}/{ref['metrics'][i][k]:.7g}"
+                for k in ("seg_loss", "adv_loss", "d_loss"))
+            for i in range(DIST_STEPS))
+        + f"; G update worst leaf {leaf[worst][0]:.3g} ({worst}; one "
+        f"process card against CPU {leaf[worst][1]:.3g}), median "
+        f"{statistics.median(v[0] for v in leaf.values()):.3g}, G after "
+        f"the steps worst leaf {value:.3g}; D update sign agreement "
+        f"{100 * sign:.3f}%; BatchNorm running stats {stats_err:.3g}; "
+        f"ranks bit-equal; {DIST_COLLECTIVES} all-reduces a step; launches "
+        f"as predicted ({spawn_s:.1f} s for both tasks, both ranks)")
+    tm = [r[1] for r in ranks]
+    ms = [statistics.median(t["ms"]) for t in tm]
+    bn_step = {k: v for k, v in tm[0]["launches_per_step"].items() if v}
+    log(f"[10b dist step] {DIST_WORLD} ranks, {TRAIN_HW[1]}x{TRAIN_HW[0]} "
+        f"global batch {BATCH} ({BATCH // DIST_WORLD} a rank) bf16: "
+        + ", ".join(f"rank {i} {m:.3f} ms/step (median of 5: "
+                    + ", ".join(f"{v:.3f}" for v in t["ms"]) + ")"
+                    for i, (m, t) in enumerate(zip(ms, tm)))
+        + f"; a rank's BatchNorm launches a step {bn_step}; "
+        f"{tm[0]['collectives_per_step']:.0f} all-reduces "
+        f"({tm[0]['elements_per_step'] / 1e6:.3f}M elements) a step; peak "
+        + ", ".join(f"{t['peak_gib'] or 0:.2f}" for t in tm)
+        + " GiB a rank; "
+        "gloo all-reduces through the host, so this is not a time of NCCL "
+        f"across cards ({smi})")
+    paths = {"dist_step_check": {}, "dist_step": {}}
+    for r in ranks:
+        for path, task in (("dist_step_check", 0), ("dist_step", 1)):
+            for k, v in r[task]["kernel_launches"].items():
+                paths[path][k] = paths[path].get(k, 0) + v
+    return paths, {"dist_ms_per_step": max(ms),
+                   "dist_peak_gib": max(t["peak_gib"] or 0 for t in tm)}
+
+
+def nccl_world1_phase(counted):
+    """Phase 10c: cli.train_adapt at the phase 5 cell for one epoch, once
+    without a process group and once with the environment torchrun sets
+    at a world of 1 (NCCL), cuDNN's deterministic algorithms on for both:
+    the states bit-equal, no collective call, the fused entries' launches
+    as predicted.  Returns the second run's launches."""
+    import torch.distributed as dist
+
+    from s2r_tpu_torch.cli import train_adapt
+    from s2r_tpu_torch.io.checkpoint import host_tree
+    from s2r_tpu_torch.tools.dist_check import _free_port
+
+    os.environ.pop("S2R_PLATFORM", None)
+    root = tempfile.mkdtemp(prefix="s2r_nccl1_")
+    argv = [a if a != "2" else "1" for a in ADAPT_ARGV]  # --epochs 1
+    require(argv[argv.index("--epochs") + 1] == "1", "10c: epochs")
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+           "MASTER_ADDR": "localhost", "MASTER_PORT": str(_free_port())}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        plain = train_adapt.main(argv + ["--run-root",
+                                         os.path.join(root, "a")])
+        plain_state = host_tree(plain.state)
+        del plain
+        os.environ.update(env)
+        ranked, launches, fit_s = drive(
+            counted, train_adapt.main,
+            argv + ["--run-root", os.path.join(root, "b")])
+        require(dist.is_initialized() and dist.get_world_size() == 1
+                and dist.get_backend() == "nccl",
+                "10c: no NCCL group of one")
+        require(ranked.mesh.size == 1 and ranked.mesh.calls == 0,
+                f"10c: {ranked.mesh.calls} collective calls at world 1")
+        want = predicted("output_adapt", ranked.state.step,
+                         fit_eval_forwards(ranked))
+        require(launches == want, f"10c launches {launches}, expected {want}")
+        require(trees_equal(host_tree(ranked.state), plain_state),
+                "10c: the NCCL world-1 state differs from the run without "
+                "a group")
+        log(f"[10c nccl world 1] train_adapt, {ranked.state.step} steps at "
+            f"{ADAPT_HW[1]}x{ADAPT_HW[0]} batch {ADAPT_BATCH} with RANK=0 "
+            f"WORLD_SIZE=1 (NCCL) in {fit_s:.1f} s: state bit-equal to the "
+            "run without a group (cuDNN deterministic in both), 0 "
+            "collective calls, the fused BatchNorm entries' launches")
+        del ranked
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        for k in env:
+            os.environ.pop(k, None)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
+def split_concat_phase(counted, smi, carry):
+    """Phase 10d: (i) serving with split_concat, rgb8 2048x1024 batch 8,
+    exact and decoder-int8, against the concat model on the same weights
+    and inputs: float32 labels >= 99.9% equal; bfloat16 labels moved by
+    split_concat no more than bfloat16 moves the concat model's from
+    float32 (these random weights' labels are near ties); timed in bf16
+    as phase 3, in turns (concat, split, split, concat); (ii) the output step at the train cell
+    with --logits-dtype bf16 against float32 logits, in turns; (iii)
+    cli.export --serve-split-concat of phase 5's final state and cli.infer
+    over phase 8's frames: labels equal to make_serving_fn on the loaded
+    servable in this process.  Returns ({path: launches}, summary)."""
+    from s2r_tpu_torch.cli import export, infer
+    from s2r_tpu_torch.io.quant import calibrate_decoder_int8
+    from s2r_tpu_torch.io.serving import load_servable, make_serving_fn
+    from s2r_tpu_torch.models.deeplab import DeepLab
+
+    by_path, summary = {}, {}
+    concat = build_model("bf16", DEV)
+
+    def copy(dtype, split_concat):
+        model = DeepLab(num_classes=19, output_stride=16, dtype=dtype,
+                        device=DEV, split_concat=split_concat)
+        model.load_state_dict(concat.state_dict(), strict=True)
+        return model
+
+    split = copy("bf16", True)
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 12)
+
+    def rgb8():
+        return torch.randint(0, 256, (BATCH, *FULL_HW, 3), device=DEV,
+                             generator=gen, dtype=torch.uint8)
+
+    scales = calibrate_decoder_int8(concat, [rgb8(), rgb8()], input="rgb8")
+    images = rgb8()
+
+    def serving(models):
+        return {(name, mode): make_serving_fn(
+            model, input="rgb8", **({} if mode == "exact" else dict(
+                quant="decoder_int8", quant_scales=scales)))
+            for name, model in models.items()
+            for mode in ("exact", "decoder_int8")}
+
+    # float32: split and concat differ by the order of float32 sums alone;
+    # bfloat16: also by each part's rounding, which the labels of these
+    # random weights are as sensitive to as to bfloat16 itself, so the
+    # bf16 split may move no more labels than bf16 moves from float32
+    labels = {key: fn(images) for key, fn in serving(
+        {"concat32": copy("f32", False), "split32": copy("f32", True),
+         "concat": concat, "split": split}).items()}
+    torch.cuda.synchronize()
+    agree = {}
+    for mode in ("exact", "decoder_int8"):
+        for a, b in (("split32", "concat32"), ("split", "concat"),
+                     ("concat", "concat32")):
+            agree[(a, b, mode)] = float(
+                (labels[(a, mode)] == labels[(b, mode)]).float().mean())
+        require(agree[("split32", "concat32", mode)] >= 0.999,
+                f"10d split_concat float32 {mode}: labels "
+                f"{100 * agree[('split32', 'concat32', mode)]:.3f}% equal")
+        require(1 - agree[("split", "concat", mode)]
+                <= 1 - agree[("concat", "concat32", mode)],
+                f"10d split_concat bf16 {mode}: moves "
+                f"{100 * (1 - agree[('split', 'concat', mode)]):.3f}% of "
+                f"labels, bf16 itself "
+                f"{100 * (1 - agree[('concat', 'concat32', mode)]):.3f}%")
+    del labels
+    torch.cuda.empty_cache()
+    fns = serving({"concat": concat, "split": split})
+    runs = {key: [] for key in fns}
+    for name in ("concat", "split", "split", "concat"):
+        for mode in ("exact", "decoder_int8"):
+            fn = fns[(name, mode)]
+            fn(images)
+            for _ in range(3):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                fn(images)
+                end.record()
+                end.synchronize()
+                runs[(name, mode)].append(start.elapsed_time(end) / BATCH)
+    ms = {key: statistics.median(v) for key, v in runs.items()}
+    reset(counted)
+    for mode in ("exact", "decoder_int8"):
+        fns[("split", mode)](images)
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in counted}
+    want = dict.fromkeys(launches, 0)
+    want.update(depthwise_conv3x3=2 * LAYERS["mobilenet"][0],
+                requant_s32_to_s8=1)
+    require(launches == want, f"10d serve split: launches {launches}")
+    by_path["serve_split_concat"] = launches
+    summary.update({f"serve_split_{m}_ms": ms[("split", m)]
+                    for m in ("exact", "decoder_int8")})
+    log(f"[10d split_concat serve] rgb8 {FULL_HW[1]}x{FULL_HW[0]} batch "
+        f"{BATCH} bf16, ms/image (median of 6 in turns concat, split, "
+        "split, concat): " + ", ".join(
+            f"{m} concat {ms[('concat', m)]:.3f} split "
+            f"{ms[('split', m)]:.3f}" for m in ("exact", "decoder_int8"))
+        + "; labels equal, split against concat, float32 / bfloat16 (and "
+        "bfloat16 concat against float32 concat): " + ", ".join(
+            f"{m} {100 * agree[('split32', 'concat32', m)]:.3f}% / "
+            f"{100 * agree[('split', 'concat', m)]:.3f}% "
+            f"({100 * agree[('concat', 'concat32', m)]:.3f}%)"
+            for m in ("exact", "decoder_int8"))
+        + f"; launches of one call of each {launches} ({smi})")
+    del concat, split, fns, images
+    torch.cuda.empty_cache()
+
+    steps = {}
+    for logits in ("f32", "bf16", "bf16", "f32"):
+        ms_, _, peak, losses, step_l, _ = time_step(
+            "output_adapt", counted, TRAIN_HW, BATCH, logits_dtype=logits)
+        steps.setdefault(logits, []).append((ms_, peak))
+        by_path[f"train_step_logits_{logits}"] = step_l
+        torch.cuda.empty_cache()
+    med = {k: statistics.median(m for m, _ in v) for k, v in steps.items()}
+    summary.update(step_bf16_logits_ms=med["bf16"],
+                   step_f32_logits_ms=med["f32"])
+    log(f"[10d logits dtype] output step {TRAIN_HW[1]}x{TRAIN_HW[0]} batch "
+        f"{BATCH} bf16 compute, in turns f32, bf16, bf16, f32 logits: "
+        + "; ".join(f"{k} logits " + ", ".join(f"{m:.3f} ms ({p:.2f} GiB "
+                                                  "peak)" for m, p in v)
+                    for k, v in steps.items())
+        + f"; median bf16 {med['bf16']:.3f} against f32 {med['f32']:.3f} "
+        f"({smi})")
+
+    os.environ.pop("S2R_PLATFORM", None)
+    root = tempfile.mkdtemp(prefix="s2r_split_")
+    try:
+        path = os.path.join(root, "split.s2rt")
+        info = export.main(ADAPT_ARGV + [
+            "--run-root", os.path.join(root, "run"), "--resume",
+            carry["adapt"]["ckpt"], "--format", "servable", "--serve-shape",
+            str(BATCH), str(FULL_HW[0]), str(FULL_HW[1]), "--serve-input",
+            "rgb8", "--serve-split-concat", "--out", path])
+        require(info["split_concat"], "10d export: split_concat not recorded")
+        frames = carry["frames"]
+        paths = infer.list_frames(frames)
+        res, launches, _ = drive(
+            counted, lambda a: infer.main(a, keep_predictions=True),
+            ["--servable", path, "--images", frames, "--out-dir",
+             os.path.join(root, "out")])
+        n_batches = -(-len(paths) // BATCH)
+        want = dict.fromkeys(launches, 0)
+        want.update(depthwise_conv3x3=14 * n_batches)
+        require(res["images"] == len(paths) and launches == want,
+                f"10d infer split: launches {launches}, expected {want}")
+        by_path["infer_split_concat"] = launches
+        serve = load_servable(path, DEV)
+        require(serve.model.split_concat, "10d: servable rebuilt without "
+                "split_concat")
+        fn = make_serving_fn(serve.model, input="rgb8")
+        for i in range(0, len(paths), BATCH):
+            chunk = paths[i:i + BATCH]
+            batch = np.stack([infer.decode_frame(p, *FULL_HW, "rgb8")
+                              for p in chunk])
+            labels = fn(torch.from_numpy(batch)).cpu().numpy()
+            require(all(np.array_equal(res["predictions"][p], labels[j])
+                        for j, p in enumerate(chunk)),
+                    "10d infer split: labels differ from make_serving_fn")
+        log(f"[10d split_concat infer] cli.export --serve-split-concat of "
+            f"phase 5's final state, cli.infer over {len(paths)} frames "
+            f"({n_batches} batches): {res['ms_per_image']:.3f} ms/image "
+            f"including host IO; labels equal to make_serving_fn in this "
+            f"process; launches as predicted ({smi})")
+        del serve, fn, res
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return by_path, summary
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2685,7 +3307,9 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     counted = (dw.depthwise_conv3x3, rq.requant_s32_to_s8, dw.depthwise_dk,
                bn.batch_norm_stats, bn.batch_norm_apply,
-               bn.batch_norm_grad_sums, bn.batch_norm_dx, dc.disc_conv1)
+               bn.batch_norm_grad_sums, bn.batch_norm_dx, dc.disc_conv1,
+               bn.batch_norm_sums, bn.batch_norm_finish,
+               bn.batch_norm_grad_sums_local, bn.batch_norm_grad_finish)
     t_start = time.perf_counter()
     # phases 5 and 6d hand phase 8 their checkpoints in this directory
     carry = {"dir": tempfile.mkdtemp(prefix="s2r_carry_")}
@@ -2733,6 +3357,20 @@ def main():
         backbone_launches, backbones = backbones_phase(counted, smi, dw, rq,
                                                        carry)
         driver_launches.update(backbone_launches)
+        torch.cuda.empty_cache()
+        t10 = time.perf_counter()
+        split_entries = check_split_batchnorm(bn)
+        kernels += split_entries
+        torch.cuda.empty_cache()
+        dist_launches, dist_summary = dist_phase(smi)
+        driver_launches.update(dist_launches)
+        driver_launches["train_adapt_nccl_world1"] = nccl_world1_phase(
+            counted)
+        torch.cuda.empty_cache()
+        split_launches, split_summary = split_concat_phase(counted, smi,
+                                                           carry)
+        driver_launches.update(split_launches)
+        log(f"[10] phase 10 in {time.perf_counter() - t10:.1f} s")
         bn_entries[0]["composite"] = dict(
             bn_composite, ms_covers="one 512x1024 batch-8 bf16 train step: "
             "all four entries of 120 BatchNorm calls; library_ms: "
@@ -2749,7 +3387,8 @@ def main():
                      "source_only_step": full["source_only"][3][k["name"]],
                      **{p: v[k["name"]] for p, v in driver_launches.items()}}
             k["launches"] = sum(paths.values())
-            k["launches_by_path"] = paths
+            # the paths that launched it (the others: 0)
+            k["launches_by_path"] = {p: v for p, v in paths.items() if v}
         dw_entry["per_shape"]["train_step"] = dw_train.pop("per_shape")
         dw_entry["slower_than_library"]["train_step"] = dw_train.pop(
             "slower_than_library")
@@ -2782,9 +3421,14 @@ def main():
         f"{TRAIN_HW[0]} batch {BATCH} bf16); feature step "
         f"{full['feature_adapt'][0]:.3f} ms, source-only step "
         f"{full['source_only'][0]:.3f} ms ({SOURCE_HW[1]}x{SOURCE_HW[0]} "
-        f"batch {SOURCE_BATCH}) on {smi}; "
-        f"{time.perf_counter() - t_start:.1f} s after imports")
-    print(json.dumps({"kernels": kernels}))
+        f"batch {SOURCE_BATCH}); data parallel, {DIST_WORLD} ranks on one "
+        f"card (gloo): {dist_summary['dist_ms_per_step']:.3f} ms/step; "
+        f"split_concat serving exact "
+        f"{split_summary['serve_split_exact_ms']:.3f} ms/image; output "
+        f"step with bf16 logits {split_summary['step_bf16_logits_ms']:.3f} "
+        f"ms against {split_summary['step_f32_logits_ms']:.3f} with f32, "
+        f"on {smi}; {time.perf_counter() - t_start:.1f} s after imports")
+    print(json.dumps({"kernels": significant(kernels)}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

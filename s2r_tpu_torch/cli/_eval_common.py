@@ -29,6 +29,7 @@ import torch
 
 from s2r_tpu_torch.config import Config
 from s2r_tpu_torch.core.device import resolve_device
+from s2r_tpu_torch.core.distributed import require_single_process
 from s2r_tpu_torch.data.datasets import VALID_CLASSES
 from s2r_tpu_torch.data.device_aug import normalize_u8_batch
 from s2r_tpu_torch.data.imaging import resize_nearest
@@ -60,7 +61,10 @@ def build_eval(cfg: Config, method: Optional[str] = None,
     """(method, G, eval_step, val_loader, test_loader, nclass); `cfg.resume`
     (a checkpoint of any format train/trainer.py ``resume_into`` reads, or
     'auto') is loaded as Trainer._resume loads it.  `method` None infers it
-    from ``cfg.dataset``."""
+    from ``cfg.dataset``.  One device, as the JAX package's eval drivers
+    run (s2r_tpu/cli/_eval_common.py:61): a launch of several processes
+    raises."""
+    require_single_process("validation and test")
     device = resolve_device(device)
     train_loader, val_loader, test_loader, nclass = make_data_loader(cfg)
     m = build_method(cfg, max(len(train_loader), 1), method=method,

@@ -19,7 +19,9 @@ reference ``.pth``/``.pth.tar`` (train/trainer.py ``resume_into``).
   ``--calib-batches`` val batches of the configured dataset.
   ``--serve-platforms`` takes 'cuda' and 'cpu' and records them: the
   artifact holds weights, not compiled code.  ``--serve-split-concat``
-  raises (ROADMAP A.5).
+  serves the model with ``split_concat`` (models/deeplab.py), as the JAX
+  package's export does (s2r_tpu/cli/export.py:142-143); the meta
+  records it and cli/infer.py rebuilds that model.
 
 ``--backbone`` names the checkpoint's backbone (a JAX or reference file
 does not record it); the servable's meta records it, and cli/infer.py
@@ -31,10 +33,12 @@ artifact's epoch is the checkpoint's own.  Runs on the card;
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import itertools
 
 from s2r_tpu_torch.config import add_common_flags, config_from_args
 from s2r_tpu_torch.core.device import device_from_env
+from s2r_tpu_torch.core.distributed import require_single_process
 
 
 def main(argv=None):
@@ -66,7 +70,9 @@ def main(argv=None):
                              "nearest-upsample the labels")
     parser.add_argument("--serve-split-concat", action="store_true",
                         dest="serve_split_concat",
-                        help="not ported (ROADMAP A.5)")
+                        help="serve the model with split_concat: "
+                             "ASPP's and the decoder's concats are not "
+                             "built")
     parser.add_argument("--serve-label-dtype", type=str, default="int32",
                         choices=["int32", "uint8"],
                         help="labels output only")
@@ -93,10 +99,10 @@ def main(argv=None):
         parser.error("--serve-argmax decoder requires --serve-output labels")
     if args.serve_label_dtype != "int32" and args.serve_output != "labels":
         parser.error("--serve-label-dtype requires --serve-output labels")
-    if args.serve_split_concat:
-        raise NotImplementedError("s2r_tpu_torch: --serve-split-concat is "
-                                  "not ported (ROADMAP A.5)")
+    require_single_process("cli.export")
     cfg = config_from_args(args)
+    if args.serve_split_concat:
+        cfg = dataclasses.replace(cfg, split_concat=True)
     if not cfg.resume:
         parser.error("--resume <checkpoint> is required")
 

@@ -119,8 +119,10 @@ def main(argv=None, keep_predictions: bool = False) -> Dict:
 
     from s2r_tpu_torch.cli._eval_common import _save_prediction
     from s2r_tpu_torch.core.device import device_from_env
+    from s2r_tpu_torch.core.distributed import require_single_process
     from s2r_tpu_torch.io.serving import load_servable
 
+    require_single_process("cli.infer")
     paths = list_frames(args.images)
     serve = load_servable(args.servable, device_from_env())
     meta = serve.meta

@@ -11,6 +11,7 @@ the flags are the JAX package's.
 
 ``--dataset gtav2cityscapes`` takes the roots of train_adapt; ``synthetic``
 needs none.  Runs on the card; ``S2R_PLATFORM=cpu`` selects the CPU.
+Data parallel under ``torchrun --nproc-per-node N``, as cli/train_adapt.py.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import argparse
 
 from s2r_tpu_torch.config import add_common_flags, config_from_args
 from s2r_tpu_torch.core.device import device_from_env
+from s2r_tpu_torch.core.distributed import maybe_initialize
 from s2r_tpu_torch.train.trainer import Trainer
 
 
@@ -28,6 +30,7 @@ def main(argv=None):
     add_common_flags(parser)
     args = parser.parse_args(argv)
     cfg = config_from_args(args)
+    maybe_initialize()  # torchrun's process group, before the device
     method = "source_only" if cfg.dataset == "gtav" else "feature_adapt"
     trainer = Trainer(cfg, method=method, device=device_from_env())
     trainer.fit()

@@ -15,7 +15,10 @@ The roots are flat directories of PNG files, read without PIL
 (data/datasets.py); ``--device-aug`` augments on the card, ``--data-cache``
 keeps decoded frames in memory; ``--dataset synthetic`` needs no files.
 
-Runs on the card; ``S2R_PLATFORM=cpu`` selects the CPU.
+Runs on the card; ``S2R_PLATFORM=cpu`` selects the CPU.  Data parallel,
+one process per card, the batch the global one:
+
+    torchrun --nproc-per-node 4 -m s2r_tpu_torch.cli.train_adapt ...
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import argparse
 
 from s2r_tpu_torch.config import add_common_flags, config_from_args
 from s2r_tpu_torch.core.device import device_from_env
+from s2r_tpu_torch.core.distributed import maybe_initialize
 from s2r_tpu_torch.train.trainer import Trainer
 
 
@@ -33,6 +37,7 @@ def main(argv=None):
     add_common_flags(parser)
     args = parser.parse_args(argv)
     cfg = config_from_args(args)
+    maybe_initialize()  # torchrun's process group, before the device
     trainer = Trainer(cfg, method="output_adapt", device=device_from_env())
     trainer.fit()
     return trainer

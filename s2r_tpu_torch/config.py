@@ -30,7 +30,8 @@ class Config:
     out_stride: int = 16
     num_classes: int = 19
     freeze_bn: bool = False
-    sync_bn: Optional[bool] = None  # one device: no effect
+    sync_bn: Optional[bool] = None  # BatchNorm is always synchronized
+    # over the data-parallel ranks, as in the JAX package
 
     # --- dataset / paths ---
     dataset: str = "gtav2cityscapes"  # or 'gtav', 'synthetic'
@@ -125,13 +126,10 @@ class Config:
 # (field, flag, the values the port runs, ROADMAP item) of every feature
 # the port lacks.
 _UNPORTED = (
-    ("num_devices", "--num-devices", (None, 1), "A.8"),
     ("spatial_shard", "--spatial-shard", (1,), "A.8"),
     ("eval_spatial_shard", "--eval-spatial-shard", (False,), "A.8"),
     ("remat", "--remat", (False,), "A.9"),
     ("pad_stats", "--fast-pad-stats", (True,), "A.9"),
-    ("logits_dtype", "--logits-dtype", ("f32",), "A.5"),
-    ("split_concat", "--split-concat", (False,), "A.5"),
     ("profile_dir", "--profile-dir", (None,), "A.9"),
 )
 
@@ -216,7 +214,8 @@ def add_common_flags(parser: argparse.ArgumentParser) -> None:
     p.add_argument("--use_balanced_weights", action="store_true",
                    default=d.use_balanced_weights)
     p.add_argument("--num-devices", type=int, default=None, dest="num_devices",
-                   help="one device only (more: ROADMAP A.8)")
+                   help="data-parallel width: the number of processes "
+                        "torchrun starts (one per device)")
     p.add_argument("--batch-pad", type=str, default=d.batch_pad,
                    dest="batch_pad", choices=["auto", "off"],
                    help="TPU-only batch padding: both values mean off here")

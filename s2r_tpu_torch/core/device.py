@@ -38,20 +38,45 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
     return dev
 
 
+def platform_from_env() -> str:
+    """'cpu' or 'cuda' from ``S2R_PLATFORM`` (unset, 'cuda' or 'gpu': the
+    card)."""
+    plat = os.environ.get("S2R_PLATFORM", "").strip().lower()
+    if plat in ("", "cuda", "gpu"):
+        return "cuda"
+    if plat == "cpu":
+        return "cpu"
+    raise ValueError(f"s2r_tpu_torch: S2R_PLATFORM={plat!r}: the port runs on "
+                     "'cuda' or 'cpu'")
+
+
 def device_from_env() -> torch.device:
     """The CLI drivers' device: ``S2R_PLATFORM=cpu`` selects the CPU;
     unset or ``cuda`` the card (raising when there is none), as the JAX
-    package's CLIs read the same variable (s2r_tpu/config.py:299)."""
-    plat = os.environ.get("S2R_PLATFORM", "").strip().lower()
-    if plat in ("", "cuda", "gpu"):
-        if not torch.cuda.is_available():
-            raise RuntimeError("s2r_tpu_torch: no CUDA device is available; "
-                               "set S2R_PLATFORM=cpu to run on the CPU")
-        return resolve_device(None)
-    if plat == "cpu":
+    package's CLIs read the same variable (s2r_tpu/config.py:299).  On
+    the card this is the current device, which a rank of data-parallel
+    training has set to its own (``rank_device``)."""
+    if platform_from_env() == "cpu":
         return torch.device("cpu")
-    raise ValueError(f"s2r_tpu_torch: S2R_PLATFORM={plat!r}: the port runs on "
-                     "'cuda' or 'cpu'")
+    if not torch.cuda.is_available():
+        raise RuntimeError("s2r_tpu_torch: no CUDA device is available; "
+                           "set S2R_PLATFORM=cpu to run on the CPU")
+    return resolve_device(None)
+
+
+def rank_device(local_rank: int) -> torch.device:
+    """Bind this process to ``cuda:local_rank`` (one process per card,
+    torchrun's LOCAL_RANK) and return it; raises when the card is not
+    there, never falling back to the CPU."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("s2r_tpu_torch: no CUDA device is available for "
+                           f"local rank {local_rank}; set S2R_PLATFORM=cpu "
+                           "to run the ranks on the CPU")
+    if not 0 <= local_rank < torch.cuda.device_count():
+        raise RuntimeError(f"s2r_tpu_torch: local rank {local_rank} has no "
+                           f"card: {torch.cuda.device_count()} visible")
+    torch.cuda.set_device(local_rank)
+    return torch.device("cuda", local_rank)
 
 
 def resolve_dtype(dtype: Union[str, torch.dtype]) -> torch.dtype:

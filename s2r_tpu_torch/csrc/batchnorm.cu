@@ -43,6 +43,26 @@
 // indices are 64-bit in the sums; the elementwise kernels index in 32 bits
 // while the size allows and in 64 bits beyond, so any M runs in one launch.
 //
+// Synchronized BatchNorm (data-parallel training, one process per card)
+// splits each direction at the all-reduce of its two sums: a sums-only
+// call runs the same bn_sums (and bn_fold) with the epilogue cut to the
+// rows that cross the ranks, the caller all-reduces those two rows
+// ([2][c], contiguous at the head of the workspace), and bn_finish, one
+// thread a channel, runs the rest of the epilogue on the global sums:
+//
+//   forward   sums-only writes sum x and sum x^2; finish computes mean,
+//             var, rstd, inv, shift over the global count and updates the
+//             running statistics over it;
+//   backward  sums-only writes G = sum g + d(shift) (this rank's share of
+//             the cotangent of shift, added once, before the reduction),
+//             sum g*x, and this rank's shares of dweight = rstd * (sum g*x
+//             - mean * G) and dbias = G, which the caller sums over ranks
+//             with the other gradients; finish computes the dx
+//             coefficients b and c0 from the global sums.
+//
+// The finish launches are tiny (one float per channel in, seven out) and
+// bounded by their launch; the sums-only calls cost what the fused ones do.
+//
 // Built by plain nvcc into a shared library with a C interface and loaded
 // with ctypes (s2r_tpu_torch/ops/kernels/build.py).
 
@@ -93,8 +113,13 @@ __device__ __forceinline__ void store(T* p, const float (&in)[V]) {
 enum StatRow { kSumX, kSumXX, kMean, kVar, kRstd, kInv, kShift, kStatRows };
 enum GradRow { kSumG, kSumGX, kDWeight, kDBias, kCoefB, kCoefC0, kGradRows };
 
+// What an epilogue writes: everything (one card), the sums that cross the
+// ranks (sums-only), or what follows from the reduced sums (finish).
+enum Phase { kFused, kSumsOnly, kFinish };
+
 struct FoldArgs {
   float* ws;               // [rows][c] per-channel block, then [slabs][2][c] partials
+  int phase;               // Phase
   float count, eps, keep, momentum, unbias;  // keep = 1 - momentum
   const float *weight, *bias;                // forward
   float *running_mean, *running_var;         // forward; null: not tracked
@@ -110,19 +135,21 @@ enum FoldMode { kForward, kBackward };
 constexpr int kMaxChunks = 1024;
 __device__ unsigned g_arrivals[kMaxChunks];
 
-// The direction's per-channel epilogue for channel j from its two sums.
-// The arithmetic is the plain versions', operation by operation.
+// The direction's per-channel epilogue for channel j from its two sums,
+// cut to f.phase.  The arithmetic is the plain versions', operation by
+// operation.
 template <FoldMode MODE>
 __device__ __forceinline__ void epilogue(const FoldArgs& f, int c, int j, float sa, float sab) {
   float* ws = f.ws;
   if constexpr (MODE == kForward) {
+    ws[kSumX * c + j] = sa;
+    ws[kSumXX * c + j] = sab;
+    if (f.phase == kSumsOnly) return;
     const float mean = __fdiv_rn(sa, f.count);
     const float var = __fsub_rn(__fdiv_rn(sab, f.count), __fmul_rn(mean, mean));
     const float rstd = rsqrtf(__fadd_rn(var, f.eps));
     const float inv = __fmul_rn(rstd, f.weight[j]);
     const float shift = __fsub_rn(f.bias[j], __fmul_rn(mean, inv));
-    ws[kSumX * c + j] = sa;
-    ws[kSumXX * c + j] = sab;
     ws[kMean * c + j] = mean;
     ws[kVar * c + j] = var;
     ws[kRstd * c + j] = rstd;
@@ -138,12 +165,17 @@ __device__ __forceinline__ void epilogue(const FoldArgs& f, int c, int j, float 
     const float mean = f.mean[j], rstd = f.rstd[j], inv = f.inv[j];
     const float big_g = f.gshift != nullptr ? __fadd_rn(sa, f.gshift[j]) : sa;
     const float t = __fsub_rn(sab, __fmul_rn(mean, big_g));
+    if (f.phase != kFinish) {
+      // sums-only: G (with this rank's d(shift)) in the sum-g row, and
+      // this rank's shares of dweight and dbias
+      ws[kSumG * c + j] = f.phase == kSumsOnly ? big_g : sa;
+      ws[kSumGX * c + j] = sab;
+      ws[kDWeight * c + j] = __fmul_rn(rstd, t);
+      ws[kDBias * c + j] = big_g;
+      if (f.phase == kSumsOnly) return;
+    }
     const float b = __fdiv_rn(__fmul_rn(__fmul_rn(__fmul_rn(-inv, rstd), rstd), t), f.count);
     const float c0 = __fsub_rn(__fdiv_rn(__fmul_rn(-inv, big_g), f.count), __fmul_rn(b, mean));
-    ws[kSumG * c + j] = sa;
-    ws[kSumGX * c + j] = sab;
-    ws[kDWeight * c + j] = __fmul_rn(rstd, t);
-    ws[kDBias * c + j] = big_g;
     ws[kCoefB * c + j] = b;
     ws[kCoefC0 * c + j] = c0;
   }
@@ -324,6 +356,15 @@ __global__ void bn_fold(FoldArgs f, int c, int slabs) {
   if (ty == 0 && j < c) epilogue<MODE>(f, c, j, sh[0][0][tx], sh[1][0][tx]);
 }
 
+// The finish of a split call: the epilogue of channel j from the two
+// reduced sums at the head of the workspace (rows 0 and 1 of either
+// direction), one thread a channel.
+template <FoldMode MODE>
+__global__ void bn_finish(FoldArgs f, int c) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j < c) epilogue<MODE>(f, c, j, f.ws[j], f.ws[c + j]);
+}
+
 // y = x * p[ch] + q[ch] (apply: p = inv, q = shift), or with DX, dx = g *
 // p[ch] + x * r[ch] + q[ch] (p = inv, r = b, q = c0); float32 math, each
 // product and sum rounded on its own as in the plain versions.  One thread
@@ -436,12 +477,13 @@ int elementwise(const void* g, const void* x, const float* p, const float* r, co
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int stats(const void* x, const void* weight, const void* bias, void* running_mean,
-          void* running_var, void* ws, int64_t m, int64_t c, double count, double eps,
-          double momentum, void* stream) {
+// FoldArgs of the forward: the statistics over `count` positions.
+FoldArgs stats_args(const void* weight, const void* bias, void* running_mean,
+                    void* running_var, void* ws, double count, double eps,
+                    double momentum, int phase) {
   FoldArgs f = {};
   f.ws = (float*)ws;
+  f.phase = phase;
   f.count = (float)count;
   f.eps = (float)eps;
   f.keep = (float)(1.0 - momentum);
@@ -451,21 +493,29 @@ int stats(const void* x, const void* weight, const void* bias, void* running_mea
   f.bias = (const float*)bias;
   f.running_mean = (float*)running_mean;
   f.running_var = (float*)running_var;
-  return sums<T, kForward>(x, x, f, m, c, (cudaStream_t)stream);
+  return f;
 }
 
-template <typename T>
-int grad_sums(const void* g, const void* x, const void* st, const void* gshift, void* ws,
-              int64_t m, int64_t c, double count, void* stream) {
+// FoldArgs of the backward from the statistics workspace `st`.
+FoldArgs grad_args(const void* st, const void* gshift, void* ws, int64_t c, double count,
+                   int phase) {
   const float* s = (const float*)st;
   FoldArgs f = {};
   f.ws = (float*)ws;
+  f.phase = phase;
   f.count = (float)count;
   f.mean = s + kMean * c;
   f.rstd = s + kRstd * c;
   f.inv = s + kInv * c;
   f.gshift = (const float*)gshift;
-  return sums<T, kBackward>(g, x, f, m, c, (cudaStream_t)stream);
+  return f;
+}
+
+template <FoldMode MODE>
+int finish(const FoldArgs& f, int64_t c, cudaStream_t stream) {
+  const int threads = 256;
+  bn_finish<MODE><<<(unsigned)((c + threads - 1) / threads), threads, 0, stream>>>(f, (int)c);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -484,7 +534,8 @@ extern "C" int64_t s2r_bn_slabs(const void* a, const void* b, int64_t m, int64_t
 
 // All [m, c] matrices are channels-last and contiguous; per-channel vectors
 // are float32 [c].  count is the number of positions the statistics
-// average over (the zero-padding ring included).
+// average over (the zero-padding ring included; every rank's, for the
+// split entries).
 //   s2r_bn_stats_*: ws rows kSumX..kShift; running_mean and running_var
 //     updated in place unless both are null.  One launch (two for many
 //     slabs).
@@ -493,13 +544,30 @@ extern "C" int64_t s2r_bn_slabs(const void* a, const void* b, int64_t m, int64_t
 //     workspace `st` and the cotangent of shift (null: zero).  As many
 //     launches as the statistics.
 //   s2r_bn_dx_*: dx = g * inv + x * b + c0.  One launch.
+// The split entries of synchronized BatchNorm (the caller all-reduces rows
+// 0 and 1 of ws between the two calls of a direction):
+//   s2r_bn_stats_sums_*: ws rows kSumX, kSumXX.  As s2r_bn_stats.
+//   s2r_bn_stats_finish: ws rows kMean..kShift and the running statistics
+//     from rows kSumX, kSumXX.  One launch.
+//   s2r_bn_grad_sums_local_*: ws rows kSumG (G = sum g + d(shift)),
+//     kSumGX, and this rank's shares kDWeight, kDBias.  As s2r_bn_grad_sums.
+//   s2r_bn_grad_finish: ws rows kCoefB, kCoefC0 from rows kSumG, kSumGX
+//     and `st`.  One launch.
 #define S2R_BN_ENTRIES(SUFFIX, T)                                                            \
   extern "C" int s2r_bn_stats_##SUFFIX(const void* x, const void* weight, const void* bias,    \
                                        void* running_mean, void* running_var, void* ws,       \
                                        int64_t m, int64_t c, double count, double eps,        \
                                        double momentum, void* stream) {                       \
-    return stats<T>(x, weight, bias, running_mean, running_var, ws, m, c, count, eps,         \
-                    momentum, stream);                                                        \
+    return sums<T, kForward>(x, x,                                                            \
+                             stats_args(weight, bias, running_mean, running_var, ws, count,   \
+                                        eps, momentum, kFused),                               \
+                             m, c, (cudaStream_t)stream);                                     \
+  }                                                                                           \
+  extern "C" int s2r_bn_stats_sums_##SUFFIX(const void* x, void* ws, int64_t m, int64_t c,     \
+                                            void* stream) {                                   \
+    return sums<T, kForward>(                                                                 \
+        x, x, stats_args(nullptr, nullptr, nullptr, nullptr, ws, 1.0, 0.0, 0.0, kSumsOnly),   \
+        m, c, (cudaStream_t)stream);                                                          \
   }                                                                                           \
   extern "C" int s2r_bn_apply_##SUFFIX(const void* x, const void* inv, const void* shift,      \
                                        void* y, int64_t m, int64_t c, void* stream) {         \
@@ -509,7 +577,14 @@ extern "C" int64_t s2r_bn_slabs(const void* a, const void* b, int64_t m, int64_t
   extern "C" int s2r_bn_grad_sums_##SUFFIX(const void* g, const void* x, const void* st,       \
                                            const void* gshift, void* ws, int64_t m,           \
                                            int64_t c, double count, void* stream) {           \
-    return grad_sums<T>(g, x, st, gshift, ws, m, c, count, stream);                           \
+    return sums<T, kBackward>(g, x, grad_args(st, gshift, ws, c, count, kFused), m, c,        \
+                              (cudaStream_t)stream);                                          \
+  }                                                                                           \
+  extern "C" int s2r_bn_grad_sums_local_##SUFFIX(const void* g, const void* x, const void* st, \
+                                                 const void* gshift, void* ws, int64_t m,     \
+                                                 int64_t c, void* stream) {                   \
+    return sums<T, kBackward>(g, x, grad_args(st, gshift, ws, c, 1.0, kSumsOnly), m, c,       \
+                              (cudaStream_t)stream);                                          \
   }                                                                                           \
   extern "C" int s2r_bn_dx_##SUFFIX(const void* g, const void* x, const void* inv,             \
                                     const void* b, const void* c0, void* dx, int64_t m,       \
@@ -519,3 +594,17 @@ extern "C" int64_t s2r_bn_slabs(const void* a, const void* b, int64_t m, int64_t
   }
 S2R_BN_ENTRIES(f32, float)
 S2R_BN_ENTRIES(bf16, __nv_bfloat16)
+
+extern "C" int s2r_bn_stats_finish(const void* weight, const void* bias, void* running_mean,
+                                   void* running_var, void* ws, int64_t c, double count,
+                                   double eps, double momentum, void* stream) {
+  return finish<kForward>(
+      stats_args(weight, bias, running_mean, running_var, ws, count, eps, momentum, kFinish), c,
+      (cudaStream_t)stream);
+}
+
+extern "C" int s2r_bn_grad_finish(const void* st, void* ws, int64_t c, double count,
+                                  void* stream) {
+  return finish<kBackward>(grad_args(st, nullptr, ws, c, count, kFinish), c,
+                           (cudaStream_t)stream);
+}

@@ -19,7 +19,10 @@ and ``warp_batch`` apply them on the frames' device.  The same seed gives
 the same augmented batch on the card and on the CPU, and JAX's sampled
 parameters can be fed to the port's warp.  ``batch_generator`` seeds the
 sampler from (seed, epoch) as s2r_tpu/train/trainer.py:260 does and from
-the batch index, so a resumed epoch sees the same views.
+the batch index, so a resumed epoch sees the same views.  Under
+data-parallel training each rank draws the global batch's rows and keeps
+its own (``rank::world``, the loader's slice), so every sample gets the
+views it gets on one device.
 
 PIL's downscale filter is an area-weighted triangle, not bilinear
 sampling, so this path matches the reference's distribution of augmented
@@ -53,16 +56,24 @@ def batch_generator(seed: int, epoch: int, index: int) -> torch.Generator:
 
 
 def sample_params(generator: torch.Generator, n: int, base_size: int,
-                  crop_size, sh: int, sw: int) -> Dict[str, torch.Tensor]:
+                  crop_size, sh: int, sw: int, process_index: int = 0,
+                  process_count: int = 1) -> Dict[str, torch.Tensor]:
     """Random flip / scale / crop / blur parameters of `n` samples whose
     staged frames are sh x sw, as CPU tensors: 'flip' and 'blur_gate'
     bool [n]; the scaled frame 'oh', 'ow' and the crop corner 'y1', 'x1'
     float32 [n]; 'radius' float32 [n, 2] (one for each image of a pair).
+    With `process_count` W > 1, `n` is this rank's share of a global
+    batch of n * W: the rows of all n * W are drawn and rows
+    process_index::W kept.
 
     RandomScaleCrop's math (custom_transforms.py:114-143): the short edge
     scaled to U{b/2 .. 2b}, the frame padded right and bottom up to the
     crop, the corner uniform over the padded extent.
     """
+    if process_count > 1:
+        p = sample_params(generator, n * process_count, base_size,
+                          crop_size, sh, sw)
+        return {k: v[process_index::process_count] for k, v in p.items()}
     ch, cw = _crop_hw(crop_size)
     g = generator
     flip = torch.rand(n, generator=g) < 0.5
@@ -212,19 +223,23 @@ def warp_batch(batch: Dict[str, torch.Tensor],
 
 def augment_paired_batch(batch: Dict[str, torch.Tensor],
                          generator: torch.Generator, base_size: int,
-                         crop_size, blur: bool = True
-                         ) -> Dict[str, torch.Tensor]:
-    """Sample on the CPU from `generator`, then warp on the device."""
+                         crop_size, blur: bool = True, process_index: int = 0,
+                         process_count: int = 1) -> Dict[str, torch.Tensor]:
+    """Sample on the CPU from `generator` (this rank's rows of the global
+    batch, ``sample_params``), then warp on the device."""
     n, sh, sw = batch["src_image"].shape[:3]
-    params = sample_params(generator, n, base_size, crop_size, sh, sw)
+    params = sample_params(generator, n, base_size, crop_size, sh, sw,
+                           process_index, process_count)
     return warp_paired_batch(batch, params, crop_size, blur)
 
 
 def augment_batch(batch: Dict[str, torch.Tensor], generator: torch.Generator,
-                  base_size: int, crop_size, blur: bool = True
+                  base_size: int, crop_size, blur: bool = True,
+                  process_index: int = 0, process_count: int = 1
                   ) -> Dict[str, torch.Tensor]:
     n, sh, sw = batch["image"].shape[:3]
-    params = sample_params(generator, n, base_size, crop_size, sh, sw)
+    params = sample_params(generator, n, base_size, crop_size, sh, sw,
+                           process_index, process_count)
     return warp_batch(batch, params, crop_size, blur)
 
 

@@ -7,7 +7,12 @@
   stacked into NHWC numpy batches; ``parallel/feed.py`` moves them to the
   device.
 - The epoch's order is ``random.Random((seed, epoch).__hash__())``, as in
-  the JAX package.  A tuple of ints hashes the same in every process
+  the JAX package.  Under data-parallel training (``process_index``,
+  ``process_count``, from core/distributed.py ``process_info``) the batch
+  size is the global batch: every rank builds the same permutation and
+  takes ``b[rank::world]`` of each global batch, and a batch whose length
+  the world does not divide is dropped on every rank (s2r_tpu/data/
+  loader.py:46-66,87-91).  A tuple of ints hashes the same in every process
   (PYTHONHASHSEED salts only str and bytes), so the batches are
   bit-identical to JAX's.
 - ``gtav2cityscapes`` and ``gtav`` read the PNG roots of the config
@@ -30,6 +35,7 @@ from typing import Dict, Iterator, List, Optional
 import numpy as np
 
 from s2r_tpu_torch.config import Config, check_ported
+from s2r_tpu_torch.core.distributed import process_info
 from s2r_tpu_torch.data import datasets as D
 from s2r_tpu_torch.data import synthetic as S
 
@@ -48,7 +54,12 @@ def _collate(samples: List[Dict]) -> Dict[str, np.ndarray]:
 class DataLoader:
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
                  drop_last: bool = True, num_workers: int = 4, seed: int = 0,
-                 prefetch: int = 4):
+                 prefetch: int = 4, process_index: int = 0,
+                 process_count: int = 1):
+        if process_count > 1 and batch_size % process_count:
+            raise ValueError(
+                f"global batch_size {batch_size} must be divisible by "
+                f"process_count {process_count}")
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -57,12 +68,18 @@ class DataLoader:
         self.seed = seed
         self.prefetch = prefetch
         self.epoch = 0
+        self.process_index = process_index
+        self.process_count = process_count
 
     def __len__(self):
-        n = len(self.dataset)
+        """The batches an epoch gives.  A ragged tail that the world does
+        not divide is dropped, and not counted (the JAX package counts it:
+        ROADMAP C.11)."""
+        n, b = len(self.dataset), self.batch_size
         if self.drop_last:
-            return n // self.batch_size
-        return (n + self.batch_size - 1) // self.batch_size
+            return n // b
+        tail = n % b
+        return n // b + (tail > 0 and tail % self.process_count == 0)
 
     def set_epoch(self, epoch: int):
         self.epoch = epoch
@@ -74,8 +91,13 @@ class DataLoader:
         batches = [idx[i:i + self.batch_size]
                    for i in range(0, len(idx), self.batch_size)]
         if self.drop_last:
-            return [b for b in batches if len(b) == self.batch_size]
-        return [b for b in batches if b]
+            batches = [b for b in batches if len(b) == self.batch_size]
+        else:
+            batches = [b for b in batches if b]
+        if self.process_count > 1:
+            batches = [b[self.process_index::self.process_count]
+                       for b in batches if len(b) % self.process_count == 0]
+        return batches
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         batches = self._index_batches()
@@ -109,7 +131,9 @@ def make_data_loader(cfg: Config, seed: Optional[int] = None):
     them (dataloders/__init__.py:4-28, plus the synthetic dataset)."""
     seed = cfg.seed if seed is None else seed
     check_ported(cfg)
-    kw = dict(num_workers=cfg.workers, seed=seed)
+    rank, world = process_info()
+    kw = dict(num_workers=cfg.workers, seed=seed, process_index=rank,
+              process_count=world)
     cache = dict(staged=cfg.device_aug, cache=cfg.data_cache,
                  cache_bytes=int(cfg.data_cache_gb * 1e9))
     if cfg.dataset == "gtav2cityscapes":

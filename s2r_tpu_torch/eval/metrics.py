@@ -110,12 +110,15 @@ class Evaluator:
 
 
 def evaluate(eval_step: Callable, loader: Iterable,
-             device: Union[str, torch.device],
-             num_class: int) -> Tuple[Evaluator, float]:
+             device: Union[str, torch.device], num_class: int,
+             mesh=None) -> Tuple[Evaluator, float]:
     """`eval_step` over the uint8 batches of `loader`, prefetched to
     `device` and normalized there: (the Evaluator holding the summed
     confusion matrix, the summed loss).  The matrices and losses stay on
-    the device during the loop; the losses are read once after it."""
+    the device during the loop; the losses are read once after it.  Under
+    `mesh` (core/mesh.py; data parallel, each rank evaluating its share of
+    every batch, its loss the share of the batch's) the matrix and the
+    loss are summed over the ranks, so every rank gets the global ones."""
     ev = Evaluator(num_class)
     losses = []
     for batch in prefetch_to_device(loader, device):
@@ -123,6 +126,13 @@ def evaluate(eval_step: Callable, loader: Iterable,
         loss, cm, _ = eval_step(arrays["image"], arrays["label"])
         ev.merge(cm)
         losses.append(loss)
+    if mesh is not None and mesh.size > 1:
+        cm = ev._cm if ev._cm is not None else torch.zeros(
+            (num_class, num_class), dtype=torch.int64, device=device)
+        ev._cm = mesh.all_reduce_(cm.contiguous())
+        total = torch.stack(losses).double().sum() if losses else \
+            torch.zeros((), dtype=torch.float64, device=device)
+        return ev, float(mesh.all_reduce_(total.reshape(1))[0])
     test_loss = 0.0
     if losses:
         for v in torch.stack(losses).double().cpu().tolist():

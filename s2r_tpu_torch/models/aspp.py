@@ -4,7 +4,10 @@ Four branches (1x1 and three 3x3 atrous convs, dilations 1/6/12/18 at output
 stride 16, 1/12/24/36 at 8), each conv -> BN -> ReLU; a global-average-pool
 branch (GAP -> 1x1 -> BN -> ReLU) broadcast back to the feature size (an
 align-corners resize from 1x1 is a broadcast); concat -> 1x1 to 256 -> BN ->
-ReLU -> Dropout(0.5), the identity in eval.
+ReLU -> Dropout(0.5), the identity in eval.  With ``split_concat``
+(s2r_tpu/models/aspp.py:74-80) the 1x1 conv takes the five branches as
+parts (models/layers.py ``Conv2d``): no 1280-channel concat is built, and
+the pool branch enters it once at [N,256,1,1], unbroadcast.
 """
 
 from __future__ import annotations
@@ -33,8 +36,10 @@ class ASPPBranch(nn.Module):
 
 
 class ASPP(nn.Module):
-    def __init__(self, output_stride: int = 16, inplanes: int = 320):
+    def __init__(self, output_stride: int = 16, inplanes: int = 320,
+                 split_concat: bool = False):
         super().__init__()
+        self.split_concat = bool(split_concat)
         if output_stride not in _DILATIONS:
             raise NotImplementedError(output_stride)
         d = _DILATIONS[output_stride]
@@ -58,6 +63,9 @@ class ASPP(nn.Module):
         g = x.to(torch.promote_types(x.dtype, torch.float32)).mean(
             dim=(2, 3), keepdim=True).to(x.dtype)
         g = relu(gap[2](gap[1](g)))
-        branches.append(g.expand(-1, -1, x.shape[2], x.shape[3]))
-        y = torch.cat(branches, dim=1)
-        return self.dropout(relu(self.bn1(self.conv1(y))), generator)
+        if self.split_concat:
+            y = self.conv1((*branches, g))
+        else:
+            branches.append(g.expand(-1, -1, x.shape[2], x.shape[3]))
+            y = self.conv1(torch.cat(branches, dim=1))
+        return self.dropout(relu(self.bn1(y)), generator)

@@ -13,6 +13,16 @@ the 1x/10x learning-rate groups follow those prefixes (train/setup.py).
 ``freeze_bn`` (deeplab.py:35-40) keeps every submodule in eval while the
 model trains, as the JAX package does by handing ``train and not
 freeze_bn`` to every layer: running-statistics BatchNorm and no dropout.
+
+``split_concat`` (deeplab.py:96-101) hands ASPP's and the decoder's
+concats to their convs as parts (models/layers.py ``Conv2d``); the
+parameters and the state_dict are the same with it on or off.
+``logits_dtype`` (deeplab.py:104-109, ``--logits-dtype``) is the dtype of
+the full-resolution logits of a train-mode forward: float32 by default,
+bfloat16 halves the bytes the upsample writes and the loss reads (the
+loss reductions stay float32).  An eval-mode forward (validation,
+serving) writes float32 logits whatever it says, as the JAX package's
+eval model is built without it (s2r_tpu/train/setup.py:88-89).
 """
 
 from __future__ import annotations
@@ -73,14 +83,18 @@ class DeepLab(nn.Module):
     Weights are drawn from `generator` (seed 0 when None) on the CPU, then
     the module moves to `device` (``cuda`` when None; raises without a GPU).
     `dtype` is the compute dtype ('f32', 'bf16' or a torch dtype);
-    parameters stay float32.
+    parameters stay float32.  `logits_dtype` ('f32', 'bf16', a torch
+    dtype or None: float32) and `split_concat` as the module docstring
+    says.
     """
 
     def __init__(self, num_classes: int = 19, output_stride: int = 16, *,
                  dtype: Union[str, torch.dtype] = torch.float32,
                  device: Optional[Union[str, torch.device]] = None,
                  generator: Optional[torch.Generator] = None,
-                 freeze_bn: bool = False, backbone: str = "mobilenet"):
+                 freeze_bn: bool = False, backbone: str = "mobilenet",
+                 split_concat: bool = False,
+                 logits_dtype: Optional[Union[str, torch.dtype]] = None):
         super().__init__()
         device = resolve_device(device)
         self.num_classes = num_classes
@@ -88,10 +102,15 @@ class DeepLab(nn.Module):
         self.backbone_name = backbone
         self.compute_dtype = resolve_dtype(dtype)
         self.freeze_bn = bool(freeze_bn)
+        self.split_concat = bool(split_concat)
+        self.logits_dtype = (None if logits_dtype in (None, "f32",
+                                                      torch.float32)
+                             else resolve_dtype(logits_dtype))
         inplanes, low_level = WIDTHS[family(backbone)]
         self.backbone = make_backbone(backbone, output_stride)
-        self.aspp = ASPP(aspp_stride(backbone, output_stride), inplanes)
-        self.decoder = Decoder(num_classes, low_level)
+        self.aspp = ASPP(aspp_stride(backbone, output_stride), inplanes,
+                         split_concat)
+        self.decoder = Decoder(num_classes, low_level, split_concat)
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         init_weights(self, generator)
@@ -122,15 +141,18 @@ class DeepLab(nn.Module):
                 generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """x [N,3,H,W] -> (logits, ASPP feature).  Logits are float32 (float64
-        under 'f64') at the input's size, or decoder-resolution (stride 4)
-        in the compute dtype
-        when `upsample_logits` is False.  In train mode `generator` draws
-        the dropout masks."""
+        under 'f64'; `logits_dtype` in train mode) at the input's size, or
+        decoder-resolution (stride 4) in the compute dtype when
+        `upsample_logits` is False.  In train mode `generator` draws the
+        dropout masks."""
         feat, low = self.taps(x, generator)
         logits = self.decoder(feat, low, generator)
         if upsample_logits:
-            logits = resize_bilinear_align_corners(
-                logits, x.shape[-2:], dtype=torch.promote_types(
-                    x.dtype, torch.promote_types(self.compute_dtype,
-                                                 torch.float32)))
+            dtype = torch.promote_types(
+                x.dtype, torch.promote_types(self.compute_dtype,
+                                             torch.float32))
+            if self.training and self.logits_dtype is not None:
+                dtype = self.logits_dtype
+            logits = resize_bilinear_align_corners(logits, x.shape[-2:],
+                                                   dtype=dtype)
         return logits, feat

@@ -10,7 +10,8 @@ follow torch's own layers, so the reference torch key schema loads with
   and ``fill``.  Stride-1 3x3 depthwise convs run on the hand-written
   kernels, forward and backward (ops/kernels/depthwise.py); stride-2
   depthwise and all dense convs stay ``F.conv2d``, as the JAX package
-  leaves them to XLA.
+  leaves them to XLA.  A tuple input is convolved as the channel-concat
+  of its parts without building it (``split_concat``).
 - ``BatchNorm``: in eval, x * inv + shift with inv = rsqrt(var + eps) *
   scale and shift = bias - mean * inv from the running statistics, in
   float32, and the affine in the compute dtype.  In train mode, both
@@ -18,7 +19,9 @@ follow torch's own layers, so the reference torch key schema loads with
   (ops/kernels/batchnorm.py): the batch statistics with the
   zero-padding-ring count, the running-statistics update of torch, y and
   dx.  Either can return ``shift``, the value a zero padding ring takes
-  after normalization.
+  after normalization.  Under data-parallel training
+  (``set_batchnorm_sync``) the train-mode statistics are the global
+  batch's, through the kernels' split entries and an all-reduce.
 - ``Dropout``: elementwise, kept values scaled by 1/keep, the mask drawn
   from a caller's ``torch.Generator``; the identity in eval.
 - ``relu``, ``relu6``, ``leaky_relu`` with the JAX package's subgradients
@@ -64,10 +67,15 @@ class Conv2d(nn.Conv2d):
                 and self.padding == self.dilation
                 and self.dilation[0] == self.dilation[1])
 
-    def forward(self, x: torch.Tensor,
-                fill: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x, fill: Optional[torch.Tensor] = None) -> torch.Tensor:
         """x [N,C,H,W] -> [N,O,H',W'] in x's dtype.  `fill` ([C] float32,
-        depthwise only): convolve as if the padding ring held `fill`."""
+        depthwise only): convolve as if the padding ring held `fill`.  A
+        tuple or list x is convolved as the channel-concat of its parts
+        (``_split_forward``)."""
+        if isinstance(x, (tuple, list)):
+            if fill is not None:
+                raise ValueError("a split-concat conv takes no fill")
+            return self._split_forward(tuple(x))
         w = self.weight.to(x.dtype)
         if fill is not None:
             if self.groups != self.in_channels or self.out_channels != self.in_channels:
@@ -88,10 +96,74 @@ class Conv2d(nn.Conv2d):
             y = y + _col(self.bias.to(y.dtype))
         return y
 
+    def _split_forward(self, parts) -> torch.Tensor:
+        """conv(concat(parts, channels)) as the sum over parts of conv(part,
+        the kernel's slice of its input channels): the concat is never
+        built (s2r_tpu/models/layers.py:95-150).  The parameter keeps the
+        full concat shape, so checkpoints do not change.  A part of
+        spatial size [1, 1] broadcasts into the sum, under a 1x1 kernel
+        without padding only: ASPP's global-pool branch is convolved once
+        at [N, C, 1, 1].  Dense convs only (groups 1).
+
+        Two differences from the JAX package, which keeps them as faults
+        (ROADMAP C.7): a [1, 1] part under nonzero padding raises a ValueError
+        (there it is let through, and the padded ring would hold the
+        broadcast value where the concat holds zeros), and the parts are
+        summed in float32 and cast to the compute dtype once (there each
+        part's sum is rounded to the compute dtype, so under bf16 the
+        split differs from the concat by more than the order of the
+        sums).  Each part's conv is rounded to the compute dtype by the
+        conv itself, as the concat conv's output is."""
+        if self.groups != 1:
+            raise ValueError("a split-concat conv must be dense (groups 1)")
+        if not parts:
+            raise ValueError("a split-concat conv needs at least one part")
+        dtype = parts[0].dtype
+        full = max((tuple(p.shape[2:]) for p in parts),
+                   key=lambda hw: hw[0] * hw[1])
+        widths = [int(p.shape[1]) for p in parts]
+        if sum(widths) != self.in_channels:
+            raise ValueError(f"split parts of {widths} channels: the conv "
+                             f"takes {self.in_channels}")
+        acc = torch.promote_types(dtype, torch.float32)
+        w = self.weight.to(dtype)
+        outs, off = [], 0
+        for p, c in zip(parts, widths):
+            hw = tuple(p.shape[2:])
+            if p.dtype != dtype:
+                raise ValueError("split parts must share one dtype")
+            if hw == (1, 1) and full != (1, 1):
+                if self.kernel_size != (1, 1) or self.padding != (0, 0):
+                    raise ValueError(
+                        "a [1,1] split part broadcasts only under a 1x1 "
+                        f"kernel without padding; this conv has kernel "
+                        f"{self.kernel_size} and padding {self.padding}")
+            elif hw != full:
+                raise ValueError(f"split part of spatial size {hw}: want "
+                                 f"{full} (or [1,1] under a 1x1 kernel)")
+            outs.append(F.conv2d(p, w[:, off:off + c], None, self.stride,
+                                 self.padding, self.dilation))
+            off += c
+        # the sum in float32, started from a full-size part, each other
+        # part added in place (no float32 copy of it)
+        first = max(range(len(outs)), key=lambda i: outs[i][0, 0].numel())
+        y = outs[first].to(acc)
+        for i, part in enumerate(outs):
+            if i != first:
+                y.add_(part)
+        if self.bias is not None:
+            y.add_(_col(self.bias.to(acc)))
+        return y.to(dtype)
+
 
 class BatchNorm(nn.BatchNorm2d):
     """nn.BatchNorm2d's parameters and buffers with the JAX package's
-    forward: running statistics in eval, batch statistics in train mode."""
+    forward: running statistics in eval, batch statistics in train mode.
+    ``sync`` (core/mesh.py Mesh, set by ``set_batchnorm_sync``) makes the
+    train-mode statistics those of every rank's batch; None, or a mesh of
+    one process, keeps them this batch's, on the fused entries."""
+
+    sync = None
 
     def forward(self, x: torch.Tensor, ring: bool = False,
                 zero_pad_width: int = 0):
@@ -108,9 +180,11 @@ class BatchNorm(nn.BatchNorm2d):
             shift = self.bias - self.running_mean * inv
             y = x * _col(inv.to(x.dtype)) + _col(shift.to(x.dtype))
             return (y, shift) if ring else y
+        sync = self.sync if self.sync is not None and self.sync.size > 1 \
+            else None
         y, shift, _, _ = BatchNormTrain.apply(
             x, self.weight, self.bias, self.eps, int(zero_pad_width),
-            self.running_mean, self.running_var, float(self.momentum))
+            self.running_mean, self.running_var, float(self.momentum), sync)
         with torch.no_grad():
             self.num_batches_tracked.add_(1)
         return (y, shift) if ring else y
@@ -143,6 +217,14 @@ def set_dropout(module: nn.Module, enabled: bool) -> None:
     for m in module.modules():
         if isinstance(m, Dropout):
             m.enabled = bool(enabled)
+
+
+def set_batchnorm_sync(module: nn.Module, mesh) -> None:
+    """Synchronize the train-mode statistics of every BatchNorm under
+    `module` over `mesh` (core/mesh.py; None or one process: off)."""
+    for m in module.modules():
+        if isinstance(m, BatchNorm):
+            m.sync = mesh
 
 
 class _Relu(torch.autograd.Function):

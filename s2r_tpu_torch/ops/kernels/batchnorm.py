@@ -19,6 +19,22 @@ PyTorch version (``*_plain``) only for CPU tensors; there is no fallback:
 - ``batch_norm_dx(g, x, inv, b, c0)``: dx = g * inv + x * b + c0 (one
   launch).
 
+Synchronized BatchNorm (data-parallel training, one process per card)
+splits each direction's statistics at the all-reduce of its two sums, and
+the caller reduces rows 0-1 of the result between the two calls:
+
+- ``batch_norm_sums(x)``: rows SUM_X, SUM_XX (the sums' launches of
+  batch_norm_stats, the epilogue cut to those rows);
+  ``batch_norm_finish(stats, weight, bias, count, eps, ...)``: the rest
+  of the rows and the running statistics from the reduced sums over the
+  global count (one launch);
+- ``batch_norm_grad_sums_local(g, x, stats, gshift)``: rows SUM_G = sum g
+  + gshift (this rank's cotangent of shift, added before the reduction),
+  SUM_GX, and this rank's shares of DWEIGHT and DBIAS (summed over ranks
+  with the other gradients, they are the global batch's);
+  ``batch_norm_grad_finish(grads, stats, count)``: COEF_B and COEF_C0 from
+  the reduced sums (one launch).
+
 The per-channel results come back as rows of one float32 ``[rows, C]``
 tensor (``STAT_ROWS``, ``GRAD_ROWS`` name them); on the card it is the head
 of the one workspace a call allocates, whose tail holds the slab partials.
@@ -70,11 +86,21 @@ def pair_sums_plain(a: torch.Tensor, b: torch.Tensor):
     return a32.sum(0), (a32 * b32).sum(0)
 
 
-def batch_norm_stats_plain(x, weight, bias, count: int, eps: float,
-                           running_mean=None, running_var=None,
-                           momentum: float = 0.1) -> torch.Tensor:
-    """batch_norm_stats in PyTorch: [STAT_ROWS, C]."""
+def batch_norm_sums_plain(x) -> torch.Tensor:
+    """batch_norm_sums in PyTorch: [STAT_ROWS, C], rows SUM_X and SUM_XX
+    set, the others zero."""
     sx, sxx = pair_sums_plain(x, x)
+    out = sx.new_zeros((STAT_ROWS, sx.shape[0]))
+    out[SUM_X], out[SUM_XX] = sx, sxx
+    return out
+
+
+def batch_norm_finish_plain(stats, weight, bias, count: int, eps: float,
+                            running_mean=None, running_var=None,
+                            momentum: float = 0.1) -> torch.Tensor:
+    """batch_norm_finish in PyTorch: [STAT_ROWS, C] from rows SUM_X and
+    SUM_XX of `stats` (a new tensor)."""
+    sx, sxx = stats[SUM_X], stats[SUM_XX]
     mean = sx / count
     var = sxx / count - mean * mean
     rstd = torch.rsqrt(var + eps)
@@ -87,6 +113,15 @@ def batch_norm_stats_plain(x, weight, bias, count: int, eps: float,
     return torch.stack([sx, sxx, mean, var, rstd, inv, shift])
 
 
+def batch_norm_stats_plain(x, weight, bias, count: int, eps: float,
+                           running_mean=None, running_var=None,
+                           momentum: float = 0.1) -> torch.Tensor:
+    """batch_norm_stats in PyTorch: [STAT_ROWS, C]."""
+    return batch_norm_finish_plain(batch_norm_sums_plain(x), weight, bias,
+                                   count, eps, running_mean, running_var,
+                                   momentum)
+
+
 def batch_norm_apply_plain(x, inv, shift) -> torch.Tensor:
     """batch_norm_apply in PyTorch: float32 math (float64 stays float64),
     the result in x's type."""
@@ -94,16 +129,40 @@ def batch_norm_apply_plain(x, inv, shift) -> torch.Tensor:
     return (x.to(f) * inv + shift).to(x.dtype)
 
 
+def _grad_coefs(big_g, sgx, stats, count: int):
+    """(dweight, b, c0) of the backward from G and sum g*x."""
+    mean, rstd, inv = stats[MEAN], stats[RSTD], stats[INV]
+    t = sgx - mean * big_g
+    b = -inv * rstd * rstd * t / count
+    c0 = -inv * big_g / count - b * mean
+    return rstd * t, b, c0
+
+
 def batch_norm_grad_sums_plain(g, x, stats, gshift, count: int
                                ) -> torch.Tensor:
     """batch_norm_grad_sums in PyTorch: [GRAD_ROWS, C]."""
     sg, sgx = pair_sums_plain(g, x)
-    mean, rstd, inv = stats[MEAN], stats[RSTD], stats[INV]
     big_g = sg if gshift is None else sg + gshift
-    t = sgx - mean * big_g
-    b = -inv * rstd * rstd * t / count
-    c0 = -inv * big_g / count - b * mean
-    return torch.stack([sg, sgx, rstd * t, big_g, b, c0])
+    dweight, b, c0 = _grad_coefs(big_g, sgx, stats, count)
+    return torch.stack([sg, sgx, dweight, big_g, b, c0])
+
+
+def batch_norm_grad_sums_local_plain(g, x, stats, gshift) -> torch.Tensor:
+    """batch_norm_grad_sums_local in PyTorch: [GRAD_ROWS, C], rows SUM_G
+    (gshift included), SUM_GX, DWEIGHT and DBIAS set, the others zero."""
+    sg, sgx = pair_sums_plain(g, x)
+    big_g = sg if gshift is None else sg + gshift
+    mean, rstd = stats[MEAN], stats[RSTD]
+    zero = torch.zeros_like(sg)
+    return torch.stack([big_g, sgx, rstd * (sgx - mean * big_g), big_g,
+                        zero, zero])
+
+
+def batch_norm_grad_finish_plain(grads, stats, count: int) -> torch.Tensor:
+    """batch_norm_grad_finish in PyTorch: `grads` with COEF_B and COEF_C0
+    from rows SUM_G and SUM_GX (a new tensor)."""
+    _, b, c0 = _grad_coefs(grads[SUM_G], grads[SUM_GX], stats, count)
+    return torch.cat([grads[:COEF_B], b[None], c0[None]])
 
 
 def batch_norm_dx_plain(g, x, inv, b, c0) -> torch.Tensor:
@@ -124,15 +183,20 @@ def _lib() -> ctypes.CDLL:
     p, i64, dbl = ctypes.c_void_p, ctypes.c_int64, ctypes.c_double
     lib.s2r_bn_slabs.argtypes = [p, p, i64, i64, i64]
     lib.s2r_bn_slabs.restype = i64
+    entries = [("stats_finish", [p] * 5 + [i64, dbl, dbl, dbl, p]),
+               ("grad_finish", [p] * 2 + [i64, dbl, p])]
     for sfx in _SUFFIX.values():
-        for name, args in (
-                ("stats", [p] * 6 + [i64, i64, dbl, dbl, dbl, p]),
-                ("apply", [p] * 4 + [i64, i64, p]),
-                ("grad_sums", [p] * 5 + [i64, i64, dbl, p]),
-                ("dx", [p] * 6 + [i64, i64, p])):
-            fn = getattr(lib, f"s2r_bn_{name}_{sfx}")
-            fn.argtypes = args
-            fn.restype = ctypes.c_int
+        entries += [(f"{name}_{sfx}", args) for name, args in (
+            ("stats", [p] * 6 + [i64, i64, dbl, dbl, dbl, p]),
+            ("stats_sums", [p] * 2 + [i64, i64, p]),
+            ("apply", [p] * 4 + [i64, i64, p]),
+            ("grad_sums", [p] * 5 + [i64, i64, dbl, p]),
+            ("grad_sums_local", [p] * 5 + [i64, i64, p]),
+            ("dx", [p] * 6 + [i64, i64, p]))]
+    for name, args in entries:
+        fn = getattr(lib, f"s2r_bn_{name}")
+        fn.argtypes = args
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -302,6 +366,128 @@ def batch_norm_dx(g: torch.Tensor, x: torch.Tensor, inv: torch.Tensor,
 batch_norm_dx.launches = 0
 
 
+def _check_head(what: str, head: torch.Tensor, rows: int) -> None:
+    """Raise unless `head` is a float32 [rows, C] head of a workspace on
+    the card (a split entry's first call's result)."""
+    if (head.dtype != torch.float32 or head.dim() != 2
+            or head.shape[0] != rows or not head.is_contiguous()
+            or head.device.type != "cuda"):
+        raise ValueError(f"{what}: want the float32 [{rows}, C] result of "
+                         "the direction's sums on the card")
+
+
+def batch_norm_sums(x: torch.Tensor) -> torch.Tensor:
+    """x [M, C] (f32/bf16) -> float32 [STAT_ROWS, C] with rows SUM_X = sum x
+    and SUM_XX = sum x^2 (the other rows are batch_norm_finish's): the
+    first half of batch_norm_stats, for a reduction of rows 0-1 over ranks
+    in between."""
+    if x.device.type == "cpu":
+        return batch_norm_sums_plain(x)
+    _check_rows("batch_norm_sums", x)
+    m, c = x.shape
+    if m == 0:
+        raise ValueError("batch_norm_sums: no rows")
+    lib = _lib()
+    ws = _workspace(lib, x, x, STAT_ROWS)
+    err = getattr(lib, f"s2r_bn_stats_sums_{_SUFFIX[x.dtype]}")(
+        x.data_ptr(), ws.data_ptr(), m, c, build.stream(x))
+    build.check(err, "batch_norm_sums")
+    batch_norm_sums.launches += 1
+    return ws[:STAT_ROWS]
+
+
+batch_norm_sums.launches = 0
+
+
+def batch_norm_finish(stats: torch.Tensor, weight: torch.Tensor,
+                      bias: torch.Tensor, count: int, eps: float,
+                      running_mean: Optional[torch.Tensor] = None,
+                      running_var: Optional[torch.Tensor] = None,
+                      momentum: float = 0.1) -> torch.Tensor:
+    """batch_norm_sums' rows (reduced over ranks) -> the rows
+    batch_norm_stats gives, over `count` positions (every rank's), the
+    running statistics updated as it updates them; in place on the card,
+    a new tensor on the CPU."""
+    if (running_mean is None) != (running_var is None):
+        raise ValueError("batch_norm_finish: give both running statistics "
+                         "or neither")
+    if stats.device.type == "cpu":
+        return batch_norm_finish_plain(stats, weight, bias, count, eps,
+                                       running_mean, running_var, momentum)
+    _check_head("batch_norm_finish", stats, STAT_ROWS)
+    like = stats[0]
+    _check_vectors("batch_norm_finish", like, weight, bias, running_mean,
+                   running_var)
+    err = _lib().s2r_bn_stats_finish(
+        weight.data_ptr(), bias.data_ptr(),
+        None if running_mean is None else running_mean.data_ptr(),
+        None if running_var is None else running_var.data_ptr(),
+        stats.data_ptr(), stats.shape[1], float(count), float(eps),
+        float(momentum), build.stream(stats))
+    build.check(err, "batch_norm_finish")
+    batch_norm_finish.launches += 1
+    return stats
+
+
+batch_norm_finish.launches = 0
+
+
+def batch_norm_grad_sums_local(g: torch.Tensor, x: torch.Tensor,
+                               stats: torch.Tensor,
+                               gshift: Optional[torch.Tensor]
+                               ) -> torch.Tensor:
+    """g, x [M, C] of one type, stats the finished statistics, gshift this
+    rank's cotangent of shift (float32 [C] or None) -> float32 [GRAD_ROWS,
+    C] with rows SUM_G = sum g + gshift, SUM_GX = sum g*x, and this rank's
+    shares DWEIGHT = rstd * (SUM_GX - mean * SUM_G) and DBIAS = SUM_G (the
+    coefficient rows are batch_norm_grad_finish's)."""
+    if g.shape != x.shape:
+        raise ValueError(f"batch_norm_grad_sums_local: g {tuple(g.shape)} "
+                         f"and x {tuple(x.shape)} must be one [M, C] shape")
+    if x.device.type == "cpu":
+        return batch_norm_grad_sums_local_plain(g, x, stats, gshift)
+    _check_rows("batch_norm_grad_sums_local", g, x)
+    _check_head("batch_norm_grad_sums_local", stats, STAT_ROWS)
+    _check_vectors("batch_norm_grad_sums_local", x, stats[0], gshift)
+    if x.shape[0] == 0:
+        raise ValueError("batch_norm_grad_sums_local: no rows")
+    lib = _lib()
+    ws = _workspace(lib, g, x, GRAD_ROWS)
+    err = getattr(lib, f"s2r_bn_grad_sums_local_{_SUFFIX[x.dtype]}")(
+        g.data_ptr(), x.data_ptr(), stats.data_ptr(),
+        None if gshift is None else gshift.data_ptr(), ws.data_ptr(),
+        *x.shape, build.stream(x))
+    build.check(err, "batch_norm_grad_sums_local")
+    batch_norm_grad_sums_local.launches += 1
+    return ws[:GRAD_ROWS]
+
+
+batch_norm_grad_sums_local.launches = 0
+
+
+def batch_norm_grad_finish(grads: torch.Tensor, stats: torch.Tensor,
+                           count: int) -> torch.Tensor:
+    """batch_norm_grad_sums_local's rows (SUM_G and SUM_GX reduced over
+    ranks) -> with COEF_B and COEF_C0 over `count` positions (every
+    rank's); in place on the card, a new tensor on the CPU."""
+    if grads.device.type == "cpu":
+        return batch_norm_grad_finish_plain(grads, stats, count)
+    _check_head("batch_norm_grad_finish", grads, GRAD_ROWS)
+    _check_head("batch_norm_grad_finish", stats, STAT_ROWS)
+    if stats.shape[1] != grads.shape[1] or stats.device != grads.device:
+        raise ValueError("batch_norm_grad_finish: stats and grads of "
+                         "different channels or devices")
+    err = _lib().s2r_bn_grad_finish(stats.data_ptr(), grads.data_ptr(),
+                                    grads.shape[1], float(count),
+                                    build.stream(grads))
+    build.check(err, "batch_norm_grad_finish")
+    batch_norm_grad_finish.launches += 1
+    return grads
+
+
+batch_norm_grad_finish.launches = 0
+
+
 def channels_last_rows(x: torch.Tensor) -> torch.Tensor:
     """NCHW x -> its channels-last [N*H*W, C] matrix: a view when x is
     channels-last in memory, else a channels-last copy (counted)."""
@@ -330,7 +516,7 @@ class BatchNormTrain(torch.autograd.Function):
     """Train-mode BatchNorm with torch statistics rules, NCHW.
 
     forward(x, weight, bias, eps, pad, running_mean=None, running_var=None,
-    momentum=0.1) -> (y, shift, mean, var): statistics over
+    momentum=0.1, sync=None) -> (y, shift, mean, var): statistics over
     N*(H+2*pad)*(W+2*pad) positions, i.e. as if x were zero-padded by
     `pad` (the sums are unchanged, the count grows); var is biased; inv =
     rsqrt(var + eps) * weight and shift = bias - mean * inv in float32, y =
@@ -344,19 +530,38 @@ class BatchNormTrain(torch.autograd.Function):
     backward (batchnorm.py:138-153) with sum(g) widened by the cotangent of
     shift.  Each direction is two kernel entries (batch_norm_stats and
     batch_norm_apply; batch_norm_grad_sums and batch_norm_dx).
+
+    `sync` (core/mesh.py Mesh, of more than one process) synchronizes the
+    statistics over the ranks' batches, the JAX package's BatchNorm under
+    a sharded batch and the reference's SynchronizedBatchNorm: the sums
+    are all-reduced (float32, SUM) between batch_norm_sums and
+    batch_norm_finish, and between batch_norm_grad_sums_local and
+    batch_norm_grad_finish; the count is every rank's (the ranks' batches
+    have one shape), so the running statistics come out equal on every
+    rank.  dweight and dbias are this rank's shares, which the step sums
+    over ranks with the other gradients.
     """
 
     @staticmethod
     def forward(ctx, x, weight, bias, eps: float, pad: int,
-                running_mean=None, running_var=None, momentum: float = 0.1):
+                running_mean=None, running_var=None, momentum: float = 0.1,
+                sync=None):
         n, _, h, w = x.shape
         rows = channels_last_rows(x)
         count = n * (h + 2 * pad) * (w + 2 * pad)
-        stats = batch_norm_stats(rows, weight, bias, count, eps,
-                                 running_mean, running_var, momentum)
+        if sync is None:
+            stats = batch_norm_stats(rows, weight, bias, count, eps,
+                                     running_mean, running_var, momentum)
+        else:
+            count *= sync.size
+            stats = batch_norm_sums(rows)
+            sync.all_reduce_(stats[:SUM_XX + 1])
+            stats = batch_norm_finish(stats, weight, bias, count, eps,
+                                      running_mean, running_var, momentum)
         y = _nchw(batch_norm_apply(rows, stats[INV], stats[SHIFT]), x)
         ctx.save_for_backward(rows, stats)
         ctx.count = count
+        ctx.sync = sync
         # x's shape and memory format, for dx (a meta tensor holds no data)
         ctx.x_like = torch.empty_like(x, device="meta")
         mean, var = stats[MEAN], stats[VAR]
@@ -367,7 +572,12 @@ class BatchNormTrain(torch.autograd.Function):
     def backward(ctx, gy, gshift, _gmean, _gvar):
         rows, stats = ctx.saved_tensors
         g = channels_last_rows(gy.to(rows.dtype))
-        grads = batch_norm_grad_sums(g, rows, stats, gshift, ctx.count)
+        if ctx.sync is None:
+            grads = batch_norm_grad_sums(g, rows, stats, gshift, ctx.count)
+        else:
+            grads = batch_norm_grad_sums_local(g, rows, stats, gshift)
+            ctx.sync.all_reduce_(grads[:SUM_GX + 1])
+            grads = batch_norm_grad_finish(grads, stats, ctx.count)
         dx = None
         if ctx.needs_input_grad[0]:
             dx = batch_norm_dx(g, rows, stats[INV], grads[COEF_B],
@@ -375,4 +585,4 @@ class BatchNormTrain(torch.autograd.Function):
             dx = _nchw(dx, ctx.x_like)
         dweight = grads[DWEIGHT] if ctx.needs_input_grad[1] else None
         dbias = grads[DBIAS] if ctx.needs_input_grad[2] else None
-        return dx, dweight, dbias, None, None, None, None, None
+        return dx, dweight, dbias, None, None, None, None, None, None

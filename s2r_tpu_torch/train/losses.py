@@ -12,6 +12,16 @@
   the max, 1 for |x|: -z in all).
 
 All reductions run in float32 (float64 inputs stay float64).
+
+Under data-parallel training (`mesh`, core/mesh.py, of more than one
+process) every mean is the global batch's, as the JAX package's are under
+a sharded batch (s2r_tpu/train/losses.py:14-17), and each loss returns
+this rank's share of it: summed over the ranks, the shares are the loss
+of the whole batch, and so are their gradients, which the step sums over
+the ranks.  The cross-entropy all-reduces its normalizer (the summed
+weights of the counted pixels, which carry no gradient); the focal loss
+needs the global CE on every rank for its chain-rule factor and
+all-reduces the detached CE; the plain means divide by the global count.
 """
 
 from __future__ import annotations
@@ -24,12 +34,16 @@ import torch.nn.functional as F
 from s2r_tpu_torch.models.layers import relu
 
 
+def _sharded(mesh) -> bool:
+    return mesh is not None and mesh.size > 1
+
+
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   weight: Optional[torch.Tensor] = None,
-                  ignore_index: int = 255) -> torch.Tensor:
+                  ignore_index: int = 255, mesh=None) -> torch.Tensor:
     """logits [N,C,H,W] (any float), labels [N,H,W] int.  Pixels whose label
     is outside [0, C), ignore_index among them, neither contribute nor enter
-    the normalizer."""
+    the normalizer (the global batch's under `mesh`)."""
     c = logits.shape[1]
     f = torch.promote_types(logits.dtype, torch.float32)
     labels = labels.long()
@@ -42,57 +56,86 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     else:
         w = torch.ones_like(nll)
     w = w * valid.to(f)
-    return (nll * w).sum() / w.sum().clamp(min=1e-12)
+    den = w.sum()
+    if _sharded(mesh):
+        mesh.all_reduce_(den)
+    return (nll * w).sum() / den.clamp(min=1e-12)
 
 
 def focal_loss(logits: torch.Tensor, labels: torch.Tensor,
                weight: Optional[torch.Tensor] = None,
                ignore_index: int = 255, gamma: float = 2.0,
-               alpha: Optional[float] = 0.5) -> torch.Tensor:
-    """The reference's focal variant on the reduced CE scalar."""
-    ce = cross_entropy(logits, labels, weight, ignore_index)
+               alpha: Optional[float] = 0.5, mesh=None) -> torch.Tensor:
+    """The reference's focal variant on the reduced CE scalar.  Under
+    `mesh` the factor is taken at the global CE: this rank's share is
+    focal(CE) / world with the gradient focal'(CE) * d(this rank's CE
+    share)."""
+    ce = cross_entropy(logits, labels, weight, ignore_index, mesh)
+    if _sharded(mesh):
+        ce_share = ce
+        ce = mesh.all_reduce_(ce_share.detach().clone())
+        ce = ce + (ce_share - ce_share.detach())
     logpt = -ce
     pt = torch.exp(logpt)
     if alpha is not None:
         logpt = logpt * alpha
-    return -((1.0 - pt) ** gamma) * logpt
+    loss = -((1.0 - pt) ** gamma) * logpt
+    if _sharded(mesh):
+        loss = loss - loss.detach() * (1.0 - 1.0 / mesh.size)
+    return loss
 
 
 def build_seg_loss(mode: str, weight: Optional[torch.Tensor] = None,
-                   ignore_index: int = 255):
-    """The seg loss by name, 'ce' or 'focal', as (logits, labels) -> loss."""
+                   ignore_index: int = 255, mesh=None):
+    """The seg loss by name, 'ce' or 'focal', as (logits, labels) -> loss
+    (this rank's share under `mesh`)."""
     if mode == "ce":
         return lambda logits, labels: cross_entropy(logits, labels, weight,
-                                                    ignore_index)
+                                                    ignore_index, mesh)
     if mode == "focal":
         return lambda logits, labels: focal_loss(logits, labels, weight,
-                                                 ignore_index)
+                                                 ignore_index, mesh=mesh)
     raise NotImplementedError(mode)
 
 
-def _const_label_ce(logits: torch.Tensor, label: int) -> torch.Tensor:
+def _global_mean(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The mean of x over every rank's copy of its shape: this rank's
+    share (x.mean() at one process)."""
+    if not _sharded(mesh):
+        return x.mean()
+    return x.sum() / (x.numel() * mesh.size)
+
+
+def _const_label_ce(logits: torch.Tensor, label: int,
+                    mesh=None) -> torch.Tensor:
     f = torch.promote_types(logits.dtype, torch.float32)
-    return -F.log_softmax(logits.to(f), dim=1)[:, label].mean()
+    return -_global_mean(F.log_softmax(logits.to(f), dim=1)[:, label], mesh)
 
 
-def domain_loss(src_logits: torch.Tensor, tgt_logits: torch.Tensor
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+def domain_loss(src_logits: torch.Tensor, tgt_logits: torch.Tensor,
+                mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """[N,2,H,W] logits of each domain -> (src CE to 0 + tgt CE to 1,
-    domain accuracy by the reference's formula)."""
+    domain accuracy by the reference's formula); this rank's shares under
+    `mesh`."""
     if src_logits.shape != tgt_logits.shape:
         raise ValueError(f"domain_loss: {tuple(src_logits.shape)} != "
                          f"{tuple(tgt_logits.shape)}")
-    loss = _const_label_ce(src_logits, 0) + _const_label_ce(tgt_logits, 1)
+    loss = (_const_label_ce(src_logits, 0, mesh)
+            + _const_label_ce(tgt_logits, 1, mesh))
     n, _, h, w = src_logits.shape
+    if _sharded(mesh):
+        n *= mesh.size
     src_pred = src_logits.argmax(1)
     tgt_pred = tgt_logits.argmax(1)
     acc = ((1 - src_pred).sum() + tgt_pred.sum()).float() / 2.0 / n / h / w
     return loss, acc
 
 
-def bce_with_logits(logits: torch.Tensor, target: float) -> torch.Tensor:
-    """Mean BCE-with-logits against a constant target (0.0 or 1.0)."""
+def bce_with_logits(logits: torch.Tensor, target: float,
+                    mesh=None) -> torch.Tensor:
+    """Mean BCE-with-logits against a constant target (0.0 or 1.0); this
+    rank's share of the global mean under `mesh`."""
     x = logits.to(torch.promote_types(logits.dtype, torch.float32))
     abs_x = torch.where(x >= 0, x, -x)  # jnp.abs's gradient: 1 at 0
-    return (relu(x) - x * float(target)
-            + torch.log1p(torch.exp(-abs_x))).mean()
+    return _global_mean(relu(x) - x * float(target)
+                        + torch.log1p(torch.exp(-abs_x)), mesh)

@@ -20,7 +20,9 @@ package.  Bias corrections are computed in float32 on the host.
 feature method (train.py:63-82).
 
 ``SGD``/``Adam`` hold the update rules on lists of tensors (``init``,
-``direction``).  ``FusedOptimizer`` runs them on one flat float32 buffer
+``direction``), in float32 (float64 for float64 parameters: the reference
+runs of tools/dist_check.py).  ``FusedOptimizer`` runs them on one flat
+float32 buffer
 over the leaves in the order it is given (the JAX package's flatten order,
 from io/convert.py) and writes the new values into the parameters in
 place.  Its buffers hold the leaves in the JAX package's order, each in
@@ -39,6 +41,11 @@ import torch
 _f = np.float32
 
 
+def _f32up(t: torch.Tensor) -> torch.Tensor:
+    """t in float32, or float64 when it is float64."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
 def _bias_corrections(b1: float, b2: float, count: int) -> Tuple[float, float]:
     t = _f(count)
     return float(_f(1.0) - _f(b1) ** t), float(_f(1.0) - _f(b2) ** t)
@@ -51,17 +58,16 @@ class SGD:
     nesterov: bool = False
 
     def init(self, params: Sequence[torch.Tensor]) -> Dict:
-        return {"momentum": [torch.zeros_like(p, dtype=torch.float32)
-                             for p in params]}
+        return {"momentum": [torch.zeros_like(_f32up(p)) for p in params]}
 
     def direction(self, grads, state, params
                   ) -> Tuple[List[torch.Tensor], Dict]:
         """(step directions to be scaled by lr, new state)."""
         steps, bufs = [], []
         for g, buf, p in zip(grads, state["momentum"], params):
-            d = g.float()
+            d = _f32up(g)
             if self.weight_decay:
-                d = d + self.weight_decay * p.float()
+                d = d + self.weight_decay * _f32up(p)
             new_buf = self.momentum * buf + d
             steps.append(d + self.momentum * new_buf if self.nesterov
                          else new_buf)
@@ -77,8 +83,8 @@ class Adam:
     weight_decay: float = 0.0
 
     def init(self, params: Sequence[torch.Tensor]) -> Dict:
-        return {"m": [torch.zeros_like(p, dtype=torch.float32) for p in params],
-                "v": [torch.zeros_like(p, dtype=torch.float32) for p in params],
+        return {"m": [torch.zeros_like(_f32up(p)) for p in params],
+                "v": [torch.zeros_like(_f32up(p)) for p in params],
                 "count": 0}
 
     def direction(self, grads, state, params
@@ -87,9 +93,9 @@ class Adam:
         bc1, bc2 = _bias_corrections(self.b1, self.b2, count)
         steps, ms, vs = [], [], []
         for g, m, v, p in zip(grads, state["m"], state["v"], params):
-            d = g.float()
+            d = _f32up(g)
             if self.weight_decay:
-                d = d + self.weight_decay * p.float()
+                d = d + self.weight_decay * _f32up(p)
             m_new = self.b1 * m + (1.0 - self.b1) * d
             v_new = self.b2 * v + (1.0 - self.b2) * d * d
             steps.append((m_new / bc1) / (torch.sqrt(v_new / bc2) + self.eps))
@@ -112,7 +118,8 @@ def make_optimizer(name: str, momentum: float, weight_decay: float,
 
 
 class FusedOptimizer:
-    """SGD or Adam over one flat float32 buffer of `params`, in their order.
+    """SGD or Adam over one flat float32 buffer of `params`, in their order
+    (float64 for float64 parameters).
 
     `lr_mult` gives one multiplier per parameter (None: all 1).  ``apply``
     takes the gradients in the same order, returns the new optimizer state
@@ -134,7 +141,10 @@ class FusedOptimizer:
                                    in zip(self.sizes, lr_mult)]).to(dev)
 
     def _flat(self, tensors) -> torch.Tensor:
-        return torch.cat([t.reshape(-1).float() for t in tensors])
+        tensors = list(tensors)
+        dtype = (torch.float64 if tensors and tensors[0].dtype == torch.float64
+                 else torch.float32)
+        return torch.cat([t.reshape(-1).to(dtype) for t in tensors])
 
     def init(self, params: Sequence[torch.Tensor]) -> Dict:
         return _unwrap(self.opt.init([self._flat(params)]))

@@ -28,9 +28,11 @@ import torch
 
 from s2r_tpu_torch.config import Config, check_ported
 from s2r_tpu_torch.core.device import resolve_device
+from s2r_tpu_torch.core.mesh import Mesh, make_mesh, rank_seed
 from s2r_tpu_torch.models.deeplab import DeepLab
 from s2r_tpu_torch.models.discriminator import FCDiscriminator
 from s2r_tpu_torch.models.domain import DomainClassifier
+from s2r_tpu_torch.models.layers import set_batchnorm_sync
 from s2r_tpu_torch.train.losses import build_seg_loss
 from s2r_tpu_torch.train.lr_schedule import make_lr_schedule
 from s2r_tpu_torch.train.optim import (SGD, Adam, FusedOptimizer,
@@ -53,6 +55,7 @@ class Method:
     init_state: Callable       # () -> TrainState
     aux_model: Optional[torch.nn.Module] = None  # D: discriminator or
     # domain classifier
+    mesh: Mesh = dataclasses.field(default_factory=Mesh)  # data parallel
 
     def eval_variables(self, state: TrainState) -> torch.nn.Module:
         """The segmenter for eval and inference: the module `state` holds
@@ -70,23 +73,25 @@ def build_method(cfg: Config, iters_per_epoch: int,
     if method is None:
         method = "source_only" if cfg.dataset == "gtav" else "feature_adapt"
     check_ported(cfg, method)
-    if n_devices != 1:
-        raise NotImplementedError(f"n_devices={n_devices}: the port runs on "
-                                  "one device (ROADMAP A.8)")
+    mesh = make_mesh(n_devices)
     device = resolve_device(device)
     if generator is None:
         generator = torch.Generator().manual_seed(cfg.seed)
     deeplab = DeepLab(num_classes=cfg.num_classes,
                       output_stride=cfg.out_stride, dtype=cfg.precision,
                       device=device, generator=generator,
-                      freeze_bn=cfg.freeze_bn, backbone=cfg.backbone)
-    seg_loss_fn = build_seg_loss(cfg.loss_type, class_weights)
+                      freeze_bn=cfg.freeze_bn, backbone=cfg.backbone,
+                      split_concat=cfg.split_concat,
+                      logits_dtype=cfg.logits_dtype)
+    set_batchnorm_sync(deeplab, mesh)
+    seg_loss_fn = build_seg_loss(cfg.loss_type, class_weights, mesh=mesh)
     lr_fn = make_lr_schedule(cfg.lr_scheduler, cfg.lr, cfg.epochs,
                              iters_per_epoch, cfg.lr_step, cfg.warmup_epochs)
     eval_step = make_eval_step(deeplab, seg_loss_fn, cfg.num_classes)
 
     def new_generator() -> torch.Generator:
-        return torch.Generator(device=device).manual_seed(cfg.seed)
+        return torch.Generator(device=device).manual_seed(
+            rank_seed(cfg.seed, mesh))
 
     if method == "output_adapt":
         discr = FCDiscriminator(num_classes=cfg.num_classes,
@@ -98,7 +103,8 @@ def build_method(cfg: Config, iters_per_epoch: int,
                     nesterov=cfg.nesterov)
         d_opt = Adam(b1=0.9, b2=0.99)
         step_fn = make_output_adapt_step(deeplab, discr, g_opt, d_opt, lr_fn,
-                                         seg_loss_fn, cfg.adv_softmax_axis)
+                                         seg_loss_fn, cfg.adv_softmax_axis,
+                                         mesh=mesh)
 
         def init_state() -> TrainState:
             """Step 0, zero optimizer state over the models' current
@@ -113,16 +119,18 @@ def build_method(cfg: Config, iters_per_epoch: int,
                               generator=new_generator())
 
         return Method(method, deeplab, step_fn, eval_step, init_state,
-                      aux_model=discr)
+                      aux_model=discr, mesh=mesh)
 
     # feature_adapt / source_only (train.py:47-82)
     domain = DomainClassifier(backbone=cfg.backbone, dtype=cfg.precision,
                               device=device, generator=generator)
+    set_batchnorm_sync(domain, mesh)
     opt = make_optimizer(cfg.optimizer, cfg.momentum, cfg.weight_decay,
                          cfg.nesterov)
     step_fn = make_feature_adapt_step(deeplab, domain, opt, opt, opt, lr_fn,
                                       seg_loss_fn,
-                                      source_only=(method == "source_only"))
+                                      source_only=(method == "source_only"),
+                                      mesh=mesh)
 
     def init_state() -> TrainState:
         """Step 0, the four zero optimizer states (train.py:63-82) over the
@@ -141,4 +149,4 @@ def build_method(cfg: Config, iters_per_epoch: int,
             generator=new_generator())
 
     return Method(method, deeplab, step_fn, eval_step, init_state,
-                  aux_model=domain)
+                  aux_model=domain, mesh=mesh)

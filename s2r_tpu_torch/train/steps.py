@@ -35,6 +35,21 @@ optimizer run; D is not touched.
 ``make_eval_step`` is the validation step (s2r_tpu/train/steps.py:300): an
 eval-mode forward of G, the seg loss on its float32 logits, the argmax and
 the confusion matrix, all on G's device.
+
+Data parallel (`mesh`, core/mesh.py, of more than one process; one
+process per device, each stepping its share of the global batch): the
+losses are this rank's shares of the global means (train/losses.py), the
+BatchNorm statistics global (models/layers.py ``set_batchnorm_sync``),
+and the batch-axis softmax is taken over the global batch
+(``batch_softmax``).  After the one ``torch.autograd.grad`` of a step the
+gradients are summed over the ranks in one flat buffer, then the fused
+optimizers apply them on every rank, so every rank holds the same state
+after every step; the logged losses are summed over the ranks in one
+more.  No DDP: the steps run G twice and D three times before their one
+gradient, and DDP would also re-broadcast the BatchNorm buffers from rank
+0 on every forward (here they come out equal on every rank).  Each rank
+draws its dropout masks from its own generator (train/setup.py).  At one
+process nothing of this runs.
 """
 
 from __future__ import annotations
@@ -44,6 +59,7 @@ from typing import Callable, Dict, List, Tuple
 import torch
 import torch.nn as nn
 
+from s2r_tpu_torch.core.mesh import Mesh
 from s2r_tpu_torch.eval.metrics import confusion_matrix
 from s2r_tpu_torch.io.convert import (deeplab_param_order,
                                       discriminator_param_order,
@@ -57,10 +73,57 @@ SOURCE_LABEL = 0.0  # train_adapt.py:117
 TARGET_LABEL = 1.0  # train_adapt.py:118
 
 
-def _adv_softmax(logits: torch.Tensor, mode: str) -> torch.Tensor:
+class _BatchSoftmax(torch.autograd.Function):
+    """Softmax over dim 0 of every rank's batch: the maximum and the sum of
+    exp over the batch all-reduced, and in the backward the sum of g * y;
+    the math in float32 (float64 stays float64), the result in x's type."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        f = torch.promote_types(x.dtype, torch.float32)
+        xf = x.to(f)
+        top = mesh.all_reduce_(xf.amax(0).contiguous(), op="max")
+        e = torch.exp(xf - top)
+        y = e / mesh.all_reduce_(e.sum(0))
+        ctx.save_for_backward(y)
+        ctx.mesh = mesh
+        return y.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, gy):
+        (y,) = ctx.saved_tensors
+        g = gy.to(y.dtype)
+        dot = ctx.mesh.all_reduce_((g * y).sum(0))
+        return (y * (g - dot)).to(gy.dtype), None
+
+
+def batch_softmax(logits: torch.Tensor, mesh=None) -> torch.Tensor:
+    """Softmax over the batch axis of NCHW logits, the global batch's under
+    `mesh` (the JAX package's softmax over a sharded batch axis)."""
+    if mesh is None or mesh.size == 1:
+        return torch.softmax(logits, dim=0)
+    return _BatchSoftmax.apply(logits, mesh)
+
+
+def _adv_softmax(logits: torch.Tensor, mode: str, mesh=None) -> torch.Tensor:
     """NCHW logits -> the map D sees: softmax over the batch axis
-    ('batch', the reference's dim=0) or over the classes ('class')."""
-    return torch.softmax(logits, dim=0 if mode == "batch" else 1)
+    ('batch', the reference's dim=0; the global batch under `mesh`) or
+    over the classes ('class')."""
+    if mode == "batch":
+        return batch_softmax(logits, mesh)
+    return torch.softmax(logits, dim=1)
+
+
+def _reduce_metrics(metrics: Dict, mesh) -> Dict:
+    """Loss shares -> the global values, summed over the ranks in float64
+    (one all-reduce); 'lr' is the same on every rank and passes."""
+    if mesh.size == 1:
+        return metrics
+    keys = [k for k in metrics if k != "lr"]
+    summed = mesh.all_reduce_(torch.stack([metrics[k].double()
+                                           for k in keys]))
+    return {**metrics, **{k: v.to(metrics[k].dtype)
+                          for k, v in zip(keys, summed)}}
 
 
 def _ordered(module: nn.Module, names: List[str]) -> List[nn.Parameter]:
@@ -106,7 +169,7 @@ def _no_pad(pad_to):
 def make_output_adapt_step(deeplab, discriminator, g_opt, d_opt,
                            lr_fn: Callable, seg_loss_fn: Callable,
                            adv_softmax_mode: str = "batch",
-                           pad_to: int = None):
+                           pad_to: int = None, mesh=None):
     """step(state, batch) -> (state, metrics) over `deeplab` (G) and
     `discriminator` (D), the modules `state` holds.
 
@@ -115,8 +178,11 @@ def make_output_adapt_step(deeplab, discriminator, g_opt, d_opt,
     'adv_loss', 'd_loss' and 'lr' as device tensors.  The modules are left
     in train mode.  Batch padding (`pad_to`) is not ported: it pays only on
     a TPU, where the JAX package pads the batch to the sublane width.
+    `mesh`: data parallel (module docstring); `seg_loss_fn` must then be
+    built over the same mesh.
     """
     _no_pad(pad_to)
+    mesh = mesh or Mesh()
     if adv_softmax_mode not in ("batch", "class"):
         raise ValueError(f"adv_softmax_mode {adv_softmax_mode!r}")
     g_params, g_mult = segmenter_params(deeplab)
@@ -136,20 +202,22 @@ def make_output_adapt_step(deeplab, discriminator, g_opt, d_opt,
         src_logits, _ = deeplab(src, generator=state.generator)
         tgt_logits, _ = deeplab(tgt, generator=state.generator)
         l_seg = seg_loss_fn(src_logits, label)
-        tp = _adv_softmax(tgt_logits, adv_softmax_mode)
-        sp = _adv_softmax(src_logits.detach(), adv_softmax_mode)
+        tp = _adv_softmax(tgt_logits, adv_softmax_mode, mesh)
+        sp = _adv_softmax(src_logits.detach(), adv_softmax_mode, mesh)
         # G's adversarial term: D constant (train_adapt.py:140-155)
         for p in d_params:
             p.requires_grad_(False)
         try:
-            l_adv = bce_with_logits(discriminator(tp), SOURCE_LABEL)
+            l_adv = bce_with_logits(discriminator(tp), SOURCE_LABEL, mesh)
         finally:
             for p in d_params:
                 p.requires_grad_(True)
         # D's terms on detached maps (train_adapt.py:157-178)
-        l_d = (bce_with_logits(discriminator(sp), SOURCE_LABEL)
-               + bce_with_logits(discriminator(tp.detach()), TARGET_LABEL))
-        grads = torch.autograd.grad(l_seg + l_adv + l_d, g_params + d_params)
+        l_d = (bce_with_logits(discriminator(sp), SOURCE_LABEL, mesh)
+               + bce_with_logits(discriminator(tp.detach()), TARGET_LABEL,
+                                 mesh))
+        grads = mesh.all_reduce_flat(torch.autograd.grad(
+            l_seg + l_adv + l_d, g_params + d_params))
         state.opt_state = {
             "G": fused_g.apply(grads[:n_g], state.opt_state["G"], g_params, lr),
             "D": fused_d.apply(grads[n_g:], state.opt_state["D"], d_params, lr)}
@@ -157,14 +225,15 @@ def make_output_adapt_step(deeplab, discriminator, g_opt, d_opt,
         metrics = {"seg_loss": l_seg.detach(), "adv_loss": l_adv.detach(),
                    "d_loss": l_d.detach(),
                    "lr": torch.tensor(lr, dtype=torch.float32, device=dev)}
-        return state, metrics
+        return state, _reduce_metrics(metrics, mesh)
 
     return step
 
 
 def make_feature_adapt_step(deeplab, domain_cls, task_opt, d_opt, d_inv_opt,
                             lr_fn: Callable, seg_loss_fn: Callable,
-                            source_only: bool = False, pad_to: int = None):
+                            source_only: bool = False, pad_to: int = None,
+                            mesh=None):
     """step(state, batch) -> (state, metrics) over `deeplab` (G) and
     `domain_cls` (D), the modules `state` holds.
 
@@ -174,9 +243,11 @@ def make_feature_adapt_step(deeplab, domain_cls, task_opt, d_opt, d_inv_opt,
     and 'lr' as device tensors (the middle three zeros with
     `source_only`).  state.opt_state is {'task', 'd', 'd_inv', 'c'};
     'c' is carried and never stepped (train.py:202-204).  The modules are
-    left in train mode.  Batch padding (`pad_to`) is not ported.
+    left in train mode.  Batch padding (`pad_to`) is not ported.  `mesh`:
+    data parallel (module docstring).
     """
     _no_pad(pad_to)
+    mesh = mesh or Mesh()
     g_params, _ = segmenter_params(deeplab)  # no 1x/10x groups here
     d_params = domain_params(domain_cls)
     f_params = feature_params(deeplab)
@@ -200,7 +271,7 @@ def make_feature_adapt_step(deeplab, domain_cls, task_opt, d_opt, d_inv_opt,
         task = seg_loss_fn(src_out, label)
         opt = dict(state.opt_state)
         if source_only:
-            grads = torch.autograd.grad(task, g_params)
+            grads = mesh.all_reduce_flat(torch.autograd.grad(task, g_params))
             opt["task"] = fused_task.apply(grads, opt["task"], g_params, lr)
             zero = torch.zeros((), dtype=torch.float32, device=dev)
             d_l = d_inv_l = d_acc = zero
@@ -211,10 +282,10 @@ def make_feature_adapt_step(deeplab, domain_cls, task_opt, d_opt, d_inv_opt,
             src_d = domain_cls(src_feat, generator=gen)
             _, tgt_feat = deeplab(tgt, generator=gen)
             tgt_d = domain_cls(tgt_feat, generator=gen)
-            d_l, d_acc = domain_loss(src_d, tgt_d)
-            d_inv_l, _ = domain_loss(tgt_d, src_d)
-            grads = torch.autograd.grad(task + d_l + d_inv_l,
-                                        g_params + d_params)
+            d_l, d_acc = domain_loss(src_d, tgt_d, mesh)
+            d_inv_l, _ = domain_loss(tgt_d, src_d, mesh)
+            grads = mesh.all_reduce_flat(torch.autograd.grad(
+                task + d_l + d_inv_l, g_params + d_params))
             # train.py:202-204, in torch's order: task over G, d over D,
             # then d_inv over the task-updated f with the same gradient
             opt["task"] = fused_task.apply(grads[:n_g], opt["task"],
@@ -227,7 +298,7 @@ def make_feature_adapt_step(deeplab, domain_cls, task_opt, d_opt, d_inv_opt,
         metrics = {"task_loss": task.detach(), "d_loss": d_l.detach(),
                    "d_inv_loss": d_inv_l.detach(), "d_acc": d_acc.detach(),
                    "lr": torch.tensor(lr, dtype=torch.float32, device=dev)}
-        return state, metrics
+        return state, _reduce_metrics(metrics, mesh)
 
     return step
 

@@ -6,7 +6,7 @@ train_adapt.py:29-255).  With no method given it is inferred from
 Data loaders, the method (train/setup.py), class-balanced weights, the
 experiment saver, summaries, resume, and the epoch loop with validation and
 best-mIoU checkpointing, on one device (``cuda`` unless the caller passes
-``device="cpu"``).
+``device="cpu"``) or data parallel, one process per device.
 
 - Batches are prefetched to the device (parallel/feed.py) and, with
   ``--device-aug``, augmented there (data/device_aug.py) from a sampler
@@ -15,6 +15,18 @@ best-mIoU checkpointing, on one device (``cuda`` unless the caller passes
   after it, as the JAX package does.
 - Validation accumulates the eval step's confusion matrices on the device
   in int64 (eval/metrics.py).
+
+Data parallel (a process group of more than one, core/distributed.py;
+s2r_tpu/train/trainer.py:97-133): each rank loads and augments its share
+of every global batch, and the step keeps the ranks' states equal
+(train/steps.py).  After init, ``--backbone-init`` and ``--resume``
+(every rank reads the same file) rank 0's state is broadcast, and each
+rank's dropout generator is seeded from (seed, rank, step).  Validation
+splits the val set over the ranks and all-reduces the confusion matrix
+and the loss, so best_pred is the same everywhere.  Rank 0 alone owns
+the experiment directory, the summaries and the checkpoints; the others
+write nothing, and train-image logging is skipped.  A barrier precedes
+``--resume auto``'s search and ends ``fit``.
 """
 
 from __future__ import annotations
@@ -28,6 +40,8 @@ import torch
 
 from s2r_tpu_torch.config import Config, check_ported
 from s2r_tpu_torch.core.device import resolve_device
+from s2r_tpu_torch.core.mesh import (pick_num_devices, rank_seed,
+                                     state_tensors)
 from s2r_tpu_torch.data import device_aug as DA
 from s2r_tpu_torch.data.loader import make_data_loader
 from s2r_tpu_torch.eval.metrics import evaluate
@@ -70,17 +84,26 @@ def resume_into(state, path: str, ft: bool):
     return payload["epoch"], payload["best_pred"]
 
 
+class _NullWriter:
+    """Summary-writer stand-in for the ranks other than 0."""
+
+    def add_scalar(self, *a, **k):
+        pass
+
+    def add_image(self, *a, **k):
+        pass
+
+    def close(self):
+        pass
+
+
 class Trainer:
     def __init__(self, cfg: Config, method: Optional[str] = None,
                  device: Optional[Union[str, torch.device]] = None):
         check_ported(cfg, method)
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.saver = Saver(cfg)
-        self.saver.save_experiment_config()
-        self.summary = TensorboardSummary(self.saver.experiment_dir)
-        self.writer = self.summary.create_summary()
-
+        n_devices = pick_num_devices(cfg.batch_size, cfg.num_devices)
         self.train_loader, self.val_loader, self.test_loader, self.nclass = \
             make_data_loader(cfg)
         weights = None
@@ -89,10 +112,23 @@ class Trainer:
                 cfg, self.train_loader, self.nclass), device=self.device)
         self.method: Method = build_method(cfg, len(self.train_loader),
                                            weights, method,
-                                           device=self.device)
+                                           device=self.device,
+                                           n_devices=n_devices)
+        self.mesh = self.method.mesh
+        # rank 0 alone owns the experiment directory, summaries and
+        # checkpoints (s2r_tpu/train/trainer.py:101-113)
+        self.is_main = self.mesh.rank == 0
+        self.saver = Saver(cfg, create=self.is_main)
+        if self.is_main:
+            self.saver.save_experiment_config()
+            self.summary = TensorboardSummary(self.saver.experiment_dir)
+            self.writer = self.summary.create_summary()
+        else:
+            self.summary, self.writer = None, _NullWriter()
         self.state = self.method.init_state()
         self.train_step = self.method.step_fn
         self.eval_step = self.method.eval_step
+        self.evaluator = None  # the last validation's (eval/metrics.py)
         self.best_pred = 0.0
         self.start_epoch = cfg.start_epoch
         if cfg.backbone_init:
@@ -100,6 +136,10 @@ class Trainer:
             print(f"=> initialized backbone from '{cfg.backbone_init}'")
         if cfg.resume:
             self._resume(cfg.resume)
+        if self.mesh.size > 1:
+            self.mesh.broadcast_(state_tensors(self.state))
+            self.state.generator.manual_seed(
+                rank_seed(cfg.seed, self.mesh, self.state.step))
 
     # ------------------------------------------------------------------
     def _resume(self, path: str):
@@ -108,6 +148,7 @@ class Trainer:
         the optimizer state is not restored and start_epoch stays;
         ``auto`` takes the newest checkpoint.ckpt of this run directory."""
         if path == "auto":
+            self.mesh.barrier()
             path = latest_checkpoint(self.saver.directory)
             if path is None:
                 print("=> --resume auto: no prior checkpoint found, "
@@ -124,10 +165,13 @@ class Trainer:
         if not cfg.device_aug:
             return DA.normalize_u8_batch(arrays)
         gen = DA.batch_generator(cfg.seed, epoch, i)
+        shard = dict(process_index=self.mesh.rank,
+                     process_count=self.mesh.size)
         if "src_image" in arrays:
             return DA.augment_paired_batch(arrays, gen, cfg.base_size,
-                                           cfg.crop_size)
-        return DA.augment_batch(arrays, gen, cfg.base_size, cfg.crop_size)
+                                           cfg.crop_size, **shard)
+        return DA.augment_batch(arrays, gen, cfg.base_size, cfg.crop_size,
+                                **shard)
 
     def training(self, epoch: int) -> Dict[str, float]:
         cfg = self.cfg
@@ -148,7 +192,7 @@ class Trainer:
             self.state, metrics = self.train_step(self.state, arrays)
             pending.append(metrics)
             images_seen += cfg.batch_size
-            if i % vis_every == 0:
+            if i % vis_every == 0 and self.mesh.size == 1:
                 self._log_train_images(arrays, epoch * num_img_tr + i)
 
         sums: Dict[str, float] = {}
@@ -168,7 +212,7 @@ class Trainer:
               + " ".join(f"{k}: {means[k]:.3f}" for k in loss_keys)
               + f" ({means['images_per_sec']:.1f} img/s)")
 
-        if cfg.no_val:
+        if cfg.no_val and self.is_main:
             self.saver.save_checkpoint(self.state, epoch + 1, self.best_pred,
                                        is_best=False)
         return means
@@ -188,7 +232,8 @@ class Trainer:
     # ------------------------------------------------------------------
     def validation(self, epoch: int) -> float:
         ev, test_loss = evaluate(self.eval_step, self.val_loader,
-                                 self.device, self.nclass)
+                                 self.device, self.nclass, self.mesh)
+        self.evaluator = ev
         acc = ev.Pixel_Accuracy()
         acc_class = ev.Pixel_Accuracy_Class()
         miou, _ = ev.Mean_Intersection_over_Union()
@@ -204,8 +249,9 @@ class Trainer:
 
         if miou > self.best_pred:
             self.best_pred = miou
-            self.saver.save_checkpoint(self.state, epoch + 1, self.best_pred,
-                                       is_best=True)
+            if self.is_main:
+                self.saver.save_checkpoint(self.state, epoch + 1,
+                                           self.best_pred, is_best=True)
         return miou
 
     # ------------------------------------------------------------------
@@ -223,12 +269,14 @@ class Trainer:
         except KeyboardInterrupt:
             # an interrupt should not cost the epoch
             print(f"\n=> interrupted at epoch {epoch}; saving checkpoint")
-            self.saver.save_checkpoint(self.state, epoch, self.best_pred,
-                                       is_best=False)
+            if self.is_main:
+                self.saver.save_checkpoint(self.state, epoch, self.best_pred,
+                                           is_best=False)
             raise
         finally:
             # every submitted save is on disk (or its error raised) before
             # fit() returns
             self.saver.wait()
             self.writer.close()
+        self.mesh.barrier()
 

@@ -114,7 +114,9 @@ def test_servable_meta_round_trips(seeded, tmp_path, flags):
     info = _export(ckpt, out, *flags)
     meta, weights = read_servable(out)
     assert meta == info
-    assert set(jax_info) | {"precision"} == set(meta)
+    # the port's meta adds the compute precision and split_concat
+    assert set(jax_info) | {"precision", "split_concat"} == set(meta)
+    assert meta["split_concat"] is False
     assert meta["format"] == "s2r_tpu_torch.servable"
     assert (meta["epoch"], meta["best_pred"]) == (5, 0.75)
     assert meta["input_shape"] == [BATCH, HW, HW, 3]
@@ -158,11 +160,24 @@ def test_input_shape_is_checked(seeded, tmp_path):
 
 
 def test_unported_export_flags_raise(seeded, tmp_path):
+    """A platform the port lacks raises; --serve-split-concat (ported)
+    exports a servable whose meta records the flag, rebuilt with
+    split_concat by load_servable, whose labels are the concat model's."""
     ckpt = seeded[3]
     with pytest.raises(ValueError, match="platforms"):
         _export(ckpt, str(tmp_path / "a"), "--serve-platforms", "tpu")
-    with pytest.raises(NotImplementedError, match="A.5"):
-        _export(ckpt, str(tmp_path / "b"), "--serve-split-concat")
+    split, plain = str(tmp_path / "b"), str(tmp_path / "c")
+    assert _export(ckpt, split, "--serve-split-concat")["split_concat"]
+    assert not _export(ckpt, plain)["split_concat"]
+    serve_split = load_servable(split, device="cpu")
+    serve_plain = load_servable(plain, device="cpu")
+    assert serve_split.model.aspp.split_concat
+    assert serve_split.model.decoder.split_concat
+    assert not serve_plain.model.split_concat
+    frames = _frames(BATCH, seed=4).astype(np.float32)
+    with torch_threads():
+        got, want = serve_split(frames), serve_plain(frames)
+    assert torch.equal(got, want)
 
 
 SIZES = [(50, 70), (64, 64), (81, 47), (37, 90), (64, 65)]

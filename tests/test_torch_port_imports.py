@@ -75,7 +75,10 @@ def test_port_imports_no_jax_flax_or_jax_package():
                 "s2r_tpu_torch.cli.infer", "s2r_tpu_torch.utils.tree",
                 "s2r_tpu_torch.tools.profile_infer",
                 "s2r_tpu_torch.models.resnet", "s2r_tpu_torch.models.xception",
-                "s2r_tpu_torch.models.drn"):
+                "s2r_tpu_torch.models.drn", "s2r_tpu_torch.core.mesh",
+                "s2r_tpu_torch.core.distributed",
+                "s2r_tpu_torch.tools.dist_check",
+                "s2r_tpu_torch.tools.profile_dist"):
         assert mod in result["modules"]
     leaked = [m for m in FORBIDDEN if m in result["loaded"]]
     assert not leaked, leaked

@@ -4,7 +4,9 @@ the CPU.
 
 - config_from_args equals JAX's field by field for a set of argv lists,
   and the two parsers register the same flags, dests, defaults and
-  choices; each flag whose feature the port lacks raises.
+  choices; each flag whose feature the port lacks raises, and the flags
+  ported since (--num-devices under a world of 2, --logits-dtype,
+  --split-concat) parse and build.
 - Saver: the same files and model_best promotions as JAX's over one
   sequence of best_preds across three experiments.
 - An asynchronous save holds the pre-step values even when a step runs
@@ -92,10 +94,36 @@ def test_parsers_register_the_same_flags():
     assert dataclasses.asdict(PC.Config()) == dataclasses.asdict(JC.Config())
 
 
+# flags of UNPORTED whose features are ported now: they parse and build
+PORTED = {"--num-devices", "--logits-dtype", "--split-concat"}
+
+
+def _world_of(monkeypatch, world: int, rank: int = 0):
+    """Pretend this process is `rank` of a process group of `world` (no
+    collective runs while a method is built)."""
+    from s2r_tpu_torch.core import mesh
+    monkeypatch.setattr(mesh, "process_info", lambda: (rank, world))
+
+
 @pytest.mark.parametrize("argv,flag", UNPORTED)
-def test_unported_flag_raises(argv, flag):
-    with pytest.raises(NotImplementedError, match=flag):
-        PC.config_from_args(_parse(PC, argv)[1])
+def test_unported_flag_raises(argv, flag, monkeypatch):
+    if flag not in PORTED:
+        with pytest.raises(NotImplementedError, match=flag):
+            PC.config_from_args(_parse(PC, argv)[1])
+        return
+    from s2r_tpu_torch.core.mesh import pick_num_devices
+    from s2r_tpu_torch.train.setup import build_method
+
+    if flag == "--num-devices":
+        _world_of(monkeypatch, 2)
+    cfg = PC.config_from_args(_parse(PC, argv)[1])
+    n = pick_num_devices(cfg.batch_size, cfg.num_devices)
+    m = build_method(cfg, 1, method="output_adapt", device="cpu",
+                     n_devices=n)
+    assert m.mesh.size == n == (2 if flag == "--num-devices" else 1)
+    assert m.deeplab.split_concat == (flag == "--split-concat")
+    assert m.deeplab.logits_dtype == (torch.bfloat16
+                                      if flag == "--logits-dtype" else None)
 
 
 @pytest.mark.parametrize("backbone", ["mobilenet", "resnet", "resnet101",
@@ -111,10 +139,12 @@ def test_backbone_flag_is_ported(backbone):
     PC.check_ported(cfg, "output_adapt")
 
 
-def test_unported_methods_raise():
-    """All three methods are ported; a name outside them raises, and so
-    does more than one device.  The feature methods build and take a step
-    on a ResNet backbone (they raised before it was ported)."""
+def test_unported_methods_raise(monkeypatch):
+    """All three methods are ported; a name outside them raises.  The
+    feature methods build and take a step on a ResNet backbone (they
+    raised before it was ported).  Two devices build under a process
+    group of two, with every BatchNorm synchronized over it, and raise
+    in a process of one."""
     from s2r_tpu_torch.train.setup import build_method
 
     with pytest.raises(ValueError, match="unknown method"):
@@ -133,8 +163,15 @@ def test_unported_methods_raise():
             _, met = m.step_fn(m.init_state(), batch)
         assert m.deeplab.backbone_name == "resnet50"
         assert np.isfinite(float(met["task_loss"]))
-    with pytest.raises(NotImplementedError, match="A.8"):
+    with pytest.raises(ValueError, match="one of 1"):
         build_method(PC.Config(), 1, device="cpu", n_devices=2)
+    _world_of(monkeypatch, 2, rank=1)
+    m = build_method(PC.Config(), 1, device="cpu", n_devices=2)
+    assert (m.mesh.size, m.mesh.rank) == (2, 1)
+    from s2r_tpu_torch.models.layers import BatchNorm
+    bns = [b for net in (m.deeplab, m.aux_model) for b in net.modules()
+           if isinstance(b, BatchNorm)]
+    assert len(bns) == 62 and all(b.sync is m.mesh for b in bns)
 
 
 def _promotions(saver_cls, cfg, save, load, tmp_path):
