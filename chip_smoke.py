@@ -6,8 +6,9 @@
 Phases, each of which must pass:
 
 1. Build the hand-written kernels (s2r_tpu_torch/csrc/*.cu) with plain nvcc
-   and the host imaging library (csrc/host/imaging.cpp) with g++, one
-   process per source, all at once, into s2r_tpu_torch/_build/.
+   and the host libraries (csrc/host/imaging.cpp, the native pipeline
+   csrc/host/pipeline.cpp) with g++, one process per source, all at once,
+   into s2r_tpu_torch/_build/.
 2. Hold each kernel against its plain PyTorch version on the card, at every
    shape the serving path (2048x1024 batch 8, 513x513 batch 1), the train
    step (512x1024 batch 8) and the train_adapt driver of phase 5 (512x512:
@@ -206,14 +207,31 @@ Phases, each of which must pass:
    with --logits-dtype bf16 against float32 logits, in turns;
    cli.export --serve-split-concat of phase 5's final state and cli.infer
    over phase 8's frames, labels equal to make_serving_fn in this process.
-11. Print the kernels line (each kernel's launches, and by the paths
-   that launched it; floats to 6 significant digits), the card's name
-   and power limit, and as the last line {"ok": true, "device": {...}}.
+11. The native data path (--data-backend native) on phase 7's fixture
+   recipe.  (a) The pipeline's outputs on seeded PNGs hash to
+   NATIVE_DIGEST, which tests/test_torch_port_native.py holds the port to
+   on the CPU and ties to the JAX package's native library.  (b) Every
+   fixture decodes through the native decoder to the array written, the
+   P-mode GTA5 labels to their palette indices (ROADMAP C.12).  (c)
+   train_adapt --data-backend native for one epoch at phase 7's argv
+   (finite losses, mIoU in [0, 1]), then val_adapt with the per-image
+   export and test_adapt through NativeEvalLoader, launches as predicted.
+   (d) The native loader alone at 4 and 8 threads and a profiled epoch's
+   images/s and idle share, beside phase 7's host route; bench.py's
+   train_e2e configuration (TRAIN_HW crops, blur off, uint8, batch 8
+   bf16, the output step): images/s end to end and the loader's alone.
+   None of these is a gate.  (e) train_adapt with --profile-dir writes
+   one trace file that names the hand-written kernels; one more traced
+   epoch's host memory and trace size.
+12. Print the kernels line (each kernel's launches, and by the paths
+   that launched it, phase 11's runs under 'native'; floats to 6
+   significant digits), the card's name and power limit, and as the last
+   line {"ok": true, "device": {...}}.
 
 Without a CUDA device, or outside a checkout holding s2r_tpu_torch, it exits
 non-zero and prints no result.  Float32 convs run with TF32 off.  It writes
 the kernel build directory, and phase 5's run root in the temporary
-directory (and phase 6d's, 7's, 8's, 9's and 10's, the checkpoints phases
+directory (and phase 6d's, 7's, 8's, 9's, 10's and 11's, the checkpoints phases
 5 and 6d hand to phases 8 and 10 and the frames phase 8 hands to phases 9
 and 10), which it removes.
 """
@@ -1920,6 +1938,58 @@ def imaging_digest(resize, blur, transform):
     return h.hexdigest()
 
 
+# Phase 11: the SHA-256 of the native pipeline's outputs on the seeded
+# calls of native_digest; tests/test_torch_port_native.py holds the port
+# to it on the CPU, and those outputs to the JAX package's native library
+# (bytes equal, float32 within one ulp).
+NATIVE_DIGEST = ("61fe09e61b8f75eb151edb3e0509280f"
+                 "cd098e408ad6b02f7755c7463bdd211a")
+
+
+def native_digest(native, root):
+    """(SHA-256, outputs) of native.train_batch (seeded draws, blur on,
+    forced off, with and without targets, float32 and emit_u8, a square
+    and a rectangular crop) and native.eval_batch (with labels and
+    without) over PNGs made from SEED and written under `root` (L-mode
+    labels of labelIds; the frames from 24x40 up to 120x200, some smaller
+    than the crops)."""
+    import hashlib
+
+    from s2r_tpu_torch.data.datasets import _LUT
+    from s2r_tpu_torch.data.normalize import IMAGENET_MEAN, IMAGENET_STD
+    from s2r_tpu_torch.utils.png import write_png
+
+    rs = np.random.RandomState(SEED)
+    paths = {"src": [], "lbl": [], "tgt": []}
+    for i in range(6):
+        h, th = (int(v) for v in rs.randint(24, 121, 2))
+        w, tw = (int(v) for v in rs.randint(40, 201, 2))
+        frames = {"src": rs.randint(0, 256, (h, w, 3)),
+                  "lbl": rs.randint(0, 34, (h, w)),
+                  "tgt": rs.randint(0, 256, (th, tw, 3))}
+        for kind, a in frames.items():
+            paths[kind].append(os.path.join(root, f"{kind}{i}.png"))
+            write_png(paths[kind][-1], a.astype(np.uint8),
+                      filters=(0, 1, 2, 3, 4))
+    outs = []
+    for crop, tgt, u8 in ((64, True, False), ((48, 80), True, True),
+                          (64, False, True), ((48, 80), False, False)):
+        outs += [a for a in native.train_batch(
+            paths["src"], paths["lbl"], paths["tgt"] if tgt else None, 56,
+            crop, _LUT, IMAGENET_MEAN, IMAGENET_STD,
+            seeds=rs.randint(0, 2 ** 62, 6).astype(np.uint64), blur=True,
+            emit_u8=u8, threads=3) if a is not None]
+    outs += list(native.eval_batch(paths["src"], paths["lbl"], 72, _LUT,
+                                   IMAGENET_MEAN, IMAGENET_STD, 4))
+    outs += list(native.eval_batch(paths["tgt"], None, 40, _LUT,
+                                   IMAGENET_MEAN, IMAGENET_STD, 2))
+    h = hashlib.sha256()
+    for a in outs:
+        h.update(str((a.dtype.str, a.shape)).encode())
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest(), outs
+
+
 def png_size(path):
     """(width, height) from a PNG's IHDR."""
     with open(path, "rb") as f:
@@ -2087,9 +2157,10 @@ def profiled_epoch(trainer, epoch):
     return wall, dev, max(0.0, 1.0 - dev / wall)
 
 
-def real_data_phase(counted, smi):
+def real_data_phase(counted, smi, carry):
     """Phase 7: the real datasets.  Returns the launches of each entry
-    point it drives."""
+    point it drives, and puts the host route's loader and epoch rates in
+    carry['host_route'] (for phase 11)."""
     import random
     from concurrent.futures import ThreadPoolExecutor
 
@@ -2105,7 +2176,8 @@ def real_data_phase(counted, smi):
         f"{'equal' if digest == IMAGING_DIGEST else 'DIFFERENT'} to PIL's")
     require(digest == IMAGING_DIGEST, "imaging digest differs from PIL's")
     root = tempfile.mkdtemp(prefix="s2r_real_")
-    by_path = {}
+    by_path, profiled = {}, {}
+    carry["host_route"] = host = {"loader": {}}
     try:
         data = os.path.join(root, "data")
         t0 = time.perf_counter()
@@ -2148,6 +2220,7 @@ def real_data_phase(counted, smi):
             trainer.writer = trainer.summary.create_summary()  # fit closed it
             wall, dev, idle = profiled_epoch(trainer, trainer.cfg.epochs)
             n_img = len(trainer.train_loader) * trainer.cfg.batch_size
+            profiled[key] = (rate, n_img / wall, idle)
             log(f"[7 {key}] {steps} steps in {seconds:.1f} s, launches as "
                 f"predicted; epoch images/s {', '.join(f'{v:.2f}' for v in rate)}"
                 f"; a profiled epoch {n_img / wall:.2f} images/s, device "
@@ -2162,6 +2235,7 @@ def real_data_phase(counted, smi):
                                        argv + run("a"))
         train_check("real_train_adapt", trainer, launches, sec,
                     "output_adapt")
+        host["epoch"] = profiled["real_train_adapt"]
         loader = trainer.train_loader
         n_img = len(loader) * loader.batch_size
         for w in (4, 8):
@@ -2170,6 +2244,7 @@ def real_data_phase(counted, smi):
             for _ in loader:
                 pass
             s = time.perf_counter() - t0
+            host["loader"][w] = n_img / s
             log(f"[7 loader] host path alone, {w} workers: {n_img / s:.2f} "
                 f"images/s ({n_img} GTA5 + Cityscapes pairs: decode, "
                 f"scale-crop, blur) ({smi})")
@@ -3288,6 +3363,261 @@ def split_concat_phase(counted, smi, carry):
     return by_path, summary
 
 
+# phase 11: the native data path (--data-backend native) on phase 7's
+# fixtures, at the phase 5 cell; bench.py's train_e2e at the train cell
+# (TRAIN_HW crops, blur off, uint8 batches, BATCH, bf16, the output step)
+NATIVE_E2E_STEPS = 5  # timed, after 2 warm-up steps (bench.py --quick)
+TRACE_KERNELS = ("dw3x3_sweep", "dw3x3_dk_sweep", "bn_sums",
+                 "bn_elementwise", "disc_conv1_tc")
+
+
+def rss_mb():
+    """This process's resident memory, MiB (VmRSS)."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) / 1024
+    raise Failed("no VmRSS in /proc/self/status")
+
+
+def native_e2e(counted, roots, smi):
+    """bench.py's train_e2e (bench.py:274-349) on the port: the native
+    train loader at TRAIN_HW crops, blur off, emit_u8, 2 x cores threads,
+    through the prefetch to the card and normalize_u8_batch into the
+    output step (BATCH, bf16).  Returns (images/s, the loader's alone,
+    launches)."""
+    import itertools
+
+    from s2r_tpu_torch.config import Config
+    from s2r_tpu_torch.data.datasets import recursive_glob
+    from s2r_tpu_torch.data.device_aug import normalize_u8_batch
+    from s2r_tpu_torch.data.native_loader import NativeTrainLoader
+    from s2r_tpu_torch.parallel.feed import prefetch_to_device
+    from s2r_tpu_torch.train.setup import build_method
+
+    h, w = TRAIN_HW
+    threads = 2 * (os.cpu_count() or 1)
+    loader = NativeTrainLoader(
+        recursive_glob(roots["src_img_root"], ".png"),
+        roots["src_label_root"], recursive_glob(roots["tgt_img_root"], ".png"),
+        base_size=h, crop_size=(h, w), batch_size=BATCH, threads=threads,
+        blur=False, emit_u8=True)
+    it = iter(loader)
+    next(it)
+    t0 = time.perf_counter()
+    n_host = sum(len(b["src_image"]) for b in it)
+    host_rate = n_host / (time.perf_counter() - t0)
+    cfg = Config(crop_size=h, base_size=h, batch_size=BATCH, precision="bf16",
+                 dataset="synthetic")
+    method = build_method(cfg, 1000, method="output_adapt", device=DEV)
+    state = method.init_state()
+
+    def batches():
+        for ep in itertools.count():
+            loader.set_epoch(ep)
+            yield from prefetch_to_device(loader, DEV)
+
+    feed = batches()
+    try:
+        for _ in range(2):
+            state, _ = method.step_fn(state, normalize_u8_batch(next(feed)))
+        reset(counted)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(NATIVE_E2E_STEPS):
+            state, _ = method.step_fn(state, normalize_u8_batch(next(feed)))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    finally:
+        feed.close()
+    launches = {fn.__name__: fn.launches for fn in counted}
+    require(launches == predicted("output_adapt", NATIVE_E2E_STEPS, 0),
+            f"train_e2e launches {launches}")
+    log(f"[11 train_e2e] {BATCH * NATIVE_E2E_STEPS / dt:.2f} images/s end "
+        f"to end ({TRAIN_HW[1]}x{TRAIN_HW[0]} crops, blur off, uint8, "
+        f"batch {BATCH} bf16, the output step, {NATIVE_E2E_STEPS} steps "
+        f"after 2); the native loader alone {host_rate:.2f} images/s on "
+        f"{threads} threads; launches as predicted ({smi})")
+    return BATCH * NATIVE_E2E_STEPS / dt, host_rate, launches
+
+
+def native_phase(counted, smi, carry):
+    """Phase 11: the native data path.  Returns the launches of its runs,
+    summed under 'native'."""
+    import glob
+    from concurrent.futures import ThreadPoolExecutor
+
+    from s2r_tpu_torch.cli import test_adapt, train_adapt, val_adapt
+    from s2r_tpu_torch.data import native
+    from s2r_tpu_torch.data.native_loader import (NativeEvalLoader,
+                                                  NativeTrainLoader)
+    from s2r_tpu_torch.tools import fixtures
+    from s2r_tpu_torch.utils import profiling
+
+    os.environ.pop("S2R_PLATFORM", None)  # the card, as a user runs it
+    root = tempfile.mkdtemp(prefix="s2r_native_")
+    runs = []
+    try:
+        # (a) the library against the JAX package's, through the digest
+        os.makedirs(os.path.join(root, "digest"))
+        digest, _ = native_digest(native, os.path.join(root, "digest"))
+        log(f"[11 digest] native pipeline {digest[:16]}..: "
+            f"{'equal' if digest == NATIVE_DIGEST else 'DIFFERENT'} to the "
+            "CPU's, which tests/test_torch_port_native.py holds to the JAX "
+            "package's native library")
+        require(digest == NATIVE_DIGEST, "native digest differs")
+
+        # (b) the fixtures decode to what was written; P-mode GTA5 labels
+        # to their palette indices
+        data = os.path.join(root, "data")
+        files = fixtures.write_fixtures(data, **REAL_FRAMES)
+
+        def decodes_back(f):
+            return np.array_equal(
+                native.decode_png(f[0], 3 if f[1] == "rgb" else 1), f[2])
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(8) as pool:
+            same = list(pool.map(decodes_back, files))
+        dec_s = time.perf_counter() - t0
+        n_p = sum(1 for f in files if f[1] == "raw" and "gta5" in f[0])
+        log(f"[11 decode] {len(files)} fixture PNGs through the native "
+            f"decoder on 8 threads in {dec_s:.2f} s, {sum(same)} equal to "
+            f"the arrays written; {n_p} P-mode GTA5 labels give their "
+            "palette indices (ROADMAP C.12)")
+        require(all(same), "a fixture decodes to other pixels than written")
+        del files
+        argv = list(REAL_ARGV) + ["--data-backend", "native"]
+        for k, v in fixtures.roots(data).items():
+            argv += [f"--{k}", v]
+        run = ["--run-root", os.path.join(root, "run")]
+
+        # (c) train_adapt one epoch, val_adapt, test_adapt
+        trainer, launches, sec = drive(counted, train_adapt.main, argv + run)
+        cfg = trainer.cfg
+        require(isinstance(trainer.train_loader, NativeTrainLoader)
+                and isinstance(trainer.val_loader, NativeEvalLoader)
+                and isinstance(trainer.test_loader, NativeEvalLoader),
+                "train_adapt --data-backend native: not the native loaders")
+        steps = trainer.state.step
+        want = predicted("output_adapt", steps, fit_eval_forwards(trainer))
+        require(launches == want,
+                f"native train_adapt launches {launches}, expected {want}")
+        runs.append(launches)
+        sc = read_scalars(trainer.saver.experiment_dir)
+        for tag in ("train/seg_loss", "train/adv_loss", "train/d_loss",
+                    "val/total_loss_epoch"):
+            require(all(np.isfinite(v) for _, v in sc[tag]),
+                    f"native train_adapt {tag}: {sc[tag]}")
+        require(0.0 <= trainer.best_pred <= 1.0,
+                f"native train_adapt mIoU {trainer.best_pred}")
+        rate = sc["train/images_per_sec"][0][1]
+        loader = trainer.train_loader
+        n_img = len(loader) * loader.batch_size
+        alone = {}
+        for w in (4, 8):
+            loader.threads = w
+            t0 = time.perf_counter()
+            for _ in loader:
+                pass
+            alone[w] = n_img / (time.perf_counter() - t0)
+        trainer.writer = trainer.summary.create_summary()  # fit closed it
+        wall, dev, idle = profiled_epoch(trainer, cfg.epochs)
+        log(f"[11 train_adapt] {steps} steps in {sec:.1f} s, launches as "
+            f"predicted; seg_loss {sc['train/seg_loss'][0][1]:.4f}, mIoU "
+            f"{trainer.best_pred:.6f}; epoch {rate:.2f} images/s; a "
+            f"profiled epoch {n_img / wall:.2f} images/s, device {dev:.3f} "
+            f"of {wall:.3f} s, idle {idle:.3f} ({smi})")
+        final = trainer.saver.save_checkpoint(trainer.state, 1,
+                                              trainer.best_pred, False,
+                                              filename="final.ckpt")
+        trainer.saver.wait()
+        trainer.writer.close()
+        n_val = len(trainer.val_loader)
+        n_test = len(trainer.test_loader)
+        del trainer, loader
+        out = os.path.join(root, "val")
+        (miou, _), launches, sec = drive(
+            counted, val_adapt.main,
+            argv + run + ["--resume", final, "--out-dir", out])
+        require(launches == predicted("output_adapt", 0, 2 * n_val),
+                f"native val_adapt launches {launches}")
+        require(0.0 <= miou <= 1.0, f"native val_adapt mIoU {miou}")
+        check_exports(os.path.join(out, "predictions"), REAL_FRAMES["n_val"],
+                      True)
+        runs.append(launches)
+        out = os.path.join(root, "test")
+        _, launches, sec_t = drive(
+            counted, test_adapt.main,
+            argv + run + ["--resume", final, "--out-dir", out])
+        require(launches == predicted("output_adapt", 0, n_test),
+                f"native test_adapt launches {launches}")
+        check_exports(out, n_test * cfg.batch_size, False)
+        runs.append(launches)
+        log(f"[11 val_adapt, test_adapt] mIoU {miou:.6f}, "
+            f"{REAL_FRAMES['n_val']} val pairs exported at 1280x640 in "
+            f"{sec:.1f} s; {n_test * cfg.batch_size} test frames in "
+            f"{sec_t:.1f} s; launches as predicted")
+
+        # (d) the native route beside phase 7's host route, this run
+        host = carry["host_route"]
+        for w in (4, 8):
+            log(f"[11 loader] alone, {w} threads: native "
+                f"{alone[w]:.2f} images/s, host route "
+                f"{host['loader'][w]:.2f} ({n_img} GTA5 + Cityscapes pairs, "
+                f"phase 5 cell) ({smi})")
+        log(f"[11 epoch] native {rate:.2f} images/s, profiled "
+            f"{n_img / wall:.2f}, idle {idle:.3f}; host route "
+            f"{host['epoch'][0][0]:.2f}, profiled {host['epoch'][1]:.2f}, "
+            f"idle {host['epoch'][2]:.3f} ({smi})")
+        _, _, e2e_launches = native_e2e(counted, fixtures.roots(data), smi)
+        runs.append(e2e_launches)
+
+        # (e) --profile-dir: the driver writes a trace holding the kernels;
+        # then one more epoch traced directly, its host memory measured
+        prof = os.path.join(root, "prof")
+        trainer, launches, sec = drive(
+            counted, train_adapt.main,
+            argv + ["--run-root", os.path.join(root, "run_prof"),
+                    "--profile-dir", prof])
+        require(launches == predicted("output_adapt", trainer.state.step,
+                                      fit_eval_forwards(trainer)),
+                f"--profile-dir launches {launches}")
+        runs.append(launches)
+        traces = glob.glob(os.path.join(prof, "*.pt.trace.json"))
+        require(len(traces) == 1, f"--profile-dir wrote {traces}")
+        with open(traces[0]) as f:
+            events = json.load(f)["traceEvents"]
+        kernels = {e.get("name", "") for e in events
+                   if e.get("cat") == "kernel"}
+        found = {k: sum(k in n for n in kernels) for k in TRACE_KERNELS}
+        require(all(found.values()),
+                f"trace kernels: {found} of {len(kernels)} names")
+        trace_mb = os.path.getsize(traces[0]) / 2 ** 20
+        del events, kernels
+        trainer.writer = trainer.summary.create_summary()
+        prof2 = os.path.join(root, "prof2")
+        rss0 = rss_mb()
+        with profiling.trace(prof2):
+            trainer.training(trainer.cfg.epochs)
+            torch.cuda.synchronize()
+            held = rss_mb() - rss0
+        trainer.saver.wait()
+        trainer.writer.close()
+        epoch_mb = sum(os.path.getsize(p) for p in glob.glob(
+            os.path.join(prof2, "*.pt.trace.json"))) / 2 ** 20
+        log(f"[11 profile-dir] train_adapt --profile-dir: one trace file of "
+            f"{trace_mb:.1f} MiB (one epoch and validation), the kernels "
+            + ", ".join(f"{k} x{v}" for k, v in found.items())
+            + f" by name; one traced epoch held {held:.0f} MiB of host "
+            f"memory before its export and wrote {epoch_mb:.1f} MiB ({smi})")
+        del trainer
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    total = {k: sum(r[k] for r in runs) for k in runs[0]}
+    return {"native": total}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3317,8 +3647,9 @@ def main():
         t0 = time.perf_counter()
         libs = build.build_all()
         log(f"[build] {len(libs)} libraries built at once: the kernels "
-            f"with nvcc ({' '.join(build.NVCC_FLAGS)}), the host imaging "
-            f"library with g++ ({' '.join(build.GXX_FLAGS)}), in "
+            f"with nvcc ({' '.join(build.NVCC_FLAGS)}), the host libraries "
+            f"{', '.join(build.HOST_SOURCES)} with g++ "
+            f"({' '.join(build.GXX_FLAGS + build.GXX_LIBS)}), in "
             f"{time.perf_counter() - t0:.1f} s")
         smi = card()
         log(f"[card] {smi}; torch {torch.__version__}, CUDA "
@@ -3348,7 +3679,7 @@ def main():
         torch.cuda.empty_cache()
         driver_launches = train_phase(counted, carry)
         torch.cuda.empty_cache()
-        driver_launches.update(real_data_phase(counted, smi))
+        driver_launches.update(real_data_phase(counted, smi, carry))
         torch.cuda.empty_cache()
         driver_launches.update(checkpoint_phase(counted, smi, carry))
         torch.cuda.empty_cache()
@@ -3371,6 +3702,10 @@ def main():
                                                            carry)
         driver_launches.update(split_launches)
         log(f"[10] phase 10 in {time.perf_counter() - t10:.1f} s")
+        torch.cuda.empty_cache()
+        t11 = time.perf_counter()
+        driver_launches.update(native_phase(counted, smi, carry))
+        log(f"[11] phase 11 in {time.perf_counter() - t11:.1f} s")
         bn_entries[0]["composite"] = dict(
             bn_composite, ms_covers="one 512x1024 batch-8 bf16 train step: "
             "all four entries of 120 BatchNorm calls; library_ms: "

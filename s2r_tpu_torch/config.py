@@ -8,10 +8,10 @@ and the ROADMAP item, when it is set to anything but its default
 and ``--prng-impl`` (a JAX setting) is read and ignored, except that a
 JAX-format checkpoint the port writes carries a dropout key of that
 implementation (io/convert.py ``jax_rng``).  ``--data-backend native``
-raises only with ``--dataset gtav2cityscapes``: the JAX package has its
-native loader in that arm alone and loads ``gtav`` and ``synthetic`` on
+takes the native loader with ``--dataset gtav2cityscapes``: the JAX
+package has it in that arm alone and loads ``gtav`` and ``synthetic`` on
 its PIL path whatever the flag says (s2r_tpu/data/loader.py:130-176), and
-so does the port.
+so does the port (data/loader.py).
 """
 
 from __future__ import annotations
@@ -130,7 +130,6 @@ _UNPORTED = (
     ("eval_spatial_shard", "--eval-spatial-shard", (False,), "A.8"),
     ("remat", "--remat", (False,), "A.9"),
     ("pad_stats", "--fast-pad-stats", (True,), "A.9"),
-    ("profile_dir", "--profile-dir", (None,), "A.9"),
 )
 
 
@@ -148,10 +147,6 @@ def check_ported(cfg: Config, method: Optional[str] = None) -> None:
             raise NotImplementedError(
                 f"s2r_tpu_torch: {flag} {value!r} is not ported (ROADMAP "
                 f"{item})")
-    if cfg.data_backend != "pil" and cfg.dataset == "gtav2cityscapes":
-        raise NotImplementedError(
-            f"s2r_tpu_torch: --data-backend {cfg.data_backend!r} is not "
-            "ported for --dataset gtav2cityscapes (ROADMAP A.4)")
     if method is not None and method not in METHODS:
         raise ValueError(f"s2r_tpu_torch: unknown method {method!r}; the "
                          f"methods are {', '.join(METHODS)}")

@@ -1,20 +1,20 @@
-// Host imaging for the data pipeline: PNG unfiltering and pixel expansion,
-// and Pillow's BILINEAR resample and GaussianBlur, bit for bit.
+// Host imaging for the data pipeline's PIL route: PNG decoding, and
+// Pillow's BILINEAR resample and GaussianBlur, bit for bit.
 //
 // Replaces what s2r_tpu/data/{transforms,datasets,hostcrop}.py take from PIL
 // (Image.open().convert("RGB"), np.asarray(Image.open()), Image.resize with
-// BILINEAR and box=, ImageFilter.GaussianBlur) and the decode half of
-// s2r_tpu/native/src/pipeline.cpp, which needs libpng.  The card's machine
-// has neither PIL nor libpng; it has g++.
+// BILINEAR and box=, ImageFilter.GaussianBlur).  The card's machine has
+// neither PIL nor libpng; it has g++ and zlib.
 //
-// - PNG: the caller inflates the concatenated IDAT chunks (Python's zlib,
-//   which releases the GIL) and passes the IHDR fields; s2r_png_decode
-//   unfilters the scanlines (None, Sub, Up, Average, Paeth) two rows at a
-//   time and expands each into the output: what np.asarray(Image.open(p))
+// - PNG: png.h, shared with the native pipeline (pipeline.cpp): the chunks
+//   walked and their CRCs checked, the IDAT stream inflated by zlib, the
+//   scanlines unfiltered (None, Sub, Up, Average, Paeth) pass by pass for
+//   Adam7 files, and each row expanded into what np.asarray(Image.open(p))
 //   gives (raw: palette indices, gray values, [.., 2] gray+alpha, [.., 4]
-//   RGBA) or what .convert("RGB") gives (rgb).  8-bit gray, RGB, palette,
-//   gray+alpha and RGBA; 1/2/4-bit gray and palette.  The caller refuses
-//   16-bit and interlaced files.
+//   RGBA) or what .convert("RGB") gives (rgb).  Gray and palette at 1/2/4/8
+//   bits, RGB, gray+alpha and RGBA at 8; 16-bit RGB and RGBA raw and rgb,
+//   16-bit gray+alpha rgb, as their high bytes; data/imaging.py refuses the
+//   16-bit cases where Pillow gives other bytes.
 // - BILINEAR: Pillow's Resample.c.  Each axis has a triangle filter whose
 //   support widens by the scale when it downscales; coefficients normalized
 //   in double, then rounded half away from zero to 22-bit fixed point
@@ -28,8 +28,8 @@
 //   ww = 2^24 / (2r + 1) and fw for the two fractional end taps in 24-bit
 //   fixed point.
 //
-// Built with g++ -O3 -std=c++17 -shared -fPIC -pthread -ffp-contract=off and
-// no -march: a fused multiply-add would move a double coefficient by an ulp
+// Built with g++ -O3 -std=c++17 -shared -fPIC -pthread -ffp-contract=off
+// -lz and no -march: a fused multiply-add would move a double coefficient by an ulp
 // and the fixed-point rounding after it, so the bits would stop being
 // Pillow's (s2r_tpu_torch/ops/kernels/build.py).  Every entry returns 0 on
 // success and a positive code the Python side turns into an error.
@@ -39,109 +39,9 @@
 #include <cstring>
 #include <vector>
 
+#include "png.h"
+
 namespace {
-
-// ---------------------------------------------------------------- PNG ---
-
-int channels_of(int color_type) {
-  switch (color_type) {
-    case 0: return 1;  // gray
-    case 2: return 3;  // RGB
-    case 3: return 1;  // palette
-    case 4: return 2;  // gray + alpha
-    case 6: return 4;  // RGBA
-    default: return 0;
-  }
-}
-
-bool depth_ok(int color_type, int depth) {
-  if (color_type == 0 || color_type == 3)
-    return depth == 1 || depth == 2 || depth == 4 || depth == 8;
-  return depth == 8;
-}
-
-inline uint8_t paeth(int a, int b, int c) {
-  int p = a + b - c;
-  int pa = std::abs(p - a), pb = std::abs(p - b), pc = std::abs(p - c);
-  if (pa <= pb && pa <= pc) return (uint8_t)a;
-  if (pb <= pc) return (uint8_t)b;
-  return (uint8_t)c;
-}
-
-// Undo one scanline's filter in place: cur holds the filtered bytes, prev
-// the previous unfiltered row (zeros for the first).
-bool unfilter(int type, uint8_t* cur, const uint8_t* prev, int64_t n,
-              int64_t bpp) {
-  switch (type) {
-    case 0: return true;
-    case 1:
-      for (int64_t i = bpp; i < n; ++i) cur[i] = (uint8_t)(cur[i] + cur[i - bpp]);
-      return true;
-    case 2:
-      for (int64_t i = 0; i < n; ++i) cur[i] = (uint8_t)(cur[i] + prev[i]);
-      return true;
-    case 3:
-      for (int64_t i = 0; i < n; ++i) {
-        int left = i >= bpp ? cur[i - bpp] : 0;
-        cur[i] = (uint8_t)(cur[i] + ((left + prev[i]) >> 1));
-      }
-      return true;
-    case 4:
-      for (int64_t i = 0; i < n; ++i) {
-        int left = i >= bpp ? cur[i - bpp] : 0;
-        int upleft = i >= bpp ? prev[i - bpp] : 0;
-        cur[i] = (uint8_t)(cur[i] + paeth(left, prev[i], upleft));
-      }
-      return true;
-    default: return false;
-  }
-}
-
-// Pillow's unpackers scale low-depth gray to 0..255 ("L;2", "L;4"); 1-bit
-// gray is mode "1", whose array is 0/1 and whose RGB is 0/255.
-inline int gray_scale(int depth, bool rgb) {
-  switch (depth) {
-    case 1: return rgb ? 255 : 1;
-    case 2: return 85;
-    case 4: return 17;
-    default: return 1;
-  }
-}
-
-void expand_row(const uint8_t* row, int64_t w, int color_type, int depth,
-                const uint8_t* palette, bool rgb, uint8_t* out) {
-  const int ch = channels_of(color_type);
-  if (depth < 8) {  // gray or palette, one sample a pixel
-    const int mask = (1 << depth) - 1, scale = gray_scale(depth, rgb);
-    for (int64_t x = 0; x < w; ++x) {
-      const int64_t bit = x * depth;
-      const int v = (row[bit >> 3] >> (8 - depth - (bit & 7))) & mask;
-      if (color_type == 3) {
-        if (rgb) std::memcpy(out + 3 * x, palette + 3 * v, 3);
-        else out[x] = (uint8_t)v;
-      } else if (rgb) {
-        out[3 * x] = out[3 * x + 1] = out[3 * x + 2] = (uint8_t)(v * scale);
-      } else {
-        out[x] = (uint8_t)(v * scale);
-      }
-    }
-    return;
-  }
-  if (!rgb) {  // the samples as they are; palette indices stay indices
-    std::memcpy(out, row, (size_t)(w * ch));
-    return;
-  }
-  for (int64_t x = 0; x < w; ++x) {
-    const uint8_t* p = row + x * ch;
-    uint8_t* o = out + 3 * x;
-    switch (color_type) {
-      case 3: std::memcpy(o, palette + 3 * p[0], 3); break;
-      case 0:
-      case 4: o[0] = o[1] = o[2] = p[0]; break;  // alpha dropped
-      default: o[0] = p[0]; o[1] = p[1]; o[2] = p[2];  // RGB, RGBA
-    }
-  }
-}
 
 // -------------------------------------------------- Pillow Resample.c ---
 
@@ -248,34 +148,32 @@ void box_pass(const uint8_t* in, uint8_t* out, int64_t n, int64_t step,
 
 extern "C" {
 
-// Decode the inflated IDAT stream of a non-interlaced PNG of h x w pixels
-// into out: [h, w] or [h, w, channels] raw samples (rgb 0), or [h, w, 3]
-// RGB (rgb 1).  palette: 768 bytes, the PLTE entries and Pillow's fill for
-// the rest (palette images only).  Returns 1 for a color type or depth it
-// does not take, 2 for a stream of the wrong length, 3 for an unknown
-// filter type.
-int s2r_png_decode(const uint8_t* data, int64_t len, int64_t h, int64_t w,
-                   int color_type, int depth, const uint8_t* palette, int rgb,
-                   uint8_t* out) {
-  const int ch = channels_of(color_type);
-  if (ch == 0 || !depth_ok(color_type, depth)) return 1;
-  const int64_t bits = (int64_t)ch * depth;
-  const int64_t rowbytes = (w * bits + 7) / 8;
-  const int64_t bpp = bits >= 8 ? bits / 8 : 1;
-  if (len != h * (rowbytes + 1)) return 2;
-  const int64_t out_row = w * (rgb ? 3 : ch);
-  std::vector<uint8_t> rows((size_t)(2 * rowbytes), 0);
-  uint8_t* prev = rows.data();
-  uint8_t* cur = rows.data() + rowbytes;
-  for (int64_t y = 0; y < h; ++y) {
-    const uint8_t* src = data + y * (rowbytes + 1);
-    std::memcpy(cur, src + 1, (size_t)rowbytes);
-    if (!unfilter(src[0], cur, prev, rowbytes, bpp)) return 3;
-    expand_row(cur, w, color_type, depth, palette, rgb != 0,
-               out + y * out_row);
-    std::swap(prev, cur);
-  }
+// The header of a PNG file's bytes: hdr[0..4] = width, height, bit depth,
+// color type, interlace.  Returns 0 or a png.h error code.
+int s2r_png_header(const uint8_t* data, int64_t len, int64_t* hdr) {
+  png::Header hd;
+  const int err = png::read(data, (size_t)len, hd, nullptr);
+  if (err) return err;
+  hdr[0] = hd.w;
+  hdr[1] = hd.h;
+  hdr[2] = hd.depth;
+  hdr[3] = hd.color;
+  hdr[4] = hd.interlace;
   return 0;
+}
+
+// Decode a PNG file's bytes into out (out_len bytes: h x w x the channels
+// of `mode`, png.h kRaw 0 or kRgb 1).  Returns 0 or a png.h error code.
+int s2r_png_read(const uint8_t* data, int64_t len, int mode, uint8_t* out,
+                 int64_t out_len) {
+  png::Header hd;
+  std::vector<uint8_t> raw;
+  int err = png::read(data, (size_t)len, hd, &raw);
+  if (err) return err;
+  if (!png::mode_ok(mode, hd.color, hd.depth)) return png::kErrUnsupported;
+  if (out_len != hd.h * hd.w * png::out_channels(mode, hd.color))
+    return png::kErrLength;
+  return png::decode(raw.data(), (int64_t)raw.size(), hd, mode, out);
 }
 
 // Pillow's BILINEAR resample of uint8 [ih, iw, c] to [oh, ow, c] from the

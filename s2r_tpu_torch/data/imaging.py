@@ -7,10 +7,12 @@ the port computes the same bytes itself:
 - ``load_rgb(path)`` is ``Image.open(path).convert("RGB")`` and
   ``load_raw(path)`` is ``np.asarray(Image.open(path), np.uint8)``: palette
   indices of a P-mode label, the values of an L-mode one, [H, W, 4] of an
-  RGBA one.  The IDAT stream is inflated by the standard library's zlib and
-  unfiltered in C++ (``csrc/host/imaging.cpp``); both release the GIL, so
-  the loader's threads decode in parallel.  16-bit and interlaced files
-  raise (ROADMAP A.4).
+  RGBA one.  The file is read, inflated (zlib) and unfiltered in C++
+  (``csrc/host/png.h``, shared with the native pipeline), which releases
+  the GIL, so the loader's threads decode in parallel.  Adam7 files decode
+  at every depth and color type; 16-bit files decode where Pillow gives
+  their high bytes (RGB and RGBA, and gray+alpha to RGB), and the other
+  16-bit cases raise (ROADMAP A.4).
 - ``resize_bilinear`` (with ``box=``), ``resize_nearest`` and
   ``gaussian_blur`` give Pillow's BILINEAR, NEAREST and GaussianBlur
   results bit for bit; ``flip_lr``, ``expand`` and ``crop`` its transpose,
@@ -25,15 +27,12 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import struct
-import zlib
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
 from s2r_tpu_torch.ops.kernels import build
 
-PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _UNSUPPORTED = "is not supported by the port's decoder (ROADMAP A.4)"
 
 
@@ -42,12 +41,13 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("imaging")
     p, i64, i32, f32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, \
         ctypes.c_float
-    lib.s2r_png_decode.argtypes = [p, i64, i64, i64, i32, i32, p, i32, p]
+    lib.s2r_png_header.argtypes = [p, i64, p]
+    lib.s2r_png_read.argtypes = [p, i64, i32, p, i64]
     lib.s2r_resize_bilinear.argtypes = [p, i64, i64, i64, p, i64, i64,
                                         f32, f32, f32, f32]
     lib.s2r_gaussian_blur.argtypes = [p, i64, i64, i64, f32, p]
-    for fn in (lib.s2r_png_decode, lib.s2r_resize_bilinear,
-               lib.s2r_gaussian_blur):
+    for fn in (lib.s2r_png_header, lib.s2r_png_read,
+               lib.s2r_resize_bilinear, lib.s2r_gaussian_blur):
         fn.restype = ctypes.c_int
     return lib
 
@@ -63,59 +63,51 @@ def _ptr(a: np.ndarray) -> int:
 
 # ------------------------------------------------------------------ PNG ---
 
-def _palette(plte: bytes) -> np.ndarray:
-    """768 bytes: the PLTE entries, then black for the entries the file
-    leaves out (as Pillow's convert("RGB") gives them)."""
-    pal = np.zeros(768, np.uint8)
-    n = min(len(plte) // 3, 256)
-    pal[:3 * n] = np.frombuffer(plte, np.uint8, 3 * n)
-    return pal
+# The error codes of csrc/host/png.h.
+PNG_ERRORS = {1: f"a color type or bit depth that {_UNSUPPORTED}",
+              2: "an image stream of the wrong length",
+              3: "an unknown filter type",
+              4: "not a PNG file",
+              5: "a broken PNG chunk (past the end, or a bad CRC)",
+              6: "a PNG without IHDR or IDAT",
+              7: "an image stream zlib cannot inflate",
+              8: "cannot be read",
+              9: "too large to decode in memory"}
+RAW, RGB = 0, 1  # png.h's modes
+
+
+def png_error(name: str, code: int) -> ValueError:
+    return ValueError(f"{name}: {PNG_ERRORS.get(code, f'error {code}')}")
+
+
+def _pil_bytes(depth: int, color: int, rgb: bool) -> bool:
+    """Whether Pillow gives the high bytes of a 16-bit file (mode RGB or
+    RGBA from "RGB;16B", "RGBA;16B", and gray+alpha converted to RGB); it
+    gives 16-bit gray as "I;16" and gray+alpha as RGBA, which the decoder
+    does not reproduce."""
+    return depth != 16 or color in (2, 6) or (color == 4 and rgb)
 
 
 def decode_png(data: bytes, rgb: bool, name: str = "<png>") -> np.ndarray:
     """PNG bytes -> uint8 [H, W, 3] with `rgb`, else the file's own samples
     ([H, W] for gray and palette files, [H, W, C] otherwise)."""
-    if data[:8] != PNG_SIGNATURE:
-        raise ValueError(f"{name}: not a PNG file")
-    mv, pos, ihdr, plte, idat = memoryview(data), 8, None, b"", []
-    while pos + 12 <= len(data):
-        length, kind = struct.unpack_from(">I4s", data, pos)
-        body = mv[pos + 8:pos + 8 + length]
-        if (pos + 12 + length > len(data) or zlib.crc32(body, zlib.crc32(kind))
-                != struct.unpack_from(">I", data, pos + 8 + length)[0]):
-            raise ValueError(f"{name}: broken PNG chunk {kind!r}")
-        if kind == b"IHDR":
-            ihdr = struct.unpack(">IIBBBBB", body)
-        elif kind == b"PLTE":
-            plte = bytes(body)
-        elif kind == b"IDAT":
-            idat.append(body)
-        elif kind == b"IEND":
-            break
-        pos += 12 + length
-    if ihdr is None or not idat:
-        raise ValueError(f"{name}: PNG without IHDR or IDAT")
-    w, h, depth, color, _, _, interlace = ihdr
-    if depth == 16:
-        raise ValueError(f"{name}: a 16-bit PNG {_UNSUPPORTED}")
-    if interlace:
-        raise ValueError(f"{name}: an interlaced (Adam7) PNG {_UNSUPPORTED}")
+    src = np.frombuffer(data, np.uint8)
+    hdr = np.zeros(5, np.int64)
+    err = _lib().s2r_png_header(_ptr(src), src.size, _ptr(hdr))
+    if err:
+        raise png_error(name, err)
+    w, h, depth, color, _ = (int(v) for v in hdr)
     channels = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}.get(color)
-    if channels is None:
-        raise ValueError(f"{name}: PNG color type {color} {_UNSUPPORTED}")
-    rowbytes = (w * channels * depth + 7) // 8
-    raw = zlib.decompress(b"".join(idat), bufsize=h * (rowbytes + 1))
+    if channels is None or not _pil_bytes(depth, color, rgb):
+        raise ValueError(f"{name}: a {depth}-bit PNG of color type {color} "
+                         f"{_UNSUPPORTED}{'' if rgb else ' as raw samples'}")
     shape = (h, w, 3) if rgb else ((h, w) if channels == 1
                                    else (h, w, channels))
     out = np.empty(shape, np.uint8)
-    pal = _palette(plte)
-    src = np.frombuffer(raw, np.uint8)
-    err = _lib().s2r_png_decode(_ptr(src), len(raw), h, w, color, depth,
-                                _ptr(pal), int(rgb), _ptr(out))
-    if err == 1:
-        raise ValueError(f"{name}: {depth}-bit PNG of color type {color} "
-                         f"{_UNSUPPORTED}")
-    _check(err, f"{name}: PNG decode")
+    err = _lib().s2r_png_read(_ptr(src), src.size, RGB if rgb else RAW,
+                              _ptr(out), out.size)
+    if err:
+        raise png_error(name, err)
     return out
 
 

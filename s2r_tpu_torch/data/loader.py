@@ -19,14 +19,18 @@
   (data/datasets.py), staged for ``--device-aug`` and cached with
   ``--data-cache`` (up to ``--data-cache-gb``); ``synthetic`` makes scenes.
   Decode, resampling and blur run in C++ that releases the GIL, so the
-  threads work in parallel.  ``--data-backend native`` (the JAX package's
-  own C++ loader, in its ``gtav2cityscapes`` arm only) is not ported
-  (ROADMAP A.4): ``check_ported`` raises for that dataset; ``gtav`` and
-  ``synthetic`` ignore the flag, as they do in the JAX package.
+  threads work in parallel.
+- ``--data-backend native`` with ``gtav2cityscapes`` takes the native
+  pipeline's loaders (data/native_loader.py: one C call a batch on
+  ``--workers`` threads), as s2r_tpu/data/loader.py:140-167 does: the val
+  images named after their labels, the test sweep unlabeled, the process
+  share from core/distributed.py.  ``gtav`` and ``synthetic`` ignore the
+  flag, as they do in the JAX package.
 """
 
 from __future__ import annotations
 
+import os
 import queue
 import random
 from concurrent.futures import ThreadPoolExecutor
@@ -38,6 +42,8 @@ from s2r_tpu_torch.config import Config, check_ported
 from s2r_tpu_torch.core.distributed import process_info
 from s2r_tpu_torch.data import datasets as D
 from s2r_tpu_torch.data import synthetic as S
+from s2r_tpu_torch.data.native_loader import NativeEvalLoader, \
+    NativeTrainLoader
 
 
 def _collate(samples: List[Dict]) -> Dict[str, np.ndarray]:
@@ -126,6 +132,29 @@ class DataLoader:
                 yield _collate([f.result() for f in futs])
 
 
+def _native_loaders(cfg: Config, seed: int, train_set, val_set, test_set,
+                    rank: int, world: int):
+    """The gtav2cityscapes loaders of --data-backend native
+    (s2r_tpu/data/loader.py:140-167)."""
+    share = dict(threads=cfg.workers, process_index=rank,
+                 process_count=world)
+    train = NativeTrainLoader(train_set.sources, cfg.src_label_root,
+                              train_set.targets, cfg.base_size,
+                              cfg.crop_size, cfg.batch_size, seed=seed,
+                              **share)
+    val_imgs = [os.path.join(
+        cfg.val_img_root,
+        os.path.basename(p)[:-len("gtFine_labelIds.png")] + "leftImg8bit.png")
+        for p in val_set.labels]
+    val = NativeEvalLoader(val_imgs, val_set.labels, cfg.crop_size,
+                           cfg.batch_size, drop_last=cfg.val_drop_last,
+                           **share)
+    test = NativeEvalLoader(test_set.images, None, cfg.crop_size,
+                            cfg.batch_size, drop_last=cfg.val_drop_last,
+                            **share)
+    return train, val, test, train_set.NUM_CLASSES
+
+
 def make_data_loader(cfg: Config, seed: Optional[int] = None):
     """(train, val, test, nclass), as s2r_tpu/data/loader.py:121-176 makes
     them (dataloders/__init__.py:4-28, plus the synthetic dataset)."""
@@ -144,6 +173,9 @@ def make_data_loader(cfg: Config, seed: Optional[int] = None):
                            cfg.crop_size)
         test_set = D.TestSet(cfg.test_img_root, cfg.test_label_root,
                              cfg.crop_size)
+        if cfg.data_backend == "native":
+            return _native_loaders(cfg, seed, train_set, val_set, test_set,
+                                   rank, world)
     elif cfg.dataset == "gtav":
         roots = (cfg.src_img_root, cfg.src_label_root, cfg.base_size,
                  cfg.crop_size)

@@ -1,16 +1,18 @@
-"""Build the hand-written CUDA kernels with plain nvcc, and the host imaging
-library with g++, and load them with ctypes.
+"""Build the hand-written CUDA kernels with plain nvcc, and the host
+libraries (imaging, the native pipeline) with g++, and load them with
+ctypes.
 
 Each source in ``s2r_tpu_torch/csrc/<name>.cu`` exposes a C interface (raw
 pointers, int64 sizes, a ``cudaStream_t``) and compiles on its own into
 ``s2r_tpu_torch/_build/<name>-<hash>.so``, where the hash covers the source,
 the shared headers (``csrc/*.cuh``) and the flags, so an edited source or
 header builds anew and an unchanged one is reused.  The host sources
-(``csrc/host/<name>.cpp``, C++ for the data pipeline's threads) build the
-same way with g++ (``GXX_FLAGS``: no ``-march``, and no contraction into
-fused multiply-adds, which would move Pillow's double coefficients by an
-ulp).  The build directory is the only place the package writes, and git
-ignores it.  Nothing here runs at import time: a library is built at its
+(``csrc/host/<name>.cpp``, C++ for the data pipeline's threads, sharing the
+PNG reader ``csrc/host/png.h``) build the same way with g++ (``GXX_FLAGS``:
+no ``-march``, and no contraction into fused multiply-adds, which would
+move Pillow's double coefficients by an ulp) and link zlib
+(``GXX_LIBS``); their hash covers ``csrc/host/*.h``.  The build directory
+is the only place the package writes, and git ignores it.  Nothing here runs at import time: a library is built at its
 first use, or ahead of time by ``build_all``, which starts one compiler per
 source at once.  A failed build raises.  ``batch_chunks`` cuts a batch into
 runs of whole items that a kernel indexing in 32 bits can take in one
@@ -39,7 +41,8 @@ SOURCES = ("depthwise", "requant", "batchnorm", "disc_conv")
 HOST_DIR = SRC_DIR / "host"
 GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread",
              "-ffp-contract=off")
-HOST_SOURCES = ("imaging",)
+GXX_LIBS = ("-lz",)
+HOST_SOURCES = ("imaging", "pipeline")
 
 # Kernels that index in 32 bits take fewer elements than this per launch.
 INDEX_LIMIT = 2 ** 31
@@ -63,7 +66,7 @@ def gxx_path() -> str:
     """g++ from $PATH; raises if absent."""
     found = shutil.which("g++")
     if found is None:
-        raise RuntimeError("g++ not found: the host imaging library needs it")
+        raise RuntimeError("g++ not found: the host libraries need it")
     return found
 
 
@@ -75,7 +78,8 @@ def _source(name: str) -> Path:
 def _target(name: str) -> Path:
     src = _source(name).read_bytes()
     if name in HOST_SOURCES:
-        extra, flags = b"", GXX_FLAGS
+        extra = b"".join(h.read_bytes() for h in sorted(HOST_DIR.glob("*.h")))
+        flags = GXX_FLAGS + GXX_LIBS
     else:
         extra = b"".join(h.read_bytes() for h in sorted(SRC_DIR.glob("*.cuh")))
         flags = NVCC_FLAGS
@@ -91,9 +95,11 @@ class _Build:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         self.so = so
         self.tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        compiler = [gxx_path(), *GXX_FLAGS] if name in HOST_SOURCES \
+        host = name in HOST_SOURCES
+        compiler = [gxx_path(), *GXX_FLAGS] if host \
             else [nvcc_path(), *NVCC_FLAGS]
-        self.cmd = [*compiler, "-o", str(self.tmp), str(_source(name))]
+        self.cmd = [*compiler, "-o", str(self.tmp), str(_source(name)),
+                    *(GXX_LIBS if host else ())]
         self.proc = subprocess.Popen(self.cmd, stdout=subprocess.PIPE,
                                      stderr=subprocess.STDOUT, text=True)
 

@@ -2,7 +2,7 @@
 that chip_smoke.py does not time.
 
     python -m s2r_tpu_torch.tools.profile_driver [--dataset synthetic]
-        [--route device|host|cache] [--crop 512] [--batch 8]
+        [--route device|host|cache|native] [--crop 512] [--batch 8]
         [--workers 4 8] [--epochs 1]
 
 Builds the driver's Trainer as ``python -m s2r_tpu_torch.cli.train_adapt``
@@ -12,9 +12,10 @@ default); ``--dataset gtav2cityscapes`` first writes full-size fixtures
 (tools/fixtures.py: 64 GTA5-sized sources with labels and 64
 Cityscapes-sized targets, so that an epoch has the synthetic driver's 8
 steps of 8, 8 val pairs, 8 test frames) and reads them on the default host
-path (route ``host``), with --device-aug (``device``) or with --data-cache
-(``cache``).  For each worker count it times, by host clock around
-synchronized work:
+path (route ``host``), with --device-aug (``device``), with --data-cache
+(``cache``) or with --data-backend native (``native``: the native
+pipeline's loaders, the worker count its thread count).  For each worker
+count it times, by host clock around synchronized work:
 - decode alone: the epoch's PNG frames decoded on that many threads (real
   data only);
 - the loader alone (decode and the host transforms);
@@ -45,7 +46,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from s2r_tpu_torch.config import Config
-from s2r_tpu_torch.data import datasets, imaging
+from s2r_tpu_torch.data import datasets, imaging, native
 from s2r_tpu_torch.parallel.feed import prefetch_to_device
 from s2r_tpu_torch.tools import fixtures
 from s2r_tpu_torch.train.trainer import Trainer
@@ -59,26 +60,41 @@ def _timed(fn):
     return time.perf_counter() - t0, out
 
 
-def _epoch_frames(ds, n):
-    """(path, loader) of every frame the first n samples of a TrainSet
-    read, a target per sample."""
+def _epoch_frames(loader, n):
+    """(path, decode) of every frame the first n samples of a train loader
+    read, a target per sample: the PIL route's decoders, or the native
+    pipeline's on its route."""
+    if hasattr(loader, "dataset"):
+        ds = loader.dataset
+        srcs, tgts, labels = ds.sources, ds.targets, ds.src_label_root
+        rgb, label = imaging.load_rgb, datasets._load_label
+    else:  # data/native_loader.py NativeTrainLoader
+        srcs, tgts, labels = loader.src_imgs, loader.tgt_imgs, \
+            loader.label_root
+        rgb, label = ((lambda p: native.decode_png(p, 3)),
+                      (lambda p: native.decode_png(p, 1)))
     out = []
     for i in range(n):
-        src = ds.sources[i]
-        out += [(src, imaging.load_rgb),
-                (ds.targets[i % len(ds.targets)], imaging.load_rgb),
-                (os.path.join(ds.src_label_root, os.path.basename(src)),
-                 datasets._load_label)]
+        out += [(srcs[i], rgb), (tgts[i % len(tgts)], rgb),
+                (os.path.join(labels, os.path.basename(srcs[i])), label)]
     return out
+
+
+def _set_workers(loader, w):
+    if hasattr(loader, "num_workers"):
+        loader.num_workers = w
+    else:  # the native loader's thread pool
+        loader.threads = w
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--dataset", default="synthetic",
                     choices=("synthetic", "gtav2cityscapes"))
-    ap.add_argument("--route", choices=("device", "host", "cache"),
+    ap.add_argument("--route", choices=("device", "host", "cache", "native"),
                     help="device: --device-aug; host: the host transforms; "
-                    "cache: --data-cache (default: device for synthetic, "
+                    "cache: --data-cache; native: --data-backend native "
+                    "(gtav2cityscapes only; default: device for synthetic, "
                     "host for gtav2cityscapes)")
     ap.add_argument("--crop", type=int, default=512)
     ap.add_argument("--batch", type=int, default=8)
@@ -88,6 +104,8 @@ def main():
     a = ap.parse_args()
     real = a.dataset != "synthetic"
     route = a.route or ("host" if real else "device")
+    if route == "native" and not real:
+        ap.error("--route native reads PNGs: use --dataset gtav2cityscapes")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True).stdout.strip()
@@ -102,7 +120,9 @@ def main():
             print(f"[fixtures] {len(files)} PNG files in {s:.3f} s")
             del files
         cfg = Config(dataset=a.dataset, device_aug=route == "device",
-                     data_cache=route == "cache", crop_size=a.crop,
+                     data_cache=route == "cache",
+                     data_backend="native" if route == "native" else "pil",
+                     crop_size=a.crop,
                      base_size=a.crop, batch_size=a.batch,
                      workers=a.workers[0], precision=a.precision,
                      epochs=a.epochs + 1, run_root=os.path.join(root, "run"),
@@ -127,9 +147,9 @@ def main():
 
         batch, epoch = None, 0
         for w in a.workers:
-            t.train_loader.num_workers = w
+            _set_workers(t.train_loader, w)
             if real:
-                frames = _epoch_frames(t.train_loader.dataset, n_img)
+                frames = _epoch_frames(t.train_loader, n_img)
                 with ThreadPoolExecutor(w) as pool:
                     s, _ = _timed(lambda: list(pool.map(
                         lambda f: f[1](f[0]), frames)))

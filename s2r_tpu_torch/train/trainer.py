@@ -10,7 +10,12 @@ best-mIoU checkpointing, on one device (``cuda`` unless the caller passes
 
 - Batches are prefetched to the device (parallel/feed.py) and, with
   ``--device-aug``, augmented there (data/device_aug.py) from a sampler
-  seeded by (seed, epoch) and the batch index.
+  seeded by (seed, epoch) and the batch index.  A uint8 batch is
+  normalized there; the native route's float32 batches (``--data-backend
+  native``, already cropped and normalized on the host) pass through, and
+  under ``--device-aug`` are warped once more, as the JAX Trainer does
+  (s2r_tpu/train/trainer.py:265-275; ROADMAP C.13).
+- ``--profile-dir`` traces the epochs (utils/profiling.py).
 - The step's metrics stay on the device during the epoch and are read once
   after it, as the JAX package does.
 - Validation accumulates the eval step's confusion matrices on the device
@@ -51,6 +56,7 @@ from s2r_tpu_torch.io.saver import CKPT_NAME, Saver
 from s2r_tpu_torch.parallel.feed import prefetch_to_device
 from s2r_tpu_torch.train.setup import Method, build_method
 from s2r_tpu_torch.utils.calculate_weights import load_or_compute_weights
+from s2r_tpu_torch.utils.profiling import trace
 from s2r_tpu_torch.utils.summaries import TensorboardSummary
 
 
@@ -261,11 +267,12 @@ class Trainer:
         print(f"Total Epoches: {cfg.epochs}")
         epoch = self.start_epoch
         try:
-            for epoch in range(self.start_epoch, cfg.epochs):
-                self.training(epoch)
-                if not cfg.no_val and \
-                        epoch % cfg.eval_interval == (cfg.eval_interval - 1):
-                    self.validation(epoch)
+            with trace(cfg.profile_dir):
+                for epoch in range(self.start_epoch, cfg.epochs):
+                    self.training(epoch)
+                    if not cfg.no_val and epoch % cfg.eval_interval == \
+                            (cfg.eval_interval - 1):
+                        self.validation(epoch)
         except KeyboardInterrupt:
             # an interrupt should not cost the epoch
             print(f"\n=> interrupted at epoch {epoch}; saving checkpoint")

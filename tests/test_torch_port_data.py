@@ -11,9 +11,10 @@ loader.py, device_aug.py, transforms.py eval transforms), on the CPU.
   equal on labels, with the blur on and off.
 - The port's sampler stays inside JAX's ranges over many draws.
 - normalize_u8_batch within 1e-7 of JAX's.
-- --data-backend native raises only for gtav2cityscapes (gtav and
-  synthetic ignore it, as the JAX package does); the synthetic train set
-  without --device-aug (the host transforms) gives JAX's batches.
+- --data-backend native takes the native loaders for gtav2cityscapes
+  (gtav and synthetic ignore it, as the JAX package does); the synthetic
+  train set without --device-aug (the host transforms) gives JAX's
+  batches.
 """
 
 import os
@@ -204,17 +205,17 @@ def test_normalize_u8_batch_matches_jax():
 
 
 def test_unported_datasets_raise(tmp_path):
-    """Every dataset loads now.  --data-backend native (the JAX package's
-    own C++ loader) raises only for gtav2cityscapes, the one arm where the
-    JAX package has it; gtav and synthetic ignore the flag and load the
-    same batches as without it, as in the JAX package.  The synthetic
-    train set without --device-aug goes through the host train
-    transforms: its uint8 crops, normalized, are JAX's PIL batches."""
+    """Every dataset loads now, on either backend.  --data-backend native
+    takes the native loaders for gtav2cityscapes, the one arm where the
+    JAX package has them (their batches: test_torch_port_native_loader.py);
+    gtav and synthetic ignore the flag and load the same batches as
+    without it, as in the JAX package.  The synthetic train set without
+    --device-aug goes through the host train transforms: its uint8 crops,
+    normalized, are JAX's PIL batches."""
+    from s2r_tpu_torch.data.native_loader import NativeEvalLoader, \
+        NativeTrainLoader
     from s2r_tpu_torch.utils.png import write_png
 
-    with pytest.raises(NotImplementedError, match="A.4"):
-        make_data_loader(Config(**dict(KW, dataset="gtav2cityscapes",
-                                       data_backend="native")))
     rs = np.random.RandomState(3)
     roots = {"src_img_root": str(tmp_path / "img"),
              "src_label_root": str(tmp_path / "lbl")}
@@ -225,6 +226,25 @@ def test_unported_datasets_raise(tmp_path):
                   rs.randint(0, 256, (30, 40, 3)).astype(np.uint8))
         write_png(os.path.join(roots["src_label_root"], f"{i:05d}.png"),
                   rs.randint(0, 34, (30, 40)).astype(np.uint8))
+    city = {k: str(tmp_path / k) for k in ("tgt_img_root", "val_img_root",
+                                           "val_label_root", "test_img_root")}
+    for k, d in city.items():
+        os.makedirs(d)
+        stem = os.path.join(d, "a_000000_000019_")
+        write_png(stem + ("gtFine_labelIds.png" if k == "val_label_root"
+                          else "leftImg8bit.png"),
+                  rs.randint(0, 34 if k == "val_label_root" else 256,
+                             (30, 40) if k == "val_label_root"
+                             else (30, 40, 3)).astype(np.uint8))
+    cfg = dict(KW, dataset="gtav2cityscapes", data_backend="native",
+               device_aug=False, **roots, **city)
+    got = make_data_loader(Config(**cfg))
+    want = jax_loaders(JaxConfig(**cfg))
+    assert [type(g) for g in got[:3]] == [NativeTrainLoader, NativeEvalLoader,
+                                          NativeEvalLoader]
+    assert [type(w).__name__ for w in want[:3]] == [
+        "NativeTrainLoader", "NativeEvalLoader", "NativeEvalLoader"]
+    assert [len(g) for g in got[:3]] == [len(w) for w in want[:3]]
     for name, extra in (("gtav", roots), ("synthetic", {})):
         plain = dict(KW, dataset=name, **extra)
         for split in range(3):

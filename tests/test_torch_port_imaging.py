@@ -9,7 +9,9 @@ exact (``assert_array_equal``):
 - decode of hand-written PNGs with each filter type (None, Sub, Up,
   Average, Paeth, and all five cycled row by row) at 1x1, 1x7 and 37x53,
   gray and palette at 1/2/4/8 bits, RGB, gray+alpha and RGBA;
-- 16-bit and interlaced files raise, naming the file and ROADMAP A.4;
+- 16-bit gray and 16-bit gray+alpha as raw samples raise, naming the
+  file and ROADMAP A.4, and an Adam7 file decodes as PIL decodes it
+  (test_torch_port_native_decode.py holds the rest of Adam7 and 16 bits);
 - BILINEAR against ``Image.resize``: up and down, odd sizes, every short
   edge RandomScaleCrop draws at base 32, 48 and 64 from 40x60 and 64x48
   frames, and ``box=`` windows formed as hostcrop forms them;
@@ -91,9 +93,12 @@ def _chunk(kind, body):
             + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
 
 
-def _hand_png(samples, color, depth, filters, palette=None, interlace=0):
-    """A PNG of `samples` ([H, W] or [H, W, C], values < 2**depth), the
-    scanlines packed MSB first and filtered with `filters` in turn."""
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+         (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))  # (x0, y0, dx, dy)
+
+
+def _scanlines(samples, depth, filters):
+    """The filtered scanlines of `samples`, packed MSB first."""
     h, w = samples.shape[:2]
     ch = 1 if samples.ndim == 2 else samples.shape[2]
     v = samples.reshape(h, w * ch).astype(np.uint16)
@@ -104,12 +109,26 @@ def _hand_png(samples, color, depth, filters, palette=None, interlace=0):
     else:
         bits = (v[..., None] >> np.arange(depth - 1, -1, -1)) & 1
         rows = np.packbits(bits.reshape(h, -1).astype(np.uint8), axis=1)
-    raw = filter_rows(rows, max(1, ch * depth // 8), filters)
+    return filter_rows(rows, max(1, ch * depth // 8), filters).tobytes()
+
+
+def _hand_png(samples, color, depth, filters, palette=None, interlace=0):
+    """A PNG of `samples` ([H, W] or [H, W, C], values < 2**depth), the
+    scanlines packed MSB first and filtered with `filters` in turn; with
+    `interlace`, the seven Adam7 passes (each filtered on its own, empty
+    ones left out)."""
+    h, w = samples.shape[:2]
+    if interlace:
+        raw = b"".join(_scanlines(samples[y0::dy, x0::dx], depth, filters)
+                       for x0, y0, dx, dy in ADAM7
+                       if samples[y0::dy, x0::dx].size)
+    else:
+        raw = _scanlines(samples, depth, filters)
     out = b"\x89PNG\r\n\x1a\n" + _chunk(b"IHDR", struct.pack(
         ">IIBBBBB", w, h, depth, color, 0, 0, interlace))
     if palette is not None:
         out += _chunk(b"PLTE", palette.tobytes())
-    return (out + _chunk(b"IDAT", zlib.compress(raw.tobytes()))
+    return (out + _chunk(b"IDAT", zlib.compress(raw))
             + _chunk(b"IEND", b""))
 
 
@@ -137,16 +156,32 @@ def test_decode_hand_written(hw, filters):
 
 
 def test_unsupported_pngs_raise(tmp_path):
+    """16-bit gray (Pillow's "I;16") and 16-bit gray+alpha as raw samples
+    (Pillow opens it as RGBA) still raise, naming the file and ROADMAP
+    A.4; an Adam7 file, which raised before, decodes as PIL decodes it
+    (tests/test_torch_port_native_decode.py covers every kind, and the
+    16-bit cases that decode)."""
     rs = np.random.RandomState(0)
-    cases = {"deep.png": _hand_png(rs.randint(0, 65536, (5, 6)), 0, 16, (0,)),
-             "adam7.png": _hand_png(rs.randint(0, 256, (5, 6)), 0, 8, (0,),
-                                    interlace=1)}
-    for name, data in cases.items():
+    cases = {"deep.png": (_hand_png(rs.randint(0, 65536, (5, 6)), 0, 16,
+                                    (0,)), (imaging.load_rgb,
+                                            imaging.load_raw)),
+             "deep_la.png": (_hand_png(rs.randint(0, 65536, (5, 6, 2)), 4,
+                                       16, (0,)), (imaging.load_raw,))}
+    for name, (data, loads) in cases.items():
         path = tmp_path / name
         path.write_bytes(data)
-        for load in (imaging.load_rgb, imaging.load_raw):
+        for load in loads:
             with pytest.raises(ValueError, match=f"{name}.*A.4"):
                 load(str(path))
+    path = tmp_path / "adam7.png"
+    path.write_bytes(_hand_png(rs.randint(0, 256, (5, 6)), 0, 8, (0,),
+                               interlace=1))
+    im = Image.open(str(path))
+    assert im.info.get("interlace") == 1
+    np.testing.assert_array_equal(imaging.load_raw(str(path)),
+                                  np.asarray(im))
+    np.testing.assert_array_equal(imaging.load_rgb(str(path)),
+                                  np.asarray(im.convert("RGB")))
 
 
 def _pil_resize(img, size, box=None, resample=Image.BILINEAR):

@@ -78,7 +78,10 @@ def test_port_imports_no_jax_flax_or_jax_package():
                 "s2r_tpu_torch.models.drn", "s2r_tpu_torch.core.mesh",
                 "s2r_tpu_torch.core.distributed",
                 "s2r_tpu_torch.tools.dist_check",
-                "s2r_tpu_torch.tools.profile_dist"):
+                "s2r_tpu_torch.tools.profile_dist",
+                "s2r_tpu_torch.data.native",
+                "s2r_tpu_torch.data.native_loader",
+                "s2r_tpu_torch.utils.profiling"):
         assert mod in result["modules"]
     leaked = [m for m in FORBIDDEN if m in result["loaded"]]
     assert not leaked, leaked

@@ -6,7 +6,7 @@ the CPU.
   and the two parsers register the same flags, dests, defaults and
   choices; each flag whose feature the port lacks raises, and the flags
   ported since (--num-devices under a world of 2, --logits-dtype,
-  --split-concat) parse and build.
+  --split-concat, --data-backend native, --profile-dir) parse and build.
 - Saver: the same files and model_best promotions as JAX's over one
   sequence of best_preds across three experiments.
 - An asynchronous save holds the pre-step values even when a step runs
@@ -95,7 +95,8 @@ def test_parsers_register_the_same_flags():
 
 
 # flags of UNPORTED whose features are ported now: they parse and build
-PORTED = {"--num-devices", "--logits-dtype", "--split-concat"}
+PORTED = {"--num-devices", "--logits-dtype", "--split-concat",
+          "--data-backend", "--profile-dir"}
 
 
 def _world_of(monkeypatch, world: int, rank: int = 0):
