@@ -223,7 +223,30 @@ Phases, each of which must pass:
    None of these is a gate.  (e) train_adapt with --profile-dir writes
    one trace file that names the hand-written kernels; one more traced
    epoch's host memory and trace size.
-12. Print the kernels line (each kernel's launches, and by the paths
+12. The memory and padding arms (ROADMAP A.9).  (a) The output step at
+   the train cell with --remat against the same step without, from the
+   same weights, batch and generator, cuDNN deterministic: losses and
+   parameters within tests/test_remat.py's bounds (rtol 1e-5, atol
+   1e-6), running statistics, num_batches_tracked and the dropout
+   generator bit-equal.  (b) Phase 4a's small step with --fast-pad-stats
+   (card against the CPU and float64, 4a's bounds).  The output step at
+   the train cell timed in turns (ABCDDCBA) by default, with --remat
+   (depthwise 84 and BatchNorm apply 238 a step: the recompute reuses
+   the forward's statistics), with --fast-pad-stats and with the
+   discriminator's s2d_convs=2, each with its peak memory and launches as
+   predicted.  (c) The space-to-depth convs (ops/s2d.py) against
+   F.conv2d at D's conv2 input and the stem's 2048x1024 batch-8 input;
+   serving with stem_s2d at 2048x1024 batch 8, exact and decoder-int8,
+   against the default model as phase 10d holds split_concat, timed in
+   turns, 14 depthwise and 1 requant a call.  (d) The output step with
+   masked batch padding (3 samples padded to 4, 128x128 float32, dropout
+   on) against the unpadded step at tests/test_batch_pad.py's bounds,
+   the generator bit-equal.  (e) train_adapt and train with --remat
+   --fast-pad-stats for one epoch at the phase 5 cell, val_adapt and val
+   on their best checkpoints, and cli.export of the first as a servable
+   that records pad_stats False and serves ring-free; launches as
+   predicted.
+13. Print the kernels line (each kernel's launches, and by the paths
    that launched it, phase 11's runs under 'native'; floats to 6
    significant digits), the card's name and power limit, and as the last
    line {"ok": true, "device": {...}}.
@@ -231,9 +254,9 @@ Phases, each of which must pass:
 Without a CUDA device, or outside a checkout holding s2r_tpu_torch, it exits
 non-zero and prints no result.  Float32 convs run with TF32 off.  It writes
 the kernel build directory, and phase 5's run root in the temporary
-directory (and phase 6d's, 7's, 8's, 9's, 10's and 11's, the checkpoints phases
-5 and 6d hand to phases 8 and 10 and the frames phase 8 hands to phases 9
-and 10), which it removes.
+directory (and phase 6d's, 7's, 8's, 9's, 10's, 11's and 12e's, the
+checkpoints phases 5 and 6d hand to phases 8 and 10 and the frames phase 8
+hands to phases 9 and 10), which it removes.
 """
 
 import dataclasses
@@ -296,7 +319,7 @@ LAYERS = {"mobilenet": (14, 60), "resnet101": (0, 113), "resnet50": (0, 62),
           "xception": (56, 133), "drn": (0, 65)}
 
 
-def step_launches(method, backbone="mobilenet", world=1):
+def step_launches(method, backbone="mobilenet", world=1, remat=False):
     """Each kernel's launches in one step of `method` on `backbone`: the
     depthwise forward and dx of the source and target forwards and their
     dk, the four BatchNorm entries of each G forward (the feature
@@ -305,7 +328,12 @@ def step_launches(method, backbone="mobilenet", world=1):
     forward take no backward), the discriminator's first conv on 3
     softmax maps (output_adapt).  At `world` > 1 (a rank's step) the
     split entries replace stats (sums and finish) and grad_sums
-    (grad_sums_local and grad_finish)."""
+    (grad_sums_local and grad_finish).  With `remat` the backward
+    recomputes the wrapped regions of each G forward that takes one (the
+    feature step's target decoder takes none): each wrapped BatchNorm
+    applies again on its forward's statistics (MobileNetV2's all but the
+    stem's; ASPP's 6 and the decoder's 3 on every backbone) and each
+    wrapped depthwise conv runs again (MobileNetV2's, all in blocks)."""
     dw, bn = LAYERS[backbone]
     out = {"depthwise_conv3x3": 4 * dw, "requant_s32_to_s8": 0,
            "depthwise_dk": 2 * dw, **dict.fromkeys(_BN, 2 * bn),
@@ -316,6 +344,12 @@ def step_launches(method, backbone="mobilenet", world=1):
     elif method == "source_only":
         out.update({"depthwise_conv3x3": 2 * dw, "depthwise_dk": dw,
                     **dict.fromkeys(_BN, bn), "disc_conv1": 0})
+    if remat:
+        mobilenet = backbone == "mobilenet"
+        fwd = 1 if method == "source_only" else 2
+        out["batch_norm_apply"] += (fwd * (bn - 1 if mobilenet else 9)
+                                    - 3 * (method == "feature_adapt"))
+        out["depthwise_conv3x3"] += fwd * dw * mobilenet
     if world > 1:
         fwd, bwd = out["batch_norm_stats"], out["batch_norm_grad_sums"]
         out.update(batch_norm_stats=0, batch_norm_sums=fwd,
@@ -1369,11 +1403,12 @@ def check_index_limits(dw, rq, dc):
 
 
 def train_method(precision, device, affine=False, name="output_adapt",
-                 **fields):
+                 s2d_convs=0, **fields):
     """build_method for the method `name` (Config `fields` set), weights
     from seed SEED, BatchNorm statistics perturbed as in phase 3 (and the
     BatchNorm scale and bias, if `affine`: perturb_batchnorm says why), the
-    domain classifier's too."""
+    domain classifier's too; `s2d_convs`: the discriminator's (phase
+    12c)."""
     from s2r_tpu_torch.config import Config
     from s2r_tpu_torch.tools.step_conditioning import perturb_batchnorm
     from s2r_tpu_torch.train.setup import build_method
@@ -1381,6 +1416,8 @@ def train_method(precision, device, affine=False, name="output_adapt",
     method = build_method(Config(precision=precision, **fields),
                           iters_per_epoch=1000, method=name, device=device,
                           generator=torch.Generator().manual_seed(SEED))
+    if s2d_convs:
+        method.aux_model.s2d_convs = s2d_convs
     perturb_batchnorm(method.deeplab, SEED + 1, SEED + 2 if affine else None)
     if name != "output_adapt":
         perturb_batchnorm(method.aux_model, SEED + 3,
@@ -1401,11 +1438,11 @@ def snapshot(method):
     return g, d, s
 
 
-def train_check_small(counted, backbone="mobilenet", hw=None):
-    """Phase 4a (and 9c): one `hw` (TRAIN_CHECK_HW when None) batch-2
+def train_check_small(counted, backbone="mobilenet", hw=None, **fields):
+    """Phase 4a (and 9c, 12b): one `hw` (TRAIN_CHECK_HW when None) batch-2
     float32 step on the card against the CPU (float32 and the float64
     reference), dropout off, from weights with the BatchNorm scale and
-    bias perturbed (perturb_batchnorm says why)."""
+    bias perturbed (perturb_batchnorm says why); Config `fields` set."""
     from s2r_tpu_torch.config import Config
     from s2r_tpu_torch.io.convert import deeplab_param_order
     from s2r_tpu_torch.models.layers import set_dropout
@@ -1414,7 +1451,8 @@ def train_check_small(counted, backbone="mobilenet", hw=None):
     rs = np.random.RandomState(SEED)
     n, (h, w) = 2, hw or TRAIN_CHECK_HW
     tag = f"train {h}x{w}" + ("" if backbone == "mobilenet" else
-                              f" {backbone}")
+                              f" {backbone}") + "".join(
+        f" {k}={v}" for k, v in fields.items())
     label = rs.randint(0, 19, (n, h, w)).astype(np.int64)
     label[:, :3] = 255
     batch = {"src_image": rs.randn(n, h, w, 3).astype(np.float32),
@@ -1425,7 +1463,7 @@ def train_check_small(counted, backbone="mobilenet", hw=None):
     for name, device, precision in (("card", DEV, "f32"), ("cpu", "cpu", "f32"),
                                     ("exact", "cpu", "f64")):
         method = train_method(precision, device, affine=True,
-                              backbone=backbone)
+                              backbone=backbone, **fields)
         set_dropout(method.deeplab, False)
         state = method.init_state()
         before = snapshot(method)
@@ -1490,11 +1528,12 @@ def train_check_small(counted, backbone="mobilenet", hw=None):
 
 
 def time_step(name, counted, hw, n, **fields):
-    """A bf16 step of method `name` at `hw` batch `n` (train_method,
-    Config `fields`): 2 warm-up and 5 timed steps by CUDA events, then the
+    """A bf16 step of method `name` at `hw` batch `n` (train_method's
+    `fields`): 2 warm-up and 5 timed steps by CUDA events, then the
     launch counts of one step, which must be step_launches(name, the
-    backbone).  Returns (median ms, the 5 ms, peak GiB, the last metrics
-    as floats, launches, BatchNorm layout copies of the counted step)."""
+    backbone, remat).  Returns (median ms, the 5 ms, peak GiB, the last
+    metrics as floats, launches, BatchNorm layout copies of the counted
+    step)."""
     from s2r_tpu_torch.ops.kernels.batchnorm import channels_last_rows
     from s2r_tpu_torch.tools.profile_train import bench_batch
 
@@ -1529,7 +1568,7 @@ def time_step(name, counted, hw, n, **fields):
     state, metrics = method.step_fn(state, batch)
     torch.cuda.synchronize()
     launches = {fn.__name__: fn.launches for fn in counted}
-    want = step_launches(name, backbone)
+    want = step_launches(name, backbone, remat=fields.get("remat", False))
     require(launches == want,
             f"{name} {backbone} step: launches {launches}, expected {want}")
     del method, state, batch
@@ -1597,10 +1636,11 @@ def check_device_aug(loader, cfg):
     return card
 
 
-def predicted(method, steps, eval_fwd, backbone="mobilenet"):
+def predicted(method, steps, eval_fwd, backbone="mobilenet", remat=False):
     """Each kernel's launches in `steps` steps of `method` and `eval_fwd`
     eval forwards (14 depthwise each on MobileNetV2) on `backbone`."""
-    want = {k: v * steps for k, v in step_launches(method, backbone).items()}
+    want = {k: v * steps for k, v in
+            step_launches(method, backbone, remat=remat).items()}
     want["depthwise_conv3x3"] += LAYERS[backbone][0] * eval_fwd
     return want
 
@@ -3618,6 +3658,385 @@ def native_phase(counted, smi, carry):
     return {"native": total}
 
 
+# phase 12: the memory and padding arms.  The padded step: PAD_REAL real
+# samples padded to PAD_TO at TRAIN_CHECK_HW, float32, dropout on.
+PAD_REAL, PAD_TO = 3, 4
+# the output step's arms timed at the train cell, in turns (ABCDDCBA)
+ARMS = (("default", {}), ("remat", {"remat": True}),
+        ("fast_pad_stats", {"pad_stats": False}),
+        ("s2d_convs", {"s2d_convs": 2}))
+
+
+def remat_check(smi):
+    """Phase 12a: one output step at the train cell (TRAIN_HW, BATCH,
+    bf16) with --remat against the same step without, from the same
+    weights, batch and dropout generator, cuDNN deterministic in both:
+    losses and parameters within tests/test_remat.py's bounds (rtol 1e-5,
+    atol 1e-6); running statistics, every num_batches_tracked and the
+    generator's state bit-equal.  It logs whether the losses and the
+    parameters came out bit-equal too."""
+    from s2r_tpu_torch.tools.profile_train import bench_batch
+
+    batch = bench_batch("output_adapt", BATCH, TRAIN_HW, DEV,
+                        torch.Generator(device=DEV).manual_seed(SEED + 6))
+    runs = {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for remat in (False, True):
+            method = train_method("bf16", DEV, remat=remat)
+            require(method.deeplab.remat == remat, "12a: remat not set")
+            state = method.init_state()
+            state, metrics = method.step_fn(state, batch)
+            torch.cuda.synchronize()
+            g, d, stats = snapshot(method)
+            tracked = {k: int(v) for k, v in method.deeplab.named_buffers()
+                       if k.endswith("num_batches_tracked")}
+            runs[remat] = ({k: float(v) for k, v in metrics.items()},
+                           {**g, **{"D." + k: v for k, v in d.items()}},
+                           stats, tracked, state.generator.get_state())
+            del method, state
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    (m0, p0, s0, t0, r0), (m1, p1, s1, t1, r1) = runs[False], runs[True]
+    loss_err = {k: abs(m1[k] - m0[k]) - 1e-5 * abs(m0[k]) for k in m0}
+    param_err = max(float(((p1[k] - p0[k]).abs() - 1e-5 * p0[k].abs()).max())
+                    for k in p0)
+    bit_equal = m1 == m0 and all(torch.equal(p1[k], p0[k]) for k in p0)
+    stats_equal = all(torch.equal(s1[k], s0[k]) for k in s0)
+    log(f"[12a remat] output step {TRAIN_HW[1]}x{TRAIN_HW[0]} batch {BATCH} "
+        f"bf16, --remat against without: losses {m1} / {m0}; parameters "
+        f"max(|diff| - 1e-5|ref|) {param_err:.3g}; losses and parameters "
+        f"{'bit-equal' if bit_equal else 'not bit-equal'}; running "
+        f"statistics {'bit-equal' if stats_equal else 'DIFFERENT'}, "
+        f"num_batches_tracked {sorted(set(t1.values()))} / "
+        f"{sorted(set(t0.values()))}, the dropout generator "
+        f"{'bit-equal' if torch.equal(r1, r0) else 'DIFFERENT'} ({smi})")
+    require(all(v <= 1e-6 for v in loss_err.values()),
+            f"12a remat losses {m1} against {m0}")
+    require(param_err <= 1e-6, f"12a remat parameters: {param_err}")
+    require(stats_equal, "12a remat: running statistics differ")
+    require(t1 == t0 and set(t0.values()) == {2},
+            f"12a remat: num_batches_tracked {set(t1.values())}")
+    require(torch.equal(r1, r0), "12a remat: the dropout generator moved")
+
+
+def s2d_conv_checks(smi):
+    """Phase 12c (i): the space-to-depth convs (s2r_tpu_torch/ops/s2d.py)
+    against F.conv2d at D's conv2 input in the train cell ([BATCH, 64,
+    TRAIN_HW / 2], kernel [128, 64, 4, 4]) and at the stem's FULL_HW
+    batch-BATCH rgb input (kernel [32, 3, 3, 3]), in float32 (max|diff| <=
+    1e-4 * max|ref|) and bfloat16 (|diff| <= 1e-2 * max(1, |ref|)
+    elementwise), timed against F.conv2d in bfloat16."""
+    import torch.nn.functional as F
+
+    from s2r_tpu_torch.ops.s2d import conv3x3s2_via_s2d, conv4x4s2_via_s2d
+
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 13)
+    for name, x_shape, k_shape, fn in (
+            ("disc_conv2", (BATCH, 64, TRAIN_HW[0] // 2, TRAIN_HW[1] // 2),
+             (128, 64, 4, 4), conv4x4s2_via_s2d),
+            ("stem", (BATCH, 3, *FULL_HW), (32, 3, 3, 3), conv3x3s2_via_s2d)):
+        x = torch.randn(x_shape, device=DEV, generator=gen)
+        k = torch.randn(k_shape, device=DEV, generator=gen) * 0.1
+        ref32 = F.conv2d(x, k, stride=2, padding=1)
+        err32 = rel_err(fn(x, k), ref32)
+        xb, kb = x.bfloat16(), k.bfloat16()
+        ref = F.conv2d(xb, kb, stride=2, padding=1)
+        got = fn(xb, kb)
+        worst = float(((got.float() - ref.float()).abs()
+                       / ref.float().abs().clamp(min=1)).max())
+        ms = cuda_ms(lambda: fn(xb, kb))
+        ms_direct = cuda_ms(lambda: F.conv2d(xb, kb, stride=2, padding=1))
+        log(f"[12c s2d {name}] x {list(x_shape)}, kernel {list(k_shape)}: "
+            f"float32 rel err {err32:.3g}, bfloat16 worst |diff| / max(1, "
+            f"|ref|) {worst:.3g}; bf16 s2d {ms:.3f} ms, direct F.conv2d "
+            f"{ms_direct:.3f} ms ({smi})")
+        require(err32 <= 1e-4 and worst <= 1e-2,
+                f"12c s2d {name} disagrees with F.conv2d")
+        del x, k, xb, kb, ref32, ref, got
+
+
+def stem_s2d_serve(counted, smi):
+    """Phase 12c (ii): serving with stem_s2d, rgb8 FULL_HW batch BATCH,
+    exact and decoder-int8, against the default model on the same weights
+    and inputs, as phase 10d holds split_concat: float32 labels >= 99.9%
+    equal, bfloat16 labels moved by stem_s2d no more than bfloat16 moves
+    the default model's from float32; timed in bf16 in turns (default,
+    s2d, s2d, default); one call of each mode launches 14 depthwise and 1
+    requant.  Returns those launches."""
+    from s2r_tpu_torch.io.quant import calibrate_decoder_int8
+    from s2r_tpu_torch.io.serving import make_serving_fn
+    from s2r_tpu_torch.models.deeplab import DeepLab
+
+    default = build_model("bf16", DEV)
+
+    def copy(dtype, stem_s2d):
+        model = DeepLab(num_classes=19, output_stride=16, dtype=dtype,
+                        device=DEV, stem_s2d=stem_s2d)
+        model.load_state_dict(default.state_dict(), strict=True)
+        return model
+
+    s2d = copy("bf16", True)
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 14)
+
+    def rgb8():
+        return torch.randint(0, 256, (BATCH, *FULL_HW, 3), device=DEV,
+                             generator=gen, dtype=torch.uint8)
+
+    scales = calibrate_decoder_int8(default, [rgb8(), rgb8()], input="rgb8")
+    images = rgb8()
+
+    def serving(models):
+        return {(name, mode): make_serving_fn(
+            model, input="rgb8", **({} if mode == "exact" else dict(
+                quant="decoder_int8", quant_scales=scales)))
+            for name, model in models.items()
+            for mode in ("exact", "decoder_int8")}
+
+    labels = {key: fn(images) for key, fn in serving(
+        {"default32": copy("f32", False), "s2d32": copy("f32", True),
+         "default": default, "s2d": s2d}).items()}
+    torch.cuda.synchronize()
+    agree = {}
+    for mode in ("exact", "decoder_int8"):
+        for a, b in (("s2d32", "default32"), ("s2d", "default"),
+                     ("default", "default32")):
+            agree[(a, b, mode)] = float(
+                (labels[(a, mode)] == labels[(b, mode)]).float().mean())
+        require(agree[("s2d32", "default32", mode)] >= 0.999,
+                f"12c stem_s2d float32 {mode}: labels "
+                f"{100 * agree[('s2d32', 'default32', mode)]:.3f}% equal")
+        require(1 - agree[("s2d", "default", mode)]
+                <= 1 - agree[("default", "default32", mode)],
+                f"12c stem_s2d bf16 {mode}: moves "
+                f"{100 * (1 - agree[('s2d', 'default', mode)]):.3f}% of "
+                f"labels, bf16 itself "
+                f"{100 * (1 - agree[('default', 'default32', mode)]):.3f}%")
+    del labels
+    torch.cuda.empty_cache()
+    fns = serving({"default": default, "s2d": s2d})
+    runs = {key: [] for key in fns}
+    for name in ("default", "s2d", "s2d", "default"):
+        for mode in ("exact", "decoder_int8"):
+            fn = fns[(name, mode)]
+            fn(images)
+            for _ in range(3):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                fn(images)
+                end.record()
+                end.synchronize()
+                runs[(name, mode)].append(start.elapsed_time(end) / BATCH)
+    ms = {key: statistics.median(v) for key, v in runs.items()}
+    reset(counted)
+    for mode in ("exact", "decoder_int8"):
+        fns[("s2d", mode)](images)
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in counted}
+    want = dict.fromkeys(launches, 0)
+    want.update(depthwise_conv3x3=2 * LAYERS["mobilenet"][0],
+                requant_s32_to_s8=1)
+    require(launches == want, f"12c serve stem_s2d: launches {launches}")
+    log(f"[12c stem_s2d serve] rgb8 {FULL_HW[1]}x{FULL_HW[0]} batch {BATCH} "
+        f"bf16, ms/image (median of 6 in turns default, s2d, s2d, "
+        "default): " + ", ".join(
+            f"{m} default {ms[('default', m)]:.3f} s2d "
+            f"{ms[('s2d', m)]:.3f}" for m in ("exact", "decoder_int8"))
+        + "; labels equal, s2d against default, float32 / bfloat16 (and "
+        "bfloat16 default against float32 default): " + ", ".join(
+            f"{m} {100 * agree[('s2d32', 'default32', m)]:.3f}% / "
+            f"{100 * agree[('s2d', 'default', m)]:.3f}% "
+            f"({100 * agree[('default', 'default32', m)]:.3f}%)"
+            for m in ("exact", "decoder_int8"))
+        + f"; launches of one call of each {launches} ({smi})")
+    del default, s2d, fns, images
+    return launches
+
+
+def padded_step_check(counted, smi):
+    """Phase 12d: the output step with masked batch padding (PAD_REAL
+    real samples padded to PAD_TO; build_method's _step_pad_to patched, as
+    tests/test_batch_pad.py reaches the JAX package's) at TRAIN_CHECK_HW
+    float32, dropout on, against the unpadded step from the same weights
+    and generator, at that test's bounds: metrics rtol 1e-4 atol 1e-5,
+    parameters rtol 1e-2 atol 2e-3, running statistics rtol 1e-2 atol
+    1e-4; the generator's state bit-equal; the padded step's launches
+    those of an unpadded step.  Returns those launches."""
+    from s2r_tpu_torch.train import setup
+
+    rs = np.random.RandomState(SEED + 7)
+    h, w = TRAIN_CHECK_HW
+    batch = {"src_image": rs.randn(PAD_REAL, h, w, 3).astype(np.float32),
+             "src_label": rs.randint(0, 19, (PAD_REAL, h, w)),
+             "tgt_image": rs.randn(PAD_REAL, h, w, 3).astype(np.float32)}
+    runs = {}
+    step_pad_to = setup._step_pad_to
+    try:
+        for pad in (None, PAD_TO):
+            setup._step_pad_to = lambda cfg, n, pad=pad: pad
+            method = train_method("f32", DEV)
+            state = method.init_state()
+            reset(counted)
+            state, metrics = method.step_fn(state, batch)
+            torch.cuda.synchronize()
+            runs[pad] = ({k: float(v) for k, v in metrics.items()},
+                         snapshot(method), state.generator.get_state(),
+                         {fn.__name__: fn.launches for fn in counted})
+            del method, state
+    finally:
+        setup._step_pad_to = step_pad_to
+    (m0, snap0, r0, _), (m1, snap1, r1, launches) = runs[None], runs[PAD_TO]
+
+    def excess(a, b, rtol, atol):
+        return max(float(((a[k] - b[k]).abs() - rtol * b[k].abs()).max())
+                   for k in b) - atol
+
+    met_ok = all(abs(m1[k] - m0[k]) <= 1e-5 + 1e-4 * abs(m0[k]) for k in m0)
+    over = {"G": excess(snap1[0], snap0[0], 1e-2, 2e-3),
+            "D": excess(snap1[1], snap0[1], 1e-2, 2e-3),
+            "stats": excess(snap1[2], snap0[2], 1e-2, 1e-4)}
+    log(f"[12d padded step] {PAD_REAL} samples padded to {PAD_TO}, "
+        f"{w}x{h} float32, dropout on, against unpadded: metrics {m1} / "
+        f"{m0}; bound excess (<= 0 passes) {over}; generator "
+        f"{'bit-equal' if torch.equal(r1, r0) else 'DIFFERENT'}; launches "
+        f"{launches} ({smi})")
+    require(met_ok, f"12d padded step metrics {m1} against {m0}")
+    require(all(v <= 0 for v in over.values()), f"12d padded step: {over}")
+    require(torch.equal(r1, r0), "12d padded step: the generator moved")
+    require(launches == step_launches("output_adapt"),
+            f"12d padded step: launches {launches}")
+    return launches
+
+
+def arms_drivers(counted, smi):
+    """Phase 12e: the drivers with --remat and --fast-pad-stats at the
+    phase 5 cell for one epoch (TRAIN_ARGV): train_adapt, val_adapt
+    --skip-sep on its best checkpoint (the Trainer's mIoU within 1e-4)
+    and cli.export of it as a FULL_HW batch-BATCH rgb8 servable, whose
+    meta records pad_stats False and whose load_servable model is
+    ring-free (one call: 14 depthwise launches); then train
+    (feature_adapt) and val --skip-sep likewise.  Finite losses and
+    launches as predicted (the steps' with the recompute, the eval
+    forwards' as always).  Returns {path: launches}."""
+    from s2r_tpu_torch.cli import export, train, train_adapt, val, val_adapt
+    from s2r_tpu_torch.io.serving import load_servable
+
+    os.environ.pop("S2R_PLATFORM", None)  # the card, as a user runs it
+    root = tempfile.mkdtemp(prefix="s2r_arms_")
+    by_path = {}
+    try:
+        for name, fit, vmain, method, losses in (
+                ("train_adapt", train_adapt.main, val_adapt.main,
+                 "output_adapt", ("seg_loss", "adv_loss", "d_loss")),
+                ("train", train.main, val.main, "feature_adapt",
+                 ("task_loss", "d_loss", "d_inv_loss"))):
+            argv = TRAIN_ARGV + ["--remat", "--fast-pad-stats", "--run-root",
+                                 root, "--checkname", name]
+            trainer, launches, sec = drive(counted, fit, argv)
+            model = trainer.method.deeplab
+            require(model.remat and not model.pad_stats
+                    and trainer.method.name == method,
+                    f"12e {name}: remat {model.remat}, pad_stats "
+                    f"{model.pad_stats}, {trainer.method.name}")
+            want = predicted(method, trainer.state.step,
+                             fit_eval_forwards(trainer), remat=True)
+            require(launches == want,
+                    f"12e {name} launches {launches}, expected {want}")
+            by_path[f"{name}_remat_fast_pad_stats"] = launches
+            sc = read_scalars(trainer.saver.experiment_dir)
+            require(all(np.isfinite(v) for k in losses
+                        for _, v in sc[f"train/{k}"]),
+                    f"12e {name} losses not finite")
+            best = os.path.join(trainer.saver.directory, "model_best.ckpt")
+            n_val, best_pred = len(trainer.val_loader), trainer.best_pred
+            rate = sc["train/images_per_sec"][0][1]
+            del trainer, model
+            (miou, _), launches, _ = drive(
+                counted, vmain, argv + ["--resume", best, "--skip-sep",
+                                        "--out-dir",
+                                        os.path.join(root, f"val_{name}")])
+            require(launches == predicted(method, 0, n_val),
+                    f"12e val after {name}: launches {launches}")
+            require(abs(miou - best_pred) <= 1e-4,
+                    f"12e val after {name}: mIoU {miou} against {best_pred}")
+            by_path[f"val_{name}_fast_pad_stats"] = launches
+            log(f"[12e {name}] --remat --fast-pad-stats: one epoch in "
+                f"{sec:.1f} s, {rate:.2f} images/s, launches as predicted; "
+                f"val mIoU {miou:.6f} (the Trainer's {best_pred:.6f}) "
+                f"({smi})")
+            if name != "train_adapt":
+                continue
+            out = os.path.join(root, "arms.s2rt")
+            export.main(argv + ["--resume", best, "--out", out, "--format",
+                                "servable", "--serve-input", "rgb8",
+                                "--serve-shape", str(BATCH),
+                                str(FULL_HW[0]), str(FULL_HW[1])])
+            servable = load_servable(out)
+            require(servable.meta["pad_stats"] is False
+                    and not servable.model.pad_stats
+                    and not any(b.pad_stats for b in
+                                servable.model.backbone.features[1:]),
+                    "12e export --fast-pad-stats: the servable keeps the "
+                    "ring")
+            frames = torch.randint(0, 256, (BATCH, *FULL_HW, 3), device=DEV,
+                                   dtype=torch.uint8,
+                                   generator=torch.Generator(
+                                       device=DEV).manual_seed(SEED + 15))
+            reset(counted)
+            labels = servable(frames)
+            torch.cuda.synchronize()
+            launches = {fn.__name__: fn.launches for fn in counted}
+            require(labels.shape == (BATCH, *FULL_HW)
+                    and launches == dict(dict.fromkeys(launches, 0),
+                                         depthwise_conv3x3=14),
+                    f"12e servable: {tuple(labels.shape)}, {launches}")
+            by_path["serve_fast_pad_stats"] = launches
+            log(f"[12e export] the --fast-pad-stats servable records "
+                f"pad_stats False and serves ring-free; one call "
+                f"{launches['depthwise_conv3x3']} depthwise launches")
+            del servable, frames, labels
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return by_path
+
+
+def arms_phase(counted, smi):
+    """Phase 12: --remat, --fast-pad-stats, the space-to-depth convs and
+    masked batch padding.  Returns ({path: launches}, summary)."""
+    by_path, summary = {}, {}
+    remat_check(smi)
+    train_check_small(counted, pad_stats=False)
+    runs, peaks = {name: [] for name, _ in ARMS}, {}
+    for name, fields in ARMS + ARMS[::-1]:
+        ms, _, peak, _, launches, _ = time_step(
+            "output_adapt", counted, TRAIN_HW, BATCH, **fields)
+        runs[name].append(ms)
+        peaks[name] = peak
+        if name != "default":
+            by_path[f"{name}_step"] = launches
+        torch.cuda.empty_cache()
+    log(f"[12 arms] output step {TRAIN_HW[1]}x{TRAIN_HW[0]} batch {BATCH} "
+        "bf16, in turns ABCDDCBA, ms/step (the two medians of 5) and peak "
+        "GiB: " + "; ".join(
+            f"{name} {runs[name][0]:.3f} / {runs[name][1]:.3f}, "
+            f"{peaks[name]:.3f} GiB" for name, _ in ARMS)
+        + f"; launches as predicted ({smi})")
+    summary.update({f"{name}_step_ms": statistics.mean(runs[name])
+                    for name, _ in ARMS})
+    summary.update({f"{name}_step_peak_gib": peaks[name]
+                    for name, _ in ARMS})
+    s2d_conv_checks(smi)
+    torch.cuda.empty_cache()
+    by_path["serve_stem_s2d"] = stem_s2d_serve(counted, smi)
+    torch.cuda.empty_cache()
+    by_path["padded_step"] = padded_step_check(counted, smi)
+    torch.cuda.empty_cache()
+    by_path.update(arms_drivers(counted, smi))
+    return by_path, summary
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3706,6 +4125,11 @@ def main():
         t11 = time.perf_counter()
         driver_launches.update(native_phase(counted, smi, carry))
         log(f"[11] phase 11 in {time.perf_counter() - t11:.1f} s")
+        torch.cuda.empty_cache()
+        t12 = time.perf_counter()
+        arms_launches, arms = arms_phase(counted, smi)
+        driver_launches.update(arms_launches)
+        log(f"[12] phase 12 in {time.perf_counter() - t12:.1f} s")
         bn_entries[0]["composite"] = dict(
             bn_composite, ms_covers="one 512x1024 batch-8 bf16 train step: "
             "all four entries of 120 BatchNorm calls; library_ms: "
@@ -3761,7 +4185,11 @@ def main():
         f"split_concat serving exact "
         f"{split_summary['serve_split_exact_ms']:.3f} ms/image; output "
         f"step with bf16 logits {split_summary['step_bf16_logits_ms']:.3f} "
-        f"ms against {split_summary['step_f32_logits_ms']:.3f} with f32, "
+        f"ms against {split_summary['step_f32_logits_ms']:.3f} with f32; "
+        f"output step --remat {arms['remat_step_ms']:.3f} ms, "
+        f"{arms['remat_step_peak_gib']:.2f} GiB, against "
+        f"{arms['default_step_ms']:.3f} ms, "
+        f"{arms['default_step_peak_gib']:.2f} GiB, "
         f"on {smi}; {time.perf_counter() - t_start:.1f} s after imports")
     print(json.dumps({"kernels": significant(kernels)}))
     print(smi)

@@ -128,8 +128,6 @@ class Config:
 _UNPORTED = (
     ("spatial_shard", "--spatial-shard", (1,), "A.8"),
     ("eval_spatial_shard", "--eval-spatial-shard", (False,), "A.8"),
-    ("remat", "--remat", (False,), "A.9"),
-    ("pad_stats", "--fast-pad-stats", (True,), "A.9"),
 )
 
 

@@ -192,6 +192,8 @@ def export_servable(model, input_shape: Sequence[int], path: str, *,
             "batch_polymorphic": bool(batch_polymorphic),
             "platforms": platforms, "backbone": model.backbone_name,
             "split_concat": bool(model.split_concat),
+            "pad_stats": bool(model.pad_stats),
+            "stem_s2d": bool(model.stem_s2d),
             "output_stride": model.output_stride,
             "num_classes": model.num_classes,
             "normalization": ("baked-in (raw RGB8 in)" if input == "rgb8"
@@ -259,9 +261,11 @@ def read_servable(path: str):
 def load_servable(path: str,
                   device: Optional[Union[str, torch.device]] = None
                   ) -> Servable:
-    """Rebuild the servable's DeepLab (the backbone, output stride and
-    split_concat of its meta) on `device` (``cuda`` when None) and its
-    serving function."""
+    """Rebuild the servable's DeepLab (the backbone, output stride,
+    split_concat, pad_stats and stem_s2d of its meta; a file written
+    before the meta held the last two was exported with the ring and the
+    direct stem) on `device` (``cuda`` when None) and its serving
+    function."""
     from s2r_tpu_torch.models.deeplab import DeepLab
 
     meta, weights = read_servable(path)
@@ -269,7 +273,9 @@ def load_servable(path: str,
                     output_stride=meta["output_stride"],
                     dtype=meta["precision"], device=device,
                     backbone=meta.get("backbone", "mobilenet"),
-                    split_concat=meta.get("split_concat", False))
+                    split_concat=meta.get("split_concat", False),
+                    pad_stats=meta.get("pad_stats", True),
+                    stem_s2d=meta.get("stem_s2d", False))
     model.load_state_dict(weights, strict=True)
     fn = make_serving_fn(model, output=meta["output"], input=meta["input"],
                          argmax_res=meta["argmax_res"],

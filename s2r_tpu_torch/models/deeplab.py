@@ -23,6 +23,15 @@ bfloat16 halves the bytes the upsample writes and the loss reads (the
 loss reductions stay float32).  An eval-mode forward (validation,
 serving) writes float32 logits whatever it says, as the JAX package's
 eval model is built without it (s2r_tpu/train/setup.py:88-89).
+
+``remat`` (deeplab.py:68-70, ``--remat``) recomputes ASPP and the
+decoder in the backward on every backbone, and each inverted residual
+of MobileNetV2 (models/layers.py ``remat``); the other backbones are not
+wrapped, as in the JAX package.  ``pad_stats`` (``--fast-pad-stats``
+sets it False) and ``stem_s2d`` are MobileNetV2's (models/mobilenet.py);
+the other backbones ignore ``pad_stats``, as the JAX package does, and
+``stem_s2d`` on them raises a ValueError where the JAX package ignores
+it silently (ROADMAP C.7).
 """
 
 from __future__ import annotations
@@ -35,7 +44,7 @@ import torch.nn as nn
 from s2r_tpu_torch.core.device import resolve_device, resolve_dtype
 from s2r_tpu_torch.models.aspp import ASPP
 from s2r_tpu_torch.models.decoder import Decoder
-from s2r_tpu_torch.models.layers import init_weights
+from s2r_tpu_torch.models.layers import init_weights, remat
 from s2r_tpu_torch.ops.resize import resize_bilinear_align_corners
 
 BACKBONES = ("mobilenet", "resnet", "resnet101", "resnet50", "xception",
@@ -60,13 +69,19 @@ def aspp_stride(backbone: str, output_stride: int) -> int:
     return 8 if backbone == "drn" else output_stride
 
 
-def make_backbone(backbone: str, output_stride: int = 16) -> nn.Module:
+def make_backbone(backbone: str, output_stride: int = 16,
+                  remat: bool = False, pad_stats: bool = True,
+                  stem_s2d: bool = False) -> nn.Module:
     """The backbone module of a factory name (s2r_tpu/models/deeplab.py
-    :71-93)."""
+    :71-93); `remat`, `pad_stats` and `stem_s2d` are MobileNetV2's."""
     fam = family(backbone)
     if fam == "mobilenet":
         from s2r_tpu_torch.models.mobilenet import MobileNetV2
-        return MobileNetV2(output_stride)
+        return MobileNetV2(output_stride, remat=remat, pad_stats=pad_stats,
+                           stem_s2d=stem_s2d)
+    if stem_s2d:
+        raise ValueError(f"stem_s2d: the space-to-depth stem is "
+                         f"MobileNetV2's; backbone {backbone!r} has none")
     if fam == "resnet":
         from s2r_tpu_torch.models.resnet import ResNet, depth_of
         return ResNet(depth_of(backbone), output_stride)
@@ -84,8 +99,8 @@ class DeepLab(nn.Module):
     the module moves to `device` (``cuda`` when None; raises without a GPU).
     `dtype` is the compute dtype ('f32', 'bf16' or a torch dtype);
     parameters stay float32.  `logits_dtype` ('f32', 'bf16', a torch
-    dtype or None: float32) and `split_concat` as the module docstring
-    says.
+    dtype or None: float32), `split_concat`, `remat`, `pad_stats` and
+    `stem_s2d` as the module docstring says.
     """
 
     def __init__(self, num_classes: int = 19, output_stride: int = 16, *,
@@ -94,9 +109,14 @@ class DeepLab(nn.Module):
                  generator: Optional[torch.Generator] = None,
                  freeze_bn: bool = False, backbone: str = "mobilenet",
                  split_concat: bool = False,
-                 logits_dtype: Optional[Union[str, torch.dtype]] = None):
+                 logits_dtype: Optional[Union[str, torch.dtype]] = None,
+                 remat: bool = False, pad_stats: bool = True,
+                 stem_s2d: bool = False):
         super().__init__()
         device = resolve_device(device)
+        self.remat = bool(remat)
+        self.pad_stats = bool(pad_stats)
+        self.stem_s2d = bool(stem_s2d)
         self.num_classes = num_classes
         self.output_stride = output_stride
         self.backbone_name = backbone
@@ -107,7 +127,8 @@ class DeepLab(nn.Module):
                                                       torch.float32)
                              else resolve_dtype(logits_dtype))
         inplanes, low_level = WIDTHS[family(backbone)]
-        self.backbone = make_backbone(backbone, output_stride)
+        self.backbone = make_backbone(backbone, output_stride, self.remat,
+                                      self.pad_stats, self.stem_s2d)
         self.aspp = ASPP(aspp_stride(backbone, output_stride), inplanes,
                          split_concat)
         self.decoder = Decoder(num_classes, low_level, split_concat)
@@ -135,6 +156,8 @@ class DeepLab(nn.Module):
         feature [N,L,H/4,W/4]) in the compute dtype; L is 24 for
         MobileNetV2, 256 for ResNet and DRN, 128 for Xception (WIDTHS)."""
         high, low = self.backbone(x.to(self.compute_dtype))
+        if self.remat:
+            return remat(self.aspp, high, generator), low
         return self.aspp(high, generator), low
 
     def forward(self, x: torch.Tensor, upsample_logits: bool = True,
@@ -146,7 +169,8 @@ class DeepLab(nn.Module):
         `upsample_logits` is False.  In train mode `generator` draws the
         dropout masks."""
         feat, low = self.taps(x, generator)
-        logits = self.decoder(feat, low, generator)
+        logits = (remat(self.decoder, feat, low, generator) if self.remat
+                  else self.decoder(feat, low, generator))
         if upsample_logits:
             dtype = torch.promote_types(
                 x.dtype, torch.promote_types(self.compute_dtype,

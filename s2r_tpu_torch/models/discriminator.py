@@ -10,6 +10,12 @@ writes.  Weights follow torch's default Conv2d init (U(+-1/sqrt(fan_in))
 for weight and bias), drawn from an explicit ``torch.Generator``; the
 module computes in its compute dtype, casting its input first as the JAX
 package's Conv2d does, and keeps float32 parameters.
+
+``s2d_convs`` (s2r_tpu/models/discriminator.py:27,41): the first
+s2d_convs convs run through space-to-depth (ops/s2d.py) on an even input
+size, the direct conv otherwise.  conv1 stays on the hand-written kernel
+whatever it says, and both compute one function, so it acts from conv2
+on: ``s2d_convs=1`` changes nothing here.
 """
 
 from __future__ import annotations
@@ -21,8 +27,9 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from s2r_tpu_torch.core.device import resolve_device, resolve_dtype
-from s2r_tpu_torch.models.layers import leaky_relu
+from s2r_tpu_torch.models.layers import leaky_relu, s2d_applies
 from s2r_tpu_torch.ops.kernels.disc_conv import DiscConv1
+from s2r_tpu_torch.ops.s2d import conv4x4s2_via_s2d
 
 NAMES = ("conv1", "conv2", "conv3", "conv4", "classifier")
 
@@ -31,10 +38,12 @@ class FCDiscriminator(nn.Module):
     def __init__(self, num_classes: int = 19, ndf: int = 64, *,
                  dtype: Union[str, torch.dtype] = torch.float32,
                  device: Optional[Union[str, torch.device]] = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 s2d_convs: int = 0):
         super().__init__()
         device = resolve_device(device)
         self.compute_dtype = resolve_dtype(dtype)
+        self.s2d_convs = int(s2d_convs)
         widths = (num_classes, ndf, ndf * 2, ndf * 4, ndf * 8, 1)
         for name, cin, cout in zip(NAMES, widths[:-1], widths[1:]):
             setattr(self, name, nn.Conv2d(cin, cout, 4, stride=2, padding=1))
@@ -64,8 +73,13 @@ class FCDiscriminator(nn.Module):
         y = DiscConv1.apply(x.permute(0, 2, 1, 3),
                             c1.weight.to(dt).permute(2, 3, 1, 0).contiguous(),
                             c1.bias.to(dt)).permute(0, 3, 1, 2)
-        for name in NAMES[1:]:
+        for i, name in enumerate(NAMES[1:], start=1):
             conv = getattr(self, name)
-            y = F.conv2d(leaky_relu(y, 0.2), conv.weight.to(dt),
-                         conv.bias.to(dt), stride=2, padding=1)
+            y = leaky_relu(y, 0.2)
+            if i < self.s2d_convs and s2d_applies(conv, y):
+                y = (conv4x4s2_via_s2d(y, conv.weight.to(dt))
+                     + conv.bias.to(dt).view(1, -1, 1, 1))
+            else:
+                y = F.conv2d(y, conv.weight.to(dt), conv.bias.to(dt),
+                             stride=2, padding=1)
         return y

@@ -24,6 +24,19 @@ follow torch's own layers, so the reference torch key schema loads with
   batch's, through the kernels' split entries and an all-reduce.
 - ``Dropout``: elementwise, kept values scaled by 1/keep, the mask drawn
   from a caller's ``torch.Generator``; the identity in eval.
+- ``bn_real_batch(k)``: masked batch padding (s2r_tpu/models/layers.py
+  :219-244).  Inside it, train-mode BatchNorm takes its statistics, its
+  running update and its backward sums over the first k samples only
+  (the padding samples take the affine), and Dropout draws the masks of
+  the first k samples at [k, ...] and drops the rest, so a padded step
+  draws what the unpadded one draws, on any device.
+- ``remat(fn, *args)``: fn(*args) under torch.utils.checkpoint, its
+  activations recomputed in the backward (the JAX package's nn.remat).
+  The recompute changes no value and no state: each train-mode BatchNorm
+  reuses the statistics its forward took (no statistics launch, no
+  running update, no all-reduce, no count of batches) and each Dropout
+  replays the generator state its forward drew from, on a copy, so the
+  caller's generator advances once.
 - ``relu``, ``relu6``, ``leaky_relu`` with the JAX package's subgradients
   at the kinks (see each).  Their forward values are those of clamp, so
   the serving path computes what it computed before.
@@ -34,14 +47,102 @@ follow torch's own layers, so the reference torch key schema loads with
 
 from __future__ import annotations
 
+import threading
 from typing import Optional
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from s2r_tpu_torch.ops.kernels.batchnorm import BatchNormTrain
 from s2r_tpu_torch.ops.kernels.depthwise import DepthwiseConv3x3
+from s2r_tpu_torch.ops.s2d import conv3x3s2_via_s2d, conv4x4s2_via_s2d
+
+# The real batch (bn_real_batch) and the remat region being run, per
+# thread: the backward, and so a recompute, may run on autograd's own
+# thread, and enters its recompute context there.
+_local = threading.local()
+
+
+class bn_real_batch:
+    """Context manager: train-mode BatchNorm and Dropout treat only the
+    first `n` samples of a batch as real (None: all), as the JAX package's
+    does while it traces (s2r_tpu/models/layers.py:219-244)."""
+
+    def __init__(self, n: Optional[int]):
+        self.n = n
+
+    def __enter__(self):
+        self._prev = getattr(_local, "real", None)
+        _local.real = self.n
+
+    def __exit__(self, *exc):
+        _local.real = self._prev
+
+
+def _real_of(x: torch.Tensor) -> Optional[int]:
+    """The real samples of x's batch under bn_real_batch, None when all."""
+    k = getattr(_local, "real", None)
+    return None if k is None or k >= x.shape[0] else int(k)
+
+
+class _Frame:
+    """What one remat call records in its forward, in call order: each
+    train-mode BatchNorm's statistics and each Dropout's generator state;
+    and the real batch it ran under."""
+
+    def __init__(self):
+        self.stats, self.rng, self.real = [], [], None
+
+
+class _FrameScope:
+    """The forward (`recompute` False) or the recompute context of one
+    remat call (torch.utils.checkpoint's context_fn)."""
+
+    def __init__(self, frame: _Frame, recompute: bool):
+        self.frame, self.recompute = frame, recompute
+
+    def __enter__(self):
+        if _scope() is not None:
+            raise RuntimeError("remat: regions do not nest")
+        self._prev = getattr(_local, "real", None)
+        if self.recompute:
+            _local.real = self.frame.real
+        else:
+            self.frame.real = self._prev
+        self.n_stats = self.n_rng = 0
+        _local.scope = self
+
+    def __exit__(self, *exc):
+        _local.scope, _local.real = None, self._prev
+
+    def next_stats(self) -> torch.Tensor:
+        self.n_stats += 1
+        return self.frame.stats[self.n_stats - 1]
+
+    def next_rng(self):
+        self.n_rng += 1
+        return self.frame.rng[self.n_rng - 1]
+
+
+def _scope() -> Optional[_FrameScope]:
+    return getattr(_local, "scope", None)
+
+
+def remat(fn, *args):
+    """fn(*args), its saved activations dropped in the forward and
+    recomputed in the backward (torch.utils.checkpoint, non-reentrant), as
+    the JAX package's nn.remat; fn(*args) itself when no gradient is being
+    recorded.  The recompute reuses each BatchNorm's statistics and each
+    Dropout's generator state from the forward (module docstring)."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    frame = _Frame()
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False,
+                      context_fn=lambda: (_FrameScope(frame, False),
+                                          _FrameScope(frame, True)))
 
 
 def _col(v: torch.Tensor) -> torch.Tensor:
@@ -49,14 +150,20 @@ def _col(v: torch.Tensor) -> torch.Tensor:
 
 
 class Conv2d(nn.Conv2d):
-    """nn.Conv2d's parameters with the JAX package's Conv2d forward."""
+    """nn.Conv2d's parameters with the JAX package's Conv2d forward.
+
+    `s2d`: a dense 4x4 or 3x3 stride-2 padding-1 conv runs through
+    space-to-depth (ops/s2d.py) on an even H and W, and as the direct conv
+    otherwise (odd sizes such as 513x513), the JAX package's dispatch
+    (s2r_tpu/models/layers.py:155-183).  The parameters are the same."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int,
                  stride: int = 1, padding: int = 0, dilation: int = 1,
-                 groups: int = 1, bias: bool = False):
+                 groups: int = 1, bias: bool = False, s2d: bool = False):
         super().__init__(in_ch, out_ch, kernel_size, stride=stride,
                          padding=padding, dilation=dilation, groups=groups,
                          bias=bias)
+        self.s2d = bool(s2d)
 
     @property
     def dw_stride1_3x3(self) -> bool:
@@ -86,6 +193,10 @@ class Conv2d(nn.Conv2d):
                 x.permute(0, 2, 3, 1).contiguous(),
                 w[:, 0].permute(1, 2, 0).contiguous(),
                 self.dilation[0]).permute(0, 3, 1, 2)
+        elif self.s2d and s2d_applies(self, x):
+            lower = (conv4x4s2_via_s2d if self.kernel_size == (4, 4)
+                     else conv3x3s2_via_s2d)
+            y = lower(x, w)
         else:
             y = F.conv2d(x, w, None, self.stride, self.padding, self.dilation,
                          self.groups)
@@ -156,6 +267,15 @@ class Conv2d(nn.Conv2d):
         return y.to(dtype)
 
 
+def s2d_applies(conv: nn.Conv2d, x: torch.Tensor) -> bool:
+    """Whether `conv` on x has a space-to-depth form (ops/s2d.py): dense,
+    4x4 or 3x3, stride 2, padding 1, dilation 1, on an even H and W."""
+    return (conv.kernel_size in ((4, 4), (3, 3)) and conv.stride == (2, 2)
+            and conv.padding == (1, 1) and conv.dilation == (1, 1)
+            and conv.groups == 1 and x.shape[2] % 2 == 0
+            and x.shape[3] % 2 == 0)
+
+
 class BatchNorm(nn.BatchNorm2d):
     """nn.BatchNorm2d's parameters and buffers with the JAX package's
     forward: running statistics in eval, batch statistics in train mode.
@@ -174,7 +294,10 @@ class BatchNorm(nn.BatchNorm2d):
         `zero_pad_width` on both spatial sides (s2r_tpu/models/layers.py
         :330-336): the sums are unchanged and the count is N*(H+2d)*(W+2d).
         The running mean and the unbiased running variance over that count
-        are updated in place with momentum 0.1 (:341-349)."""
+        are updated in place with momentum 0.1 (:341-349).  Under
+        bn_real_batch(k), over the first k samples only; in a remat
+        recompute, the forward's statistics are reused and nothing is
+        updated (module docstring)."""
         if not self.training:
             inv = torch.rsqrt(self.running_var + self.eps) * self.weight
             shift = self.bias - self.running_mean * inv
@@ -182,11 +305,19 @@ class BatchNorm(nn.BatchNorm2d):
             return (y, shift) if ring else y
         sync = self.sync if self.sync is not None and self.sync.size > 1 \
             else None
+        scope = _scope()
+        stats_in = stats_out = None
+        if scope is not None and scope.recompute:
+            stats_in = scope.next_stats()
+        elif scope is not None:
+            stats_out = scope.frame.stats
         y, shift, _, _ = BatchNormTrain.apply(
             x, self.weight, self.bias, self.eps, int(zero_pad_width),
-            self.running_mean, self.running_var, float(self.momentum), sync)
-        with torch.no_grad():
-            self.num_batches_tracked.add_(1)
+            self.running_mean, self.running_var, float(self.momentum), sync,
+            _real_of(x), stats_in, stats_out)
+        if stats_in is None:
+            with torch.no_grad():
+                self.num_batches_tracked.add_(1)
         return (y, shift) if ring else y
 
 
@@ -195,7 +326,10 @@ class Dropout(nn.Module):
     element is kept with probability 1 - rate and scaled by 1/(1 - rate),
     the mask drawn from `generator` (the device's default generator when
     None); the gradient passes through the kept elements only.  The
-    identity in eval, and while `enabled` is False (``set_dropout``)."""
+    identity in eval, and while `enabled` is False (``set_dropout``).
+    Under bn_real_batch(k) the mask of the first k samples is drawn at
+    [k, ...] and the other samples are dropped; in a remat recompute the
+    forward's draw is replayed (module docstring)."""
 
     def __init__(self, rate: float):
         super().__init__()
@@ -207,8 +341,27 @@ class Dropout(nn.Module):
         if not (self.training and self.enabled) or self.rate == 0.0:
             return x
         keep = 1.0 - self.rate
-        mask = torch.rand(x.shape, device=x.device, generator=generator) < keep
+        k = _real_of(x)
+        shape = x.shape if k is None else (k,) + tuple(x.shape[1:])
+        if generator is None:
+            generator = (torch.default_generator if x.device.type == "cpu"
+                         else torch.cuda.default_generators[x.device.index])
+        scope = _scope()
+        if scope is not None and scope.recompute:
+            generator = torch.Generator(device=x.device)
+            generator.set_state(scope.next_rng())
+        elif scope is not None:
+            scope.frame.rng.append(generator.get_state())
+        mask = self._draw(shape, x.device, generator, keep)
+        if k is not None:
+            mask = torch.cat([mask, mask.new_zeros((x.shape[0] - k,)
+                                                   + tuple(x.shape[1:]))])
         return torch.where(mask, x / keep, x.new_zeros(()))
+
+    @staticmethod
+    def _draw(shape, device, generator, keep: float) -> torch.Tensor:
+        """The boolean keep-mask of `shape`, drawn from `generator`."""
+        return torch.rand(shape, device=device, generator=generator) < keep
 
 
 def set_dropout(module: nn.Module, enabled: bool) -> None:

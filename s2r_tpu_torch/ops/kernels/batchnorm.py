@@ -540,28 +540,59 @@ class BatchNormTrain(torch.autograd.Function):
     have one shape), so the running statistics come out equal on every
     rank.  dweight and dbias are this rank's shares, which the step sums
     over ranks with the other gradients.
+
+    `real` (masked batch padding, models/layers.py ``bn_real_batch``):
+    only the first `real` samples are real.  The statistics, the running
+    update and the backward sums are theirs, over real*(H+2*pad)*(W+2*pad)
+    positions: the kernels run on the real prefix of the rows (N is
+    outermost in both memory formats, so the prefix is contiguous).  The
+    padding samples take the affine only, y = x * inv + shift, and their
+    dx is g * inv (the JAX package's masked BatchNorm,
+    s2r_tpu/models/layers.py:300-349; every loss masks them, so g is zero
+    there).
+
+    `stats_in` (a recompute under remat, models/layers.py ``remat``): the
+    statistics this call's forward computed on the same x, a copy of the
+    [STAT_ROWS, C] rows; no statistics are taken, the running statistics
+    are not updated and nothing is all-reduced, so a recompute launches
+    batch_norm_apply alone.  `stats_out`, a list, receives such a copy of
+    this call's statistics.
     """
 
     @staticmethod
     def forward(ctx, x, weight, bias, eps: float, pad: int,
                 running_mean=None, running_var=None, momentum: float = 0.1,
-                sync=None):
+                sync=None, real: Optional[int] = None, stats_in=None,
+                stats_out=None):
         n, _, h, w = x.shape
         rows = channels_last_rows(x)
-        count = n * (h + 2 * pad) * (w + 2 * pad)
-        if sync is None:
-            stats = batch_norm_stats(rows, weight, bias, count, eps,
+        k = n if real is None else int(real)
+        if not 0 < k <= n:
+            raise ValueError(f"BatchNormTrain: {k} real samples of {n}")
+        if k < n and sync is not None:
+            raise NotImplementedError("BatchNormTrain: batch padding under "
+                                      "synchronized BatchNorm (ROADMAP A.9)")
+        m = k * h * w
+        count = k * (h + 2 * pad) * (w + 2 * pad)
+        if sync is not None:
+            count *= sync.size
+        if stats_in is not None:
+            stats = stats_in.clone()  # outputs are views of it
+        elif sync is None:
+            stats = batch_norm_stats(rows[:m], weight, bias, count, eps,
                                      running_mean, running_var, momentum)
         else:
-            count *= sync.size
             stats = batch_norm_sums(rows)
             sync.all_reduce_(stats[:SUM_XX + 1])
             stats = batch_norm_finish(stats, weight, bias, count, eps,
                                       running_mean, running_var, momentum)
+        if stats_out is not None:
+            stats_out.append(stats.detach().clone())
         y = _nchw(batch_norm_apply(rows, stats[INV], stats[SHIFT]), x)
         ctx.save_for_backward(rows, stats)
         ctx.count = count
         ctx.sync = sync
+        ctx.m = m
         # x's shape and memory format, for dx (a meta tensor holds no data)
         ctx.x_like = torch.empty_like(x, device="meta")
         mean, var = stats[MEAN], stats[VAR]
@@ -572,17 +603,22 @@ class BatchNormTrain(torch.autograd.Function):
     def backward(ctx, gy, gshift, _gmean, _gvar):
         rows, stats = ctx.saved_tensors
         g = channels_last_rows(gy.to(rows.dtype))
+        m = ctx.m
         if ctx.sync is None:
-            grads = batch_norm_grad_sums(g, rows, stats, gshift, ctx.count)
+            grads = batch_norm_grad_sums(g[:m], rows[:m], stats, gshift,
+                                         ctx.count)
         else:
             grads = batch_norm_grad_sums_local(g, rows, stats, gshift)
             ctx.sync.all_reduce_(grads[:SUM_GX + 1])
             grads = batch_norm_grad_finish(grads, stats, ctx.count)
         dx = None
         if ctx.needs_input_grad[0]:
-            dx = batch_norm_dx(g, rows, stats[INV], grads[COEF_B],
+            dx = batch_norm_dx(g[:m], rows[:m], stats[INV], grads[COEF_B],
                                grads[COEF_C0])
+            if m < rows.shape[0]:  # the padding samples: the affine's dx
+                f = torch.promote_types(g.dtype, torch.float32)
+                dx = torch.cat([dx, (g[m:].to(f) * stats[INV]).to(g.dtype)])
             dx = _nchw(dx, ctx.x_like)
         dweight = grads[DWEIGHT] if ctx.needs_input_grad[1] else None
         dbias = grads[DBIAS] if ctx.needs_input_grad[2] else None
-        return dx, dweight, dbias, None, None, None, None, None, None
+        return (dx, dweight, dbias) + (None,) * 9

@@ -2,7 +2,7 @@
 
     python -m s2r_tpu_torch.tools.profile_serving [--batch 8] [--height 1024]
         [--width 2048] [--dtype bf16] [--rows 25] [--backbone mobilenet]
-        [--conv-shapes N]
+        [--conv-shapes N] [--stem-s2d]
 
 Builds DeepLab-V3+ on `--backbone` (os 16, seeded weights; DRN's ASPP
 runs at output stride 8), serves rgb8 frames to labels in exact and
@@ -15,7 +15,8 @@ eval-mode BatchNorm made the identity (``eval_bn_share``) and prints the
 share of the call those BatchNorms take.  With
 --conv-shapes N it profiles one more exact call recording input shapes
 and prints the N convolutions (grouped by input shapes) that take the
-most device time.
+most device time.  --stem-s2d serves MobileNetV2 with its stem through
+space-to-depth (models/mobilenet.py ``stem_s2d``).
 """
 
 from __future__ import annotations
@@ -103,13 +104,14 @@ def main():
     ap.add_argument("--rows", type=int, default=25)
     ap.add_argument("--backbone", default="mobilenet")
     ap.add_argument("--conv-shapes", type=int, default=0)
+    ap.add_argument("--stem-s2d", action="store_true")
     a = ap.parse_args()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True).stdout.strip()
     print(f"[card] {smi}; torch {torch.__version__}")
     model = DeepLab(dtype=a.dtype, generator=torch.Generator().manual_seed(0),
-                    backbone=a.backbone)
+                    backbone=a.backbone, stem_s2d=a.stem_s2d)
     gen = torch.Generator(device="cuda").manual_seed(0)
 
     def rgb8():
@@ -119,7 +121,7 @@ def main():
     scales = calibrate_decoder_int8(model, [rgb8(), rgb8()], input="rgb8")
     images = rgb8()
     print(f"[setup] {a.backbone}, rgb8 {a.height}x{a.width} batch "
-          f"{a.batch}, {a.dtype}")
+          f"{a.batch}, {a.dtype}{' --stem-s2d' * a.stem_s2d}")
     exact = make_serving_fn(model, input="rgb8")
     profile_mode("exact", exact, images, a.calls, a.rows)
     ms, without, share = eval_bn_share(exact, images, a.calls)

@@ -12,11 +12,15 @@ method, on any backbone of ``cfg.backbone`` (models/deeplab.py):
 
 With no method given it is inferred from ``cfg.dataset`` as the JAX
 package does: 'gtav' is source-only, any other dataset feature_adapt.  A
-Config setting the port lacks raises (config.check_ported).  One device:
-`n_devices` must be 1, and batch padding (``--batch-pad``), which pays only
-on a TPU, is off for either value.  Weights are drawn at build time
-from `generator` (seeded with ``cfg.seed`` when None) on the CPU, and the
-models then move to `device` (``cuda`` when None).
+Config setting the port lacks raises (config.check_ported).  `n_devices`
+must be the process group's size (core/mesh.py).  Batch padding
+(``--batch-pad``) keeps the JAX package's rule (``_step_pad_to``): it
+pays only on a TPU, so both values give None here and the steps get no
+``pad_to``; the steps pad when a caller gives them one.  ``--remat`` and
+``--fast-pad-stats`` reach DeepLab (models/deeplab.py).  Weights are
+drawn at build time from `generator` (seeded with ``cfg.seed`` when
+None) on the CPU, and the models then move to `device` (``cuda`` when
+None).
 """
 
 from __future__ import annotations
@@ -64,6 +68,13 @@ class Method:
         return state.G
 
 
+def _step_pad_to(cfg: Config, n_devices: int) -> Optional[int]:
+    """The padded global batch of the train step, or None: the JAX
+    package's rule (s2r_tpu/train/setup.py:51-62) off a TPU, where
+    'auto' and 'off' both mean no padding."""
+    return None
+
+
 def build_method(cfg: Config, iters_per_epoch: int,
                  class_weights: Optional[torch.Tensor] = None,
                  method: Optional[str] = None,
@@ -74,6 +85,7 @@ def build_method(cfg: Config, iters_per_epoch: int,
         method = "source_only" if cfg.dataset == "gtav" else "feature_adapt"
     check_ported(cfg, method)
     mesh = make_mesh(n_devices)
+    pad_to = _step_pad_to(cfg, mesh.size)
     device = resolve_device(device)
     if generator is None:
         generator = torch.Generator().manual_seed(cfg.seed)
@@ -82,7 +94,8 @@ def build_method(cfg: Config, iters_per_epoch: int,
                       device=device, generator=generator,
                       freeze_bn=cfg.freeze_bn, backbone=cfg.backbone,
                       split_concat=cfg.split_concat,
-                      logits_dtype=cfg.logits_dtype)
+                      logits_dtype=cfg.logits_dtype, remat=cfg.remat,
+                      pad_stats=cfg.pad_stats)
     set_batchnorm_sync(deeplab, mesh)
     seg_loss_fn = build_seg_loss(cfg.loss_type, class_weights, mesh=mesh)
     lr_fn = make_lr_schedule(cfg.lr_scheduler, cfg.lr, cfg.epochs,
@@ -104,7 +117,7 @@ def build_method(cfg: Config, iters_per_epoch: int,
         d_opt = Adam(b1=0.9, b2=0.99)
         step_fn = make_output_adapt_step(deeplab, discr, g_opt, d_opt, lr_fn,
                                          seg_loss_fn, cfg.adv_softmax_axis,
-                                         mesh=mesh)
+                                         pad_to=pad_to, mesh=mesh)
 
         def init_state() -> TrainState:
             """Step 0, zero optimizer state over the models' current
@@ -130,7 +143,7 @@ def build_method(cfg: Config, iters_per_epoch: int,
     step_fn = make_feature_adapt_step(deeplab, domain, opt, opt, opt, lr_fn,
                                       seg_loss_fn,
                                       source_only=(method == "source_only"),
-                                      mesh=mesh)
+                                      pad_to=pad_to, mesh=mesh)
 
     def init_state() -> TrainState:
         """Step 0, the four zero optimizer states (train.py:63-82) over the

@@ -50,6 +50,18 @@ gradient, and DDP would also re-broadcast the BatchNorm buffers from rank
 0 on every forward (here they come out equal on every rank).  Each rank
 draws its dropout masks from its own generator (train/setup.py).  At one
 process nothing of this runs.
+
+Masked batch padding (`pad_to`, s2r_tpu/train/steps.py:86-130,
+:205-245): with pad_to = N > k, the batch of k samples is zero-padded to
+N (labels with 255, which the seg loss ignores) and the padding samples
+are masked out of every quantity across samples: BatchNorm's statistics
+and running update and Dropout's draw (models/layers.py
+``bn_real_batch``), the batch-axis softmax (taken over the real rows and
+padded back with zeros) and D's and the domain classifier's means (over
+the real rows).  The step then computes what the unpadded step computes.
+The JAX package pads on a TPU only (train/setup.py ``_step_pad_to``), so
+no driver pads here; a caller of the step factories may.  Under a mesh of
+more than one process `pad_to` raises (ROADMAP A.9).
 """
 
 from __future__ import annotations
@@ -65,6 +77,7 @@ from s2r_tpu_torch.io.convert import (deeplab_param_order,
                                       discriminator_param_order,
                                       domain_param_order,
                                       feature_param_order)
+from s2r_tpu_torch.models.layers import bn_real_batch
 from s2r_tpu_torch.train.losses import bce_with_logits, domain_loss
 from s2r_tpu_torch.train.optim import FusedOptimizer
 from s2r_tpu_torch.train.state import TrainState
@@ -160,10 +173,30 @@ def feature_params(deeplab) -> List[nn.Parameter]:
     return [params[k] for k in feature_param_order(deeplab.backbone_name)]
 
 
-def _no_pad(pad_to):
-    if pad_to is not None:
-        raise NotImplementedError("pad_to: batch padding is TPU-only and "
-                                  "not ported")
+def _check_pad(pad_to, mesh) -> None:
+    if pad_to is not None and mesh.size > 1:
+        raise NotImplementedError(
+            "pad_to: batch padding under a mesh of more than one process "
+            "is not ported (ROADMAP A.9)")
+
+
+class _Padding:
+    """The batch padding of one step: `k` real samples of `n` (k None: no
+    padding, and every method is the identity)."""
+
+    def __init__(self, pad_to, n_in: int):
+        self.k = n_in if pad_to is not None and pad_to > n_in else None
+        self.n = pad_to if self.k is not None else n_in
+
+    def pad(self, x: torch.Tensor, fill=0) -> torch.Tensor:
+        """x [k, ...] -> [n, ...], the new samples `fill`."""
+        if self.k is None:
+            return x
+        return torch.cat([x, x.new_full((self.n - self.k,)
+                                        + tuple(x.shape[1:]), fill)])
+
+    def real(self, x: torch.Tensor) -> torch.Tensor:
+        return x if self.k is None else x[:self.k]
 
 
 def make_output_adapt_step(deeplab, discriminator, g_opt, d_opt,
@@ -176,13 +209,12 @@ def make_output_adapt_step(deeplab, discriminator, g_opt, d_opt,
     batch: 'src_image', 'tgt_image' NHWC float, 'src_label' [N,H,W] int
     (tensors or arrays; moved to G's device).  metrics: 'seg_loss',
     'adv_loss', 'd_loss' and 'lr' as device tensors.  The modules are left
-    in train mode.  Batch padding (`pad_to`) is not ported: it pays only on
-    a TPU, where the JAX package pads the batch to the sublane width.
+    in train mode.  `pad_to`: masked batch padding (module docstring).
     `mesh`: data parallel (module docstring); `seg_loss_fn` must then be
     built over the same mesh.
     """
-    _no_pad(pad_to)
     mesh = mesh or Mesh()
+    _check_pad(pad_to, mesh)
     if adv_softmax_mode not in ("batch", "class"):
         raise ValueError(f"adv_softmax_mode {adv_softmax_mode!r}")
     g_params, g_mult = segmenter_params(deeplab)
@@ -194,28 +226,35 @@ def make_output_adapt_step(deeplab, discriminator, g_opt, d_opt,
     def step(state: TrainState, batch: Dict) -> Tuple[TrainState, Dict]:
         dev = deeplab.device
         lr = float(lr_fn(state.step))
-        src = torch.as_tensor(batch["src_image"], device=dev).permute(0, 3, 1, 2)
-        tgt = torch.as_tensor(batch["tgt_image"], device=dev).permute(0, 3, 1, 2)
-        label = torch.as_tensor(batch["src_label"], device=dev)
+        src = torch.as_tensor(batch["src_image"], device=dev)
+        padding = _Padding(pad_to, src.shape[0])
+        pad, real = padding.pad, padding.real
+        src = pad(src).permute(0, 3, 1, 2)
+        tgt = pad(torch.as_tensor(batch["tgt_image"],
+                                  device=dev)).permute(0, 3, 1, 2)
+        label = pad(torch.as_tensor(batch["src_label"], device=dev), 255)
         deeplab.train()
         discriminator.train()
-        src_logits, _ = deeplab(src, generator=state.generator)
-        tgt_logits, _ = deeplab(tgt, generator=state.generator)
+        with bn_real_batch(padding.k):
+            src_logits, _ = deeplab(src, generator=state.generator)
+            tgt_logits, _ = deeplab(tgt, generator=state.generator)
         l_seg = seg_loss_fn(src_logits, label)
-        tp = _adv_softmax(tgt_logits, adv_softmax_mode, mesh)
-        sp = _adv_softmax(src_logits.detach(), adv_softmax_mode, mesh)
+        tp = pad(_adv_softmax(real(tgt_logits), adv_softmax_mode, mesh))
+        sp = pad(_adv_softmax(real(src_logits.detach()), adv_softmax_mode,
+                              mesh))
         # G's adversarial term: D constant (train_adapt.py:140-155)
         for p in d_params:
             p.requires_grad_(False)
         try:
-            l_adv = bce_with_logits(discriminator(tp), SOURCE_LABEL, mesh)
+            l_adv = bce_with_logits(real(discriminator(tp)), SOURCE_LABEL,
+                                    mesh)
         finally:
             for p in d_params:
                 p.requires_grad_(True)
         # D's terms on detached maps (train_adapt.py:157-178)
-        l_d = (bce_with_logits(discriminator(sp), SOURCE_LABEL, mesh)
-               + bce_with_logits(discriminator(tp.detach()), TARGET_LABEL,
-                                 mesh))
+        l_d = (bce_with_logits(real(discriminator(sp)), SOURCE_LABEL, mesh)
+               + bce_with_logits(real(discriminator(tp.detach())),
+                                 TARGET_LABEL, mesh))
         grads = mesh.all_reduce_flat(torch.autograd.grad(
             l_seg + l_adv + l_d, g_params + d_params))
         state.opt_state = {
@@ -243,11 +282,11 @@ def make_feature_adapt_step(deeplab, domain_cls, task_opt, d_opt, d_inv_opt,
     and 'lr' as device tensors (the middle three zeros with
     `source_only`).  state.opt_state is {'task', 'd', 'd_inv', 'c'};
     'c' is carried and never stepped (train.py:202-204).  The modules are
-    left in train mode.  Batch padding (`pad_to`) is not ported.  `mesh`:
-    data parallel (module docstring).
+    left in train mode.  `pad_to`: masked batch padding, `mesh`: data
+    parallel (module docstring).
     """
-    _no_pad(pad_to)
     mesh = mesh or Mesh()
+    _check_pad(pad_to, mesh)
     g_params, _ = segmenter_params(deeplab)  # no 1x/10x groups here
     d_params = domain_params(domain_cls)
     f_params = feature_params(deeplab)
@@ -263,11 +302,15 @@ def make_feature_adapt_step(deeplab, domain_cls, task_opt, d_opt, d_inv_opt,
     def step(state: TrainState, batch: Dict) -> Tuple[TrainState, Dict]:
         dev = deeplab.device
         lr = float(lr_fn(state.step))
-        src = torch.as_tensor(batch[src_key], device=dev).permute(0, 3, 1, 2)
-        label = torch.as_tensor(batch[lbl_key], device=dev)
+        src = torch.as_tensor(batch[src_key], device=dev)
+        padding = _Padding(pad_to, src.shape[0])
+        pad, real = padding.pad, padding.real
+        src = pad(src).permute(0, 3, 1, 2)
+        label = pad(torch.as_tensor(batch[lbl_key], device=dev), 255)
         gen = state.generator
         deeplab.train()
-        src_out, src_feat = deeplab(src, generator=gen)
+        with bn_real_batch(padding.k):
+            src_out, src_feat = deeplab(src, generator=gen)
         task = seg_loss_fn(src_out, label)
         opt = dict(state.opt_state)
         if source_only:
@@ -276,12 +319,14 @@ def make_feature_adapt_step(deeplab, domain_cls, task_opt, d_opt, d_inv_opt,
             zero = torch.zeros((), dtype=torch.float32, device=dev)
             d_l = d_inv_l = d_acc = zero
         else:
-            tgt = torch.as_tensor(batch["tgt_image"],
-                                  device=dev).permute(0, 3, 1, 2)
+            tgt = pad(torch.as_tensor(batch["tgt_image"],
+                                      device=dev)).permute(0, 3, 1, 2)
             domain_cls.train()
-            src_d = domain_cls(src_feat, generator=gen)
-            _, tgt_feat = deeplab(tgt, generator=gen)
-            tgt_d = domain_cls(tgt_feat, generator=gen)
+            with bn_real_batch(padding.k):
+                src_d = domain_cls(src_feat, generator=gen)
+                _, tgt_feat = deeplab(tgt, generator=gen)
+                tgt_d = domain_cls(tgt_feat, generator=gen)
+            src_d, tgt_d = real(src_d), real(tgt_d)
             d_l, d_acc = domain_loss(src_d, tgt_d, mesh)
             d_inv_l, _ = domain_loss(tgt_d, src_d, mesh)
             grads = mesh.all_reduce_flat(torch.autograd.grad(

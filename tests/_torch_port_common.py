@@ -136,18 +136,19 @@ def perturb_affine(tree, seed: int = 2):
 
 def port_step_from_jax(params, stats, opt_state, step: int, batch,
                        precision: str, method: str = "output_adapt",
-                       backbone: str = "mobilenet"):
+                       backbone: str = "mobilenet", **config):
     """One step of the port's `method` started from a JAX TrainState's
     contents (numpy trees: params {'G','D'}, batch_stats, opt_state of the
-    method's layout, step), dropout off, on the CPU.  Returns (metrics as
-    floats, G state_dict, D state_dict, opt_state), tensors as float64
-    copies."""
+    method's layout, step), dropout off, on the CPU; `config`: more Config
+    fields.  Returns (metrics as floats, G state_dict, D state_dict,
+    opt_state), tensors as float64 copies."""
     from s2r_tpu_torch.config import Config
     from s2r_tpu_torch.io.convert import train_state_from_jax
     from s2r_tpu_torch.models.layers import set_dropout
     from s2r_tpu_torch.train.setup import build_method
 
-    pm = build_method(Config(precision=precision, backbone=backbone),
+    pm = build_method(Config(precision=precision, backbone=backbone,
+                             **config),
                       iters_per_epoch=10, method=method, device="cpu")
     set_dropout(pm.deeplab, False)
     set_dropout(pm.aux_model, False)
@@ -162,3 +163,84 @@ def port_step_from_jax(params, stats, opt_state, step: int, batch,
             {net: {k: v.double().clone() if torch.is_tensor(v) else v
                    for k, v in s.items()}
              for net, s in state.opt_state.items()})
+
+
+def jax_f64_output_step(batch, hw: int, n: int, pad_to=None, **fields):
+    """One JAX output_adapt step in float64 (tests/test_torch_port_train_
+    step_f64.py's set-up: a float64 compute policy under jax.enable_x64,
+    dropout off, G's BatchNorm scale and bias and every running statistic
+    perturbed) from PRNGKey(0), on `batch` (numpy) at crop `hw` and batch
+    size `n`; `pad_to` monkeypatches the JAX package's _step_pad_to, as
+    its own test does; `fields`: more Config fields.  Returns numpy trees
+    (params, stats, opt_state) before the step, (params, stats) after it,
+    and the metrics as floats."""
+    import pytest
+
+    from s2r_tpu.config import Config as JaxConfig
+    from s2r_tpu.core.precision import Policy
+    from s2r_tpu.models import layers as JL
+    from s2r_tpu.train import setup as jax_setup
+
+    def np_tree(t):
+        return jax.tree_util.tree_map(np.asarray, t)
+
+    from_name = Policy.from_name.__func__
+    with pytest.MonkeyPatch.context() as mp, jax.enable_x64(True):
+        mp.setattr(JL.Dropout, "__call__", lambda self, x, deterministic: x)
+        mp.setattr(Policy, "from_name", classmethod(
+            lambda cls, name: cls(compute_dtype=jnp.float64)
+            if name == "f64" else from_name(cls, name)))
+        if pad_to is not None:
+            mp.setattr(jax_setup, "_step_pad_to", lambda cfg, k: pad_to)
+        jm = jax_setup.build_method(
+            JaxConfig(crop_size=hw, base_size=hw, batch_size=n,
+                      precision="f64", **fields),
+            iters_per_epoch=10, method="output_adapt")
+        state = jm.init_state(jax.random.PRNGKey(0))
+        params = np_tree(state.params)
+        params["G"] = perturb_affine(params["G"])
+        stats = perturb_stats(np_tree(state.batch_stats))
+        state = state.replace(
+            params=jax.tree_util.tree_map(jnp.asarray, params),
+            batch_stats=jax.tree_util.tree_map(
+                lambda a: jnp.asarray(a, jnp.float64), stats))
+        opt = np_tree(state.opt_state)
+        after, met = jax.jit(jm.step_fn)(
+            state, {k: jnp.asarray(v) for k, v in batch.items()})
+        return (params, stats, opt, np_tree(after.params),
+                np_tree(after.batch_stats),
+                {k: float(v) for k, v in met.items()})
+
+
+def check_port_step(jax_step, port_step) -> None:
+    """The port's output step (port_step_from_jax's result) against the
+    JAX one (jax_f64_output_step's) at tests/test_torch_port_train_step_
+    f64.py's bounds: losses rtol 1e-5; G's and D's updates per leaf within
+    1e-3 relative L2; running statistics within 1e-5 of each layer's
+    largest."""
+    from s2r_tpu_torch.io.convert import from_jax_discriminator
+
+    params, stats, _, after_params, after_stats, met = jax_step
+    got_met, got_g, got_d, _ = port_step
+    for k in ("seg_loss", "adv_loss", "d_loss"):
+        np.testing.assert_allclose(got_met[k], met[k], rtol=1e-5, err_msg=k)
+    before = from_jax_variables(params["G"], stats)
+    want = from_jax_variables(after_params["G"], after_stats)
+    n_stats = 0
+    for k, w in want.items():
+        w, b = w.double(), before[k].double()
+        if "running" in k:
+            n_stats += k.startswith(("backbone.features.", "aspp.",
+                                     "decoder."))
+            err = float((got_g[k] - w).abs().max())
+            assert err <= 1e-5 * float(w.abs().max()), (k, err)
+        elif "num_batches" not in k and float((w - b).norm()) > 0:
+            rel = float((got_g[k] - w).norm() / (w - b).norm())
+            assert rel <= 1e-3, (k, rel)
+    assert n_stats == 2 * 60  # every BatchNorm of G
+    d0 = from_jax_discriminator(params["D"])
+    d1 = from_jax_discriminator(after_params["D"])
+    for k in d1:
+        w, b = d1[k].double(), d0[k].double()
+        rel = float((got_d[k] - w).norm() / (w - b).norm())
+        assert rel <= 1e-3, (k, rel)

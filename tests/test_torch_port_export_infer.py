@@ -114,9 +114,12 @@ def test_servable_meta_round_trips(seeded, tmp_path, flags):
     info = _export(ckpt, out, *flags)
     meta, weights = read_servable(out)
     assert meta == info
-    # the port's meta adds the compute precision and split_concat
-    assert set(jax_info) | {"precision", "split_concat"} == set(meta)
+    # the port's meta adds the compute precision and the model's
+    # split_concat, pad_stats and stem_s2d
+    assert set(jax_info) | {"precision", "split_concat", "pad_stats",
+                            "stem_s2d"} == set(meta)
     assert meta["split_concat"] is False
+    assert (meta["pad_stats"], meta["stem_s2d"]) == (True, False)
     assert meta["format"] == "s2r_tpu_torch.servable"
     assert (meta["epoch"], meta["best_pred"]) == (5, 0.75)
     assert meta["input_shape"] == [BATCH, HW, HW, 3]

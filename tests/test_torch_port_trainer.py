@@ -6,7 +6,8 @@ the CPU.
   and the two parsers register the same flags, dests, defaults and
   choices; each flag whose feature the port lacks raises, and the flags
   ported since (--num-devices under a world of 2, --logits-dtype,
-  --split-concat, --data-backend native, --profile-dir) parse and build.
+  --split-concat, --data-backend native, --profile-dir, --remat,
+  --fast-pad-stats) parse and build.
 - Saver: the same files and model_best promotions as JAX's over one
   sequence of best_preds across three experiments.
 - An asynchronous save holds the pre-step values even when a step runs
@@ -96,7 +97,7 @@ def test_parsers_register_the_same_flags():
 
 # flags of UNPORTED whose features are ported now: they parse and build
 PORTED = {"--num-devices", "--logits-dtype", "--split-concat",
-          "--data-backend", "--profile-dir"}
+          "--data-backend", "--profile-dir", "--remat", "--fast-pad-stats"}
 
 
 def _world_of(monkeypatch, world: int, rank: int = 0):
@@ -125,6 +126,10 @@ def test_unported_flag_raises(argv, flag, monkeypatch):
     assert m.deeplab.split_concat == (flag == "--split-concat")
     assert m.deeplab.logits_dtype == (torch.bfloat16
                                       if flag == "--logits-dtype" else None)
+    assert m.deeplab.remat == m.deeplab.backbone.remat == (flag == "--remat")
+    ring = flag != "--fast-pad-stats"
+    assert m.deeplab.pad_stats == ring
+    assert all(b.pad_stats == ring for b in m.deeplab.backbone.features[1:])
 
 
 @pytest.mark.parametrize("backbone", ["mobilenet", "resnet", "resnet101",
