@@ -177,14 +177,20 @@ Phases, each of which must pass:
    by ``cli.infer``: labels equal to make_serving_fn in this process, 56
    depthwise launches a batch.
 10. Data-parallel training and the model's two flags (ROADMAP A.8, A.5).
-   (a) The split entries of synchronized BatchNorm (sums-only, finish,
-   each direction) at phase 2d's train-cell shapes at a rank's batch
-   (BATCH / 2): on all rows against the fused entries, two row halves'
+   (a) The split entries of synchronized BatchNorm (batch_norm_sums and
+   batch_norm_finish_apply forward, grad_sums_local and grad_finish
+   backward) at phase 2d's train-cell shapes at a rank's batch (BATCH /
+   2): on all rows bit-equal to the fused entries (y, the statistics
+   rows, the running statistics, the backward rows), two row halves'
    sums added and finished against the fused entries on all rows (the
-   cotangent of shift split between them), each against its plain
-   version, at phase 2d's tolerances; timed against the fused entries,
-   the plain versions and batch_norm_stats /
-   batch_norm_gather_stats_with_counts / batch_norm_backward_reduce.
+   cotangent of shift split between them; their y bit-equal to
+   batch_norm_apply on their own rows), each against its plain
+   version, at phase 2d's tolerances; timed (CUDA events; the card's
+   time by torch.profiler and the host's a call,
+   tools/profile_bn_split.py) against the one-card entries on the same
+   rows, the plain versions and batch_norm_stats /
+   gather_stats_with_counts + batch_norm_elemt /
+   batch_norm_backward_reduce.
    (b) Two ranks on the one card, each a process of
    s2r_tpu_torch/tools/dist_check.py with a gloo group (NCCL refuses two
    ranks on one device, "Duplicate GPU detected": tools/profile_dist.py;
@@ -306,8 +312,9 @@ TRAIN_ARGV = ["--dataset", "synthetic", "--device-aug",
 _BN = ("batch_norm_stats", "batch_norm_apply", "batch_norm_grad_sums",
        "batch_norm_dx")
 # the split entries of synchronized BatchNorm (phase 10), in place of
-# stats and grad_sums at a world of more than one process
-_BN_SPLIT = ("batch_norm_sums", "batch_norm_finish",
+# stats and apply (sums, finish_apply) and grad_sums (grad_sums_local,
+# grad_finish) at a world of more than one process
+_BN_SPLIT = ("batch_norm_sums", "batch_norm_finish_apply",
              "batch_norm_grad_sums_local", "batch_norm_grad_finish")
 # (stride-1 depthwise convs, BatchNorms of G) in one forward of each
 # backbone at output stride 16: MobileNetV2's 14 inverted residuals'
@@ -327,8 +334,9 @@ def step_launches(method, backbone="mobilenet", world=1, remat=False):
     logits feed no loss, so the decoder's 3 BatchNorms of the target
     forward take no backward), the discriminator's first conv on 3
     softmax maps (output_adapt).  At `world` > 1 (a rank's step) the
-    split entries replace stats (sums and finish) and grad_sums
-    (grad_sums_local and grad_finish).  With `remat` the backward
+    split entries replace stats and apply (sums and finish_apply; apply
+    stays only in a remat recompute) and grad_sums (grad_sums_local and
+    grad_finish).  With `remat` the backward
     recomputes the wrapped regions of each G forward that takes one (the
     feature step's target decoder takes none): each wrapped BatchNorm
     applies again on its forward's statistics (MobileNetV2's all but the
@@ -353,8 +361,9 @@ def step_launches(method, backbone="mobilenet", world=1, remat=False):
     if world > 1:
         fwd, bwd = out["batch_norm_stats"], out["batch_norm_grad_sums"]
         out.update(batch_norm_stats=0, batch_norm_sums=fwd,
-                   batch_norm_finish=fwd, batch_norm_grad_sums=0,
-                   batch_norm_grad_sums_local=bwd,
+                   batch_norm_finish_apply=fwd,
+                   batch_norm_apply=out["batch_norm_apply"] - fwd,
+                   batch_norm_grad_sums=0, batch_norm_grad_sums_local=bwd,
                    batch_norm_grad_finish=bwd)
     return out
 
@@ -2850,35 +2859,53 @@ DIST_COLLECTIVES = 248
 def check_split_batchnorm(bn):
     """Phase 10a: the split entries of synchronized BatchNorm at phase 2d's
     BatchNorm input shapes of the train cell, at a rank's share of its
-    batch (BATCH / DIST_WORLD), float32 and bfloat16: the sums-only and
-    finish entries on all rows against the fused ones; two row halves'
-    sums, added, then finished (the cotangent of shift split between the
-    halves, each half's added once) against the fused entries on all rows;
-    each entry against its plain version on the same inputs; tolerances
-    as phase 2d.  Times (bf16) each entry against its fused counterpart,
-    its plain version and one PyTorch call (batch_norm_stats,
-    batch_norm_gather_stats_with_counts, batch_norm_backward_reduce; none
-    for the backward finish), with its bound.  Returns the four entries
-    for one rank's step (60 BatchNorms x (src, tgt) = 120 calls each)."""
+    batch (BATCH / DIST_WORLD), float32 and bfloat16.  On all rows,
+    batch_norm_sums + batch_norm_finish_apply give y, the five statistics
+    rows and the running statistics bit-equal to the fused
+    batch_norm_stats + batch_norm_apply, and batch_norm_grad_sums_local +
+    batch_norm_grad_finish the rows of the fused batch_norm_grad_sums
+    (required).  Two row halves' sums, added, then finished (the cotangent
+    of shift split between the halves, each half's added once) against
+    the fused entries on all rows (y bit-equal to batch_norm_apply on the
+    halves' own rows: one bf16 rounding of y may flip where the rows
+    differ in their last bit), and each entry against its plain
+    version on the same inputs: tolerances as phase 2d.  Times (bf16) each
+    entry, its plain version, one PyTorch call or pair for the same work
+    (batch_norm_stats; gather_stats_with_counts + batch_norm_elemt, what
+    SyncBatchNorm runs; batch_norm_backward_reduce; none for the backward
+    finish) and the one-card entry on the same rows (batch_norm_stats,
+    batch_norm_apply, batch_norm_grad_sums) by CUDA events (the kernel,
+    the library and the one-card entry in turns, three rounds, the median
+    of each), and those three also by the card's time and the host's a
+    call (tools/profile_bn_split.py split_times), with each entry's
+    bound.  Returns the four entries for one rank's
+    step (60 BatchNorms x (src, tgt) = 120 calls each)."""
     from collections import Counter
+
+    from s2r_tpu_torch.tools.profile_bn_split import split_times
 
     counts = Counter(bn_input_shapes(TRAIN_HW))
     n = BATCH // DIST_WORLD
     gen = torch.Generator(device=DEV).manual_seed(SEED + 11)
     names = _BN_SPLIT
+    sides = ("", "library_", "fused_")
     totals = {k: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-                  "bound_ms": 0.0, "max_abs_err": 0.0, "fused_ms": 0.0}
+                  "fused_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0.0,
+                  **{f"{p}{t}": 0.0 for p in sides
+                     for t in ("device_ms", "host_ms")}}
               for k in names}
+    device_by = set()
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
-    bit_equal = True
     eps, mom = 1e-5, 0.1
     log("[10a split batchnorm] N C H W x count: worst rel err f32, bf16 | "
-        "bf16 ms kernel/plain/library(/fused): sums, finish, "
+        "bf16 ms kernel/plain/library/fused, then device ms and host us a "
+        "call of kernel/library/fused: sums, finish_apply, "
         "grad_sums_local, grad_finish")
     for (c, h, w), mult in sorted(counts.items()):
         errs = {}
         for dtype in (torch.float32, torch.bfloat16):
             tol = 1e-5 if dtype == torch.float32 else 1e-4
+            where = f"10a split batchnorm {(n, c, h, w)} {dtype}"
             x4 = randn((n, h, w, c), dtype, gen)
             x, g = x4.view(-1, c), randn((n, h, w, c), dtype, gen).view(-1, c)
             weight = 1 + 0.1 * torch.randn(c, device=DEV, generator=gen)
@@ -2893,58 +2920,77 @@ def check_split_batchnorm(bn):
             run = {k: (rm0.clone(), rv0.clone()) for k in ("f", "s", "h")}
             st = bn.batch_norm_stats(x, weight, bias, count, eps,
                                      *run["f"], mom)
+            y_f = bn.batch_norm_apply(x, st[bn.INV], st[bn.SHIFT])
             gr = bn.batch_norm_grad_sums(g, x, st, gshift, count)
             want_g = gr.clone()
             want_g[bn.SUM_G] = gr[bn.DBIAS]  # G: sum g with d(shift)
             # split, all rows
             sums = bn.batch_norm_sums(x)
             sums_in = sums.clone()
-            s1 = bn.batch_norm_finish(sums, weight, bias, count, eps,
-                                      *run["s"], mom)
+            y1 = bn.batch_norm_finish_apply(x, sums, weight, bias, count, eps,
+                                            *run["s"], mom)
             local = bn.batch_norm_grad_sums_local(g, x, st, gshift)
             local_in = local.clone()
             l1 = bn.batch_norm_grad_finish(local, st, count)
             # two halves, summed between the calls
             sa = bn.batch_norm_sums(x[:half])
             sa[:2] += bn.batch_norm_sums(x[half:])[:2]
-            s2 = bn.batch_norm_finish(sa, weight, bias, count, eps,
-                                      *run["h"], mom)
+            y2 = bn.batch_norm_finish_apply(x, sa, weight, bias, count, eps,
+                                            *run["h"], mom)
             la = bn.batch_norm_grad_sums_local(g[:half], x[:half], st, gs_a)
             lb = bn.batch_norm_grad_sums_local(g[half:], x[half:], st, gs_b)
             shares = la[bn.DWEIGHT:bn.DBIAS + 1] + lb[bn.DWEIGHT:bn.DBIAS + 1]
             la[:2] += lb[:2]
             l2 = bn.batch_norm_grad_finish(la, st, count)
+            # the plain versions: the rows from the reduced sums; y from the
+            # kernel's own rows (as phase 2d holds apply), since one bf16
+            # rounding of y flips where the rows differ in their last bit
+            sums_p = sums_in.clone()
+            bn.batch_norm_finish_apply_plain(x, sums_p, weight, bias, count,
+                                             eps)
+            y_p = bn.batch_norm_apply_plain(x, sums[bn.INV], sums[bn.SHIFT])
             torch.cuda.synchronize()
-            bit_equal &= torch.equal(s1, st) and torch.equal(l1, want_g)
+            require(torch.equal(y1, y_f) and torch.equal(sums, st)
+                    and all(torch.equal(u, v)
+                            for u, v in zip(run["s"], run["f"])),
+                    f"{where}: sums + finish_apply not bit-equal to the "
+                    "fused stats + apply (y, rows, running statistics)")
+            require(torch.equal(y2, bn.batch_norm_apply(x, sa[bn.INV],
+                                                        sa[bn.SHIFT])),
+                    f"{where}: the halves' finish_apply y is not apply's on "
+                    "its own rows")
+            require(torch.equal(local_in[:bn.DBIAS + 1],
+                                want_g[:bn.DBIAS + 1])
+                    and torch.equal(l1, want_g),
+                    f"{where}: grad_sums_local (+ grad_finish) rows not "
+                    "bit-equal to the fused grad_sums'")
             plain = {
                 "batch_norm_sums": (sums_in[:2],
                                     bn.batch_norm_sums_plain(x)[:2]),
-                "batch_norm_finish": (s1, bn.batch_norm_finish_plain(
-                    sums_in, weight, bias, count, eps)),
+                "batch_norm_finish_apply": (sums, sums_p),
+                "finish_apply y": (y1.view(1, -1), y_p.view(1, -1)),
                 "batch_norm_grad_sums_local": (
                     local_in[:4],
                     bn.batch_norm_grad_sums_local_plain(g, x, st,
                                                         gshift)[:4]),
                 "batch_norm_grad_finish": (l1, bn.batch_norm_grad_finish_plain(
                     local_in, st, count))}
-            e = {"sums+finish": max(bn_rel(s1, st)),
-                 "halves": max(bn_rel(s2, st)),
-                 "running": max(bn_rel(torch.stack([*run["s"], *run["h"]]),
-                                       torch.stack([*run["f"], *run["f"]]))),
-                 "grad all rows": max(bn_rel(l1, want_g)),
+            e = {"halves": max(bn_rel(sa, st)),
+                 "running": max(bn_rel(torch.stack([*run["h"]]),
+                                       torch.stack([*run["f"]]))),
                  "grad halves": max(bn_rel(
                      l2[[bn.SUM_G, bn.SUM_GX, bn.COEF_B, bn.COEF_C0]],
                      want_g[[bn.SUM_G, bn.SUM_GX, bn.COEF_B, bn.COEF_C0]])),
                  "grad shares": max(bn_rel(shares,
                                            gr[bn.DWEIGHT:bn.DBIAS + 1])),
                  **{k: max(bn_rel(u, v)) for k, (u, v) in plain.items()}}
-            require(max(e.values()) <= tol, f"10a split batchnorm "
-                    f"{(n, c, h, w)} {dtype}: rel errs {e} > {tol}")
+            require(max(e.values()) <= tol, f"{where}: rel errs {e} > {tol}")
             errs[dtype] = max(e.values())
             worst[dtype] = max(worst[dtype], errs[dtype])
             if dtype != torch.bfloat16:
                 continue
             for k, (u, v) in plain.items():
+                k = "batch_norm_finish_apply" if k == "finish_apply y" else k
                 totals[k]["max_abs_err"] = max(
                     totals[k]["max_abs_err"],
                     float((u.float() - v.float()).abs().max()))
@@ -2957,6 +3003,13 @@ def check_split_batchnorm(bn):
             rm, rv = rm0.clone(), rv0.clone()
             x4n = x4.permute(0, 3, 1, 2)
             g4n = g.view(n, h, w, c).permute(0, 3, 1, 2)
+
+            def gather_elemt():
+                m_, i_ = torch.batch_norm_gather_stats_with_counts(
+                    x4n, mean2, invstd2, rm, rv, mom, eps, cnt2)
+                torch.batch_norm_elemt(x4n, weight, bias, m_, i_, eps)
+
+            # (kernel, plain, library, one-card entry) of each entry
             fns = {
                 "batch_norm_sums": (
                     lambda: bn.batch_norm_sums(x),
@@ -2964,14 +3017,14 @@ def check_split_batchnorm(bn):
                     lambda: torch.batch_norm_stats(x4n, eps),
                     lambda: bn.batch_norm_stats(x, weight, bias, count, eps,
                                                 rm, rv, mom)),
-                "batch_norm_finish": (
-                    lambda: bn.batch_norm_finish(sums, weight, bias, count,
-                                                 eps, rm, rv, mom),
-                    lambda: bn.batch_norm_finish_plain(
-                        sums_in, weight, bias, count, eps, rm, rv, mom),
-                    lambda: torch.batch_norm_gather_stats_with_counts(
-                        x4n, mean2, invstd2, rm, rv, mom, eps, cnt2),
-                    None),
+                "batch_norm_finish_apply": (
+                    lambda: bn.batch_norm_finish_apply(
+                        x, sums, weight, bias, count, eps, rm, rv, mom),
+                    lambda: bn.batch_norm_finish_apply_plain(
+                        x, sums_p, weight, bias, count, eps, rm, rv, mom),
+                    gather_elemt,
+                    lambda: bn.batch_norm_apply(x, st[bn.INV],
+                                                st[bn.SHIFT])),
                 "batch_norm_grad_sums_local": (
                     lambda: bn.batch_norm_grad_sums_local(g, x, st, gshift),
                     lambda: bn.batch_norm_grad_sums_local_plain(g, x, st,
@@ -2988,34 +3041,56 @@ def check_split_batchnorm(bn):
             # bytes (each input read once, each output written once; the
             # per-channel rows float32) and flops of each entry
             work = {"batch_norm_sums": (mc * isz + 8 * c, 3 * mc),
-                    "batch_norm_finish": (52 * c, 15 * c),
+                    "batch_norm_finish_apply": (2 * mc * isz + 52 * c,
+                                                2 * mc + 15 * c),
                     "batch_norm_grad_sums_local": (2 * mc * isz + 28 * c,
                                                    3 * mc),
                     "batch_norm_grad_finish": (28 * c, 10 * c)}
             k2 = 2 * mult  # src and tgt
-            row = []
+            row, split = [], []
             for name in names:
-                ms = [cuda_ms(f) if f is not None else None
-                      for f in fns[name]]
-                bnd, _ = bound_ms(*work[name], torch.float32)
+                kern, pl, lib, fused = fns[name]
+                # kernel, library and one-card entry in turns, three rounds
+                # (order rotating), each the median of its three
+                turns = [f for f in (kern, lib, fused) if f is not None]
+                runs = {id(f): [] for f in turns}
+                for r in range(3):
+                    for f in turns[r % len(turns):] + turns[:r % len(turns)]:
+                        runs[id(f)].append(cuda_ms(f))
+                ms = [None if f is None else
+                      cuda_ms(f) if f is pl else statistics.median(runs[id(f)])
+                      for f in (kern, pl, lib, fused)]
+                bnd, bnd_by = bound_ms(*work[name], torch.float32)
                 tot = totals[name]
-                tot["ms"] += k2 * ms[0]
-                tot["plain_ms"] += k2 * ms[1]
-                if ms[2] is not None:
-                    tot["library_ms"] += k2 * ms[2]
-                if ms[3] is not None:
-                    tot["fused_ms"] += k2 * ms[3]
+                tot["bound_by"] = bnd_by
                 tot["bound_ms"] += k2 * bnd
+                for key, v in zip(("ms", "plain_ms", "library_ms",
+                                   "fused_ms"), ms):
+                    if v is not None:
+                        tot[key] += k2 * v
+                cells = []
+                for prefix, f in zip(sides, (kern, lib, fused)):
+                    if f is None:
+                        cells.append("-")
+                        continue
+                    t = split_times(f)
+                    device_by.add(t["device_by"])
+                    tot[prefix + "device_ms"] += k2 * t["device_ms"]
+                    tot[prefix + "host_ms"] += k2 * t["host_us"] / 1e3
+                    cells.append(f"{t['device_ms']:.4f}/{t['host_us']:.1f}")
                 row.append("/".join("-" if v is None else f"{v:.4f}"
                                     for v in ms))
+                split.append(" ".join(cells))
             log(f"[10a split batchnorm] {n} {c} {h} {w} x{mult}: "
                 f"{errs[torch.float32]:.3g}, {errs[torch.bfloat16]:.3g} | "
-                + " ".join(row))
+                + " ".join(row) + " | " + "; ".join(split))
             del fns
+    calls = 2 * sum(counts.values())
     entries = []
     for name in names:
         tot = totals[name]
-        entries.append({
+        has_lib = name != "batch_norm_grad_finish"
+        entry = {
             "name": name, "route": "cuda",
             "source": "s2r_tpu_torch/csrc/batchnorm.cu",
             "replaces": ("s2r_tpu/ops/pallas/batchnorm.py:77"
@@ -3024,25 +3099,31 @@ def check_split_batchnorm(bn):
                          else "s2r_tpu/ops/pallas/batchnorm.py:111"),
             "launches": None, "max_abs_err": tot["max_abs_err"],
             "ms": tot["ms"], "plain_ms": tot["plain_ms"],
-            "bound_ms": tot["bound_ms"],
-            "bound_by": "bytes",
-            "library_ms": (tot["library_ms"]
-                           if name != "batch_norm_grad_finish" else None),
-            "fused_ms": (tot["fused_ms"] if name in (
-                "batch_norm_sums", "batch_norm_grad_sums_local") else None),
-            "ms_covers": f"a rank's output step at world {DIST_WORLD} "
-                         f"({TRAIN_HW[1]}x{TRAIN_HW[0]}, "
-                         f"{BATCH // DIST_WORLD} a rank, bf16): 120 calls; "
-                         "fused_ms: the fused entry on the same rows"})
+            "bound_ms": tot["bound_ms"], "bound_by": tot["bound_by"],
+            "library_ms": tot["library_ms"] if has_lib else None,
+            "fused_ms": tot["fused_ms"] if has_lib else None}
+        for prefix in sides:
+            if prefix and not has_lib:
+                continue
+            entry[prefix + "device_ms"] = tot[prefix + "device_ms"]
+            entry[prefix + "host_us"] = 1e3 * tot[prefix + "host_ms"] / calls
+        entry["ms_covers"] = (
+            f"a rank's output step at world {DIST_WORLD} ({TRAIN_HW[1]}x"
+            f"{TRAIN_HW[0]}, {n} a rank, bf16): {calls} calls; device_ms by "
+            f"{'/'.join(sorted(device_by))}; host_us a call; library and "
+            "fused: phase 10a")
+        entries.append(entry)
     log(f"[10a split batchnorm] all checks passed at {len(counts)} shapes "
         f"(batch {n}); worst rel err f32 {worst[torch.float32]:.3g}, bf16 "
-        f"{worst[torch.bfloat16]:.3g}; sums-only + finish on all rows "
-        f"{'bit-equal to' if bit_equal else 'within tolerance of'} the "
-        "fused entries; one rank's step (120 calls each, bf16): "
-        + "; ".join(f"{e['name']} {e['ms']:.3f} ms (plain "
-                    f"{e['plain_ms']:.3f}, library {e['library_ms']}, fused "
-                    f"{e['fused_ms']}, bound {e['bound_ms']:.4f})"
-                    for e in entries))
+        f"{worst[torch.bfloat16]:.3g}; sums + finish_apply and "
+        "grad_sums_local + grad_finish on all rows bit-equal to the fused "
+        f"entries; one rank's step ({calls} calls each, bf16; device ms by "
+        f"{'/'.join(sorted(device_by))}): "
+        + "; ".join(f"{e['name']} {e['ms']:.3f} ms (device "
+                    f"{e['device_ms']:.3f}, host {e['host_us']:.1f} us a "
+                    f"call; plain {e['plain_ms']:.3f}, library "
+                    f"{e['library_ms']}, fused {e['fused_ms']}, bound "
+                    f"{e['bound_ms']:.4f})" for e in entries))
     return entries
 
 
@@ -4057,7 +4138,7 @@ def main():
     counted = (dw.depthwise_conv3x3, rq.requant_s32_to_s8, dw.depthwise_dk,
                bn.batch_norm_stats, bn.batch_norm_apply,
                bn.batch_norm_grad_sums, bn.batch_norm_dx, dc.disc_conv1,
-               bn.batch_norm_sums, bn.batch_norm_finish,
+               bn.batch_norm_sums, bn.batch_norm_finish_apply,
                bn.batch_norm_grad_sums_local, bn.batch_norm_grad_finish)
     t_start = time.perf_counter()
     # phases 5 and 6d hand phase 8 their checkpoints in this directory

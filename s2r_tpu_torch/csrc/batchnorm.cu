@@ -36,8 +36,12 @@
 // the step's 60 BatchNorms are small (16K rows), where the host's launch
 // cost dominates: hence the fold in the sums' last block there.  On large
 // inputs (hundreds of slabs) one block folding a chunk would be a long
-// serial tail, so a fold kernel of 32 lanes a channel does it.  All read
-// and write 16-byte channel vectors (8 bf16 or 4 f32), neighbouring threads
+// serial tail, so a fold kernel of 32 lanes a channel does it.  The tails
+// after the loads are kept short: a block's tree over its rows keeps its
+// sums in shared memory as [2V][threads] (no bank conflicts), and a fold
+// lane starts the loads of up to 32 slabs before adding them in order
+// (neither changes the order of any sum, so neither changes a bit).  All
+// read and write 16-byte channel vectors (8 bf16 or 4 f32), neighbouring threads
 // on neighbouring vectors.  A C that is not a multiple of the vector, or an
 // unaligned pointer, takes the same kernels one channel at a time.  Row
 // indices are 64-bit in the sums; the elementwise kernels index in 32 bits
@@ -46,22 +50,28 @@
 // Synchronized BatchNorm (data-parallel training, one process per card)
 // splits each direction at the all-reduce of its two sums: a sums-only
 // call runs the same bn_sums (and bn_fold) with the epilogue cut to the
-// rows that cross the ranks, the caller all-reduces those two rows
-// ([2][c], contiguous at the head of the workspace), and bn_finish, one
-// thread a channel, runs the rest of the epilogue on the global sums:
+// rows that cross the ranks, and the caller all-reduces those two rows
+// ([2][c], contiguous at the head of the workspace) before the second
+// launch of the direction:
 //
-//   forward   sums-only writes sum x and sum x^2; finish computes mean,
-//             var, rstd, inv, shift over the global count and updates the
-//             running statistics over it;
+//   forward   sums-only writes sum x and sum x^2; bn_finish_apply, the
+//             apply with the finish folded in, computes each channel's
+//             mean, var, rstd, inv and shift over the global count in
+//             every block (the fused epilogue's operations, so the bits
+//             are the fused entry's), writes y = x * inv + shift, and its
+//             slab-0 blocks write the workspace rows and update the
+//             running statistics over that count (one thread a channel);
 //   backward  sums-only writes G = sum g + d(shift) (this rank's share of
 //             the cotangent of shift, added once, before the reduction),
 //             sum g*x, and this rank's shares of dweight = rstd * (sum g*x
 //             - mean * G) and dbias = G, which the caller sums over ranks
-//             with the other gradients; finish computes the dx
-//             coefficients b and c0 from the global sums.
+//             with the other gradients; bn_grad_finish, one thread a
+//             channel, computes the dx coefficients b and c0 from the
+//             global sums.
 //
-// The finish launches are tiny (one float per channel in, seven out) and
-// bounded by their launch; the sums-only calls cost what the fused ones do.
+// So a synchronized forward is two launches and one all-reduce, as many
+// as the fused one; the backward's finish is one launch more, tiny (one
+// float per channel in, two out) and bounded by its launch.
 //
 // Built by plain nvcc into a shared library with a C interface and loaded
 // with ctypes (s2r_tpu_torch/ops/kernels/build.py).
@@ -114,7 +124,8 @@ enum StatRow { kSumX, kSumXX, kMean, kVar, kRstd, kInv, kShift, kStatRows };
 enum GradRow { kSumG, kSumGX, kDWeight, kDBias, kCoefB, kCoefC0, kGradRows };
 
 // What an epilogue writes: everything (one card), the sums that cross the
-// ranks (sums-only), or what follows from the reduced sums (finish).
+// ranks (sums-only), or the dx coefficients from the reduced sums (the
+// backward's finish).
 enum Phase { kFused, kSumsOnly, kFinish };
 
 struct FoldArgs {
@@ -135,6 +146,37 @@ enum FoldMode { kForward, kBackward };
 constexpr int kMaxChunks = 1024;
 __device__ unsigned g_arrivals[kMaxChunks];
 
+// The forward's per-channel statistics of channel j from its two sums.
+struct Moments {
+  float mean, var, rstd, inv, shift;
+};
+
+__device__ __forceinline__ Moments moments(const FoldArgs& f, int j, float sa, float sab) {
+  Moments s;
+  s.mean = __fdiv_rn(sa, f.count);
+  s.var = __fsub_rn(__fdiv_rn(sab, f.count), __fmul_rn(s.mean, s.mean));
+  s.rstd = rsqrtf(__fadd_rn(s.var, f.eps));
+  s.inv = __fmul_rn(s.rstd, f.weight[j]);
+  s.shift = __fsub_rn(f.bias[j], __fmul_rn(s.mean, s.inv));
+  return s;
+}
+
+// Rows kMean..kShift of channel j, and its running statistics.
+__device__ __forceinline__ void write_moments(const FoldArgs& f, int c, int j, const Moments& s) {
+  float* ws = f.ws;
+  ws[kMean * c + j] = s.mean;
+  ws[kVar * c + j] = s.var;
+  ws[kRstd * c + j] = s.rstd;
+  ws[kInv * c + j] = s.inv;
+  ws[kShift * c + j] = s.shift;
+  if (f.running_mean != nullptr) {
+    f.running_mean[j] = __fadd_rn(__fmul_rn(f.keep, f.running_mean[j]),
+                                  __fmul_rn(f.momentum, s.mean));
+    f.running_var[j] = __fadd_rn(__fmul_rn(f.keep, f.running_var[j]),
+                                 __fmul_rn(f.momentum, __fmul_rn(s.var, f.unbias)));
+  }
+}
+
 // The direction's per-channel epilogue for channel j from its two sums,
 // cut to f.phase.  The arithmetic is the plain versions', operation by
 // operation.
@@ -145,22 +187,7 @@ __device__ __forceinline__ void epilogue(const FoldArgs& f, int c, int j, float 
     ws[kSumX * c + j] = sa;
     ws[kSumXX * c + j] = sab;
     if (f.phase == kSumsOnly) return;
-    const float mean = __fdiv_rn(sa, f.count);
-    const float var = __fsub_rn(__fdiv_rn(sab, f.count), __fmul_rn(mean, mean));
-    const float rstd = rsqrtf(__fadd_rn(var, f.eps));
-    const float inv = __fmul_rn(rstd, f.weight[j]);
-    const float shift = __fsub_rn(f.bias[j], __fmul_rn(mean, inv));
-    ws[kMean * c + j] = mean;
-    ws[kVar * c + j] = var;
-    ws[kRstd * c + j] = rstd;
-    ws[kInv * c + j] = inv;
-    ws[kShift * c + j] = shift;
-    if (f.running_mean != nullptr) {
-      f.running_mean[j] = __fadd_rn(__fmul_rn(f.keep, f.running_mean[j]),
-                                    __fmul_rn(f.momentum, mean));
-      f.running_var[j] = __fadd_rn(__fmul_rn(f.keep, f.running_var[j]),
-                                   __fmul_rn(f.momentum, __fmul_rn(var, f.unbias)));
-    }
+    write_moments(f, c, j, moments(f, j, sa, sab));
   } else {
     const float mean = f.mean[j], rstd = f.rstd[j], inv = f.inv[j];
     const float big_g = f.gshift != nullptr ? __fadd_rn(sa, f.gshift[j]) : sa;
@@ -182,30 +209,36 @@ __device__ __forceinline__ void epilogue(const FoldArgs& f, int c, int j, float 
 }
 
 constexpr int kRowsInFlight = 4;   // loads a thread issues ahead of its sums
-constexpr int kSlabsInFlight = 8;
+// Slabs' loads a fold lane starts ahead of its sums: in the last block of
+// a chunk (256 threads), and in bn_fold, whose 1024-thread blocks leave a
+// thread 64 registers (at 32 slabs it needs more, and the launch fails
+// for want of registers).
+constexpr int kSlabsInFlight = 32;
+constexpr int kFoldSlabsInFlight = 8;
 
 // Channel j's two sums over slabs lane, lane + lanes, ... of the partials
-// [slabs][2][c], added in slab order; kSlabsInFlight slabs' loads are
-// issued before their sums.
+// [slabs][2][c], added in slab order.  The loads of K slabs are started
+// before their sums, the last batch's masked (a masked slab is not added:
+// adding 0 would turn a sum of -0 into +0), so a lane waits on slabs / K
+// dependent L2 round trips.  K changes no bit of the sums.
+template <int K>
 __device__ __forceinline__ void fold_slabs(const float* part, int c, int j, int lane, int lanes,
                                            int slabs, float& sa, float& sab) {
-  int i = lane;
-  for (; i + (kSlabsInFlight - 1) * lanes < slabs; i += kSlabsInFlight * lanes) {
-    float pa[kSlabsInFlight], pab[kSlabsInFlight];
+  for (int i = lane; i < slabs; i += K * lanes) {
+    float pa[K], pab[K];
 #pragma unroll
-    for (int u = 0; u < kSlabsInFlight; ++u) {
-      pa[u] = __ldcg(part + (size_t)(i + u * lanes) * 2 * c + j);
-      pab[u] = __ldcg(part + (size_t)(i + u * lanes) * 2 * c + c + j);
+    for (int u = 0; u < K; ++u) {
+      const float* p = part + (size_t)(i + u * lanes) * 2 * c + j;
+      const bool in = i + u * lanes < slabs;
+      pa[u] = in ? __ldcg(p) : 0.0f;
+      pab[u] = in ? __ldcg(p + c) : 0.0f;
     }
 #pragma unroll
-    for (int u = 0; u < kSlabsInFlight; ++u) {
-      sa += pa[u];
-      sab += pab[u];
-    }
-  }
-  for (; i < slabs; i += lanes) {
-    sa += __ldcg(part + (size_t)i * 2 * c + j);
-    sab += __ldcg(part + (size_t)i * 2 * c + c + j);
+    for (int u = 0; u < K; ++u)
+      if (i + u * lanes < slabs) {
+        sa += pa[u];
+        sab += pab[u];
+      }
   }
 }
 
@@ -265,19 +298,25 @@ __global__ void bn_sums(const T* __restrict__ a, const T* __restrict__ b, FoldAr
       }
     }
   }
-  float* mine = sh + (ty * blockDim.x + tx) * 2 * V;
+  // The block's sums in shared memory as [2 * V][threads]: sum k of thread
+  // t at sh[k * threads + t], so a warp's 32 threads touch 32 neighbouring
+  // words (a thread's 2V sums side by side would put a warp's accesses in
+  // 2-4 banks).
+  const int threads = blockDim.x * blockDim.y;
+  const int tid = ty * blockDim.x + tx;
+  float* mine = sh + tid;
 #pragma unroll
   for (int v = 0; v < V; ++v) {
-    mine[v] = sa[v];
-    mine[V + v] = sab[v];
+    mine[v * threads] = sa[v];
+    mine[(V + v) * threads] = sab[v];
   }
   __syncthreads();
   // blockDim.y is a power of two: a fixed tree over the rows of the block.
   for (int s = blockDim.y / 2; s > 0; s >>= 1) {
     if (ty < s) {
-      const float* other = sh + ((ty + s) * blockDim.x + tx) * 2 * V;
+      const float* other = mine + s * blockDim.x;
 #pragma unroll
-      for (int v = 0; v < 2 * V; ++v) mine[v] += other[v];
+      for (int k = 0; k < 2 * V; ++k) mine[k * threads] += other[k * threads];
     }
     __syncthreads();
   }
@@ -286,8 +325,8 @@ __global__ void bn_sums(const T* __restrict__ a, const T* __restrict__ b, FoldAr
     float* out_ab = out_a + c;
 #pragma unroll
     for (int v = 0; v < V; ++v) {
-      out_a[v] = mine[v];
-      out_ab[v] = mine[V + v];
+      out_a[v] = mine[v * threads];
+      out_ab[v] = mine[(V + v) * threads];
     }
   }
 
@@ -308,12 +347,11 @@ __global__ void bn_sums(const T* __restrict__ a, const T* __restrict__ b, FoldAr
   // Fold the chunk's slabs: channel q of the chunk, lane l.
   const int nch = blockDim.x * V;          // channels a chunk
   const int lanes = blockDim.y / V;        // >= 1: by >= V (slab_plan)
-  const int tid = ty * blockDim.x + tx;
   const int q = tid % nch, l = tid / nch;
   const int j = blockIdx.x * nch + q;
   const int slabs = (int)gridDim.y;
   float fa = 0.0f, fab = 0.0f;
-  if (l < lanes && j < c) fold_slabs(part, c, j, l, lanes, slabs, fa, fab);
+  if (l < lanes && j < c) fold_slabs<kSlabsInFlight>(part, c, j, l, lanes, slabs, fa, fab);
   float* fsh = sh;  // [lanes][2][nch]
   if (l < lanes) {
     fsh[(l * 2) * nch + q] = fa;
@@ -336,13 +374,13 @@ __global__ void bn_sums(const T* __restrict__ a, const T* __restrict__ b, FoldAr
 // kFoldLanes, ... in order, then a fixed tree over the lanes), then the
 // epilogue.
 template <FoldMode MODE>
-__global__ void bn_fold(FoldArgs f, int c, int slabs) {
+__global__ void __launch_bounds__(32 * kFoldLanes) bn_fold(FoldArgs f, int c, int slabs) {
   __shared__ float sh[2][kFoldLanes][33];
   const int tx = threadIdx.x, ty = threadIdx.y;
   const int j = blockIdx.x * 32 + tx;
   const float* part = f.ws + (size_t)(MODE == kForward ? kStatRows : kGradRows) * c;
   float sa = 0.0f, sab = 0.0f;
-  if (j < c) fold_slabs(part, c, j, ty, kFoldLanes, slabs, sa, sab);
+  if (j < c) fold_slabs<kFoldSlabsInFlight>(part, c, j, ty, kFoldLanes, slabs, sa, sab);
   sh[0][ty][tx] = sa;
   sh[1][ty][tx] = sab;
   __syncthreads();
@@ -356,13 +394,76 @@ __global__ void bn_fold(FoldArgs f, int c, int slabs) {
   if (ty == 0 && j < c) epilogue<MODE>(f, c, j, sh[0][0][tx], sh[1][0][tx]);
 }
 
-// The finish of a split call: the epilogue of channel j from the two
-// reduced sums at the head of the workspace (rows 0 and 1 of either
-// direction), one thread a channel.
-template <FoldMode MODE>
-__global__ void bn_finish(FoldArgs f, int c) {
+// The backward's finish of a split call: the dx coefficients of channel j
+// from the two reduced sums at the head of the workspace, one thread a
+// channel.
+__global__ void bn_grad_finish(FoldArgs f, int c) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j < c) epilogue<MODE>(f, c, j, f.ws[j], f.ws[c + j]);
+  if (j < c) epilogue<kBackward>(f, c, j, f.ws[j], f.ws[c + j]);
+}
+
+// The forward's finish folded into its apply: y = x * inv + shift over
+// slab_plan's grid, block (chunk, slab) covering bx channel vectors of a
+// slab of rows.  Each block first computes inv and shift of its chunk's
+// channels from the two reduced sums (rows kSumX, kSumXX of f.ws), one
+// thread a channel, into shared memory: the fused epilogue's operations,
+// so inv and shift, and y, are the bits the fused stats + apply give.  The
+// blocks of slab 0 also write rows kMean..kShift and update the running
+// statistics (one block a chunk, one thread a channel: no race; every
+// other block reads rows kSumX and kSumXX only).  Then each thread writes
+// every by-th row of its vector, kRowsInFlight rows' loads started before
+// their stores.
+template <typename T, int V>
+__global__ void bn_finish_apply(const T* __restrict__ x, FoldArgs f, T* __restrict__ y,
+                                int64_t m, int c, int64_t rows_per_slab) {
+  __shared__ float coef[2][kSlabThreads];  // inv, shift; bx * V <= kSlabThreads
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int nch = blockDim.x * V;  // channels a chunk, <= the block's threads
+  const int tid = ty * blockDim.x + tx;
+  if (tid < nch) {
+    const int j = blockIdx.x * nch + tid;
+    if (j < c) {
+      const Moments s = moments(f, j, f.ws[kSumX * c + j], f.ws[kSumXX * c + j]);
+      coef[0][tid] = s.inv;
+      coef[1][tid] = s.shift;
+      if (blockIdx.y == 0) write_moments(f, c, j, s);
+    }
+  }
+  __syncthreads();
+  const int nvec = c / V;
+  const int vec = blockIdx.x * blockDim.x + tx;
+  if (vec >= nvec) return;
+  float inv[V], shift[V];
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    inv[v] = coef[0][tx * V + v];
+    shift[v] = coef[1][tx * V + v];
+  }
+  const int64_t r0 = (int64_t)blockIdx.y * rows_per_slab;
+  const int64_t r1 = min(r0 + rows_per_slab, m);
+  const int64_t step = blockDim.y;
+  const T* px = x + (size_t)vec * V;
+  T* py = y + (size_t)vec * V;
+  int64_t r = r0 + ty;
+  for (; r + (kRowsInFlight - 1) * step < r1; r += kRowsInFlight * step) {
+    float xv[kRowsInFlight][V];
+#pragma unroll
+    for (int u = 0; u < kRowsInFlight; ++u) load<T, V>(px + (size_t)(r + u * step) * c, xv[u]);
+#pragma unroll
+    for (int u = 0; u < kRowsInFlight; ++u) {
+      float o[V];
+#pragma unroll
+      for (int v = 0; v < V; ++v) o[v] = __fadd_rn(__fmul_rn(xv[u][v], inv[v]), shift[v]);
+      store<T, V>(py + (size_t)(r + u * step) * c, o);
+    }
+  }
+  for (; r < r1; r += step) {
+    float xv[V], o[V];
+    load<T, V>(px + (size_t)r * c, xv);
+#pragma unroll
+    for (int v = 0; v < V; ++v) o[v] = __fadd_rn(__fmul_rn(xv[v], inv[v]), shift[v]);
+    store<T, V>(py + (size_t)r * c, o);
+  }
 }
 
 // y = x * p[ch] + q[ch] (apply: p = inv, q = shift), or with DX, dx = g *
@@ -404,10 +505,17 @@ bool vectorized(const void* a, const void* b, int64_t c) {
   return c % V == 0 && aligned16(a) && aligned16(b);
 }
 
+// The grid over a, b [m, c]: it depends on a and b only through whether
+// both are 16-byte aligned.
+template <typename T>
+SlabPlan plan(bool aligned, int64_t m, int64_t c) {
+  constexpr int V = 16 / sizeof(T);
+  return slab_plan(m, (int)(aligned && c % V == 0 ? c / V : c));
+}
+
 template <typename T>
 SlabPlan plan(const void* a, const void* b, int64_t m, int64_t c) {
-  constexpr int V = 16 / sizeof(T);
-  return slab_plan(m, (int)(vectorized<T>(a, b, c) ? c / V : c));
+  return plan<T>(aligned16(a) && aligned16(b), m, c);
 }
 
 // The last block of a chunk folds its slabs while that costs each of its
@@ -511,10 +619,25 @@ FoldArgs grad_args(const void* st, const void* gshift, void* ws, int64_t c, doub
   return f;
 }
 
-template <FoldMode MODE>
-int finish(const FoldArgs& f, int64_t c, cudaStream_t stream) {
+int grad_finish(const FoldArgs& f, int64_t c, cudaStream_t stream) {
   const int threads = 256;
-  bn_finish<MODE><<<(unsigned)((c + threads - 1) / threads), threads, 0, stream>>>(f, (int)c);
+  bn_grad_finish<<<(unsigned)((c + threads - 1) / threads), threads, 0, stream>>>(f, (int)c);
+  return (int)cudaGetLastError();
+}
+
+// The forward's finish and apply in one launch.
+template <typename T>
+int finish_apply(const void* x, const FoldArgs& f, void* y, int64_t m, int64_t c,
+                 cudaStream_t stream) {
+  constexpr int V = 16 / sizeof(T);
+  const SlabPlan p = plan<T>(x, y, m, c);
+  const dim3 grid(p.chunks, (unsigned)p.slabs), block(p.bx, p.by);
+  if (vectorized<T>(x, y, c))
+    bn_finish_apply<T, V><<<grid, block, 0, stream>>>((const T*)x, f, (T*)y, m, (int)c,
+                                                      p.per_slab);
+  else
+    bn_finish_apply<T, 1><<<grid, block, 0, stream>>>((const T*)x, f, (T*)y, m, (int)c,
+                                                      p.per_slab);
   return (int)cudaGetLastError();
 }
 
@@ -525,11 +648,12 @@ int finish(const FoldArgs& f, int64_t c, cudaStream_t stream) {
 extern "C" int s2r_bn_stat_rows() { return kStatRows; }
 extern "C" int s2r_bn_grad_rows() { return kGradRows; }
 
-// Slabs of pass 1 over a, b [m, c] of `itemsize` bytes an element: a
-// workspace holds (rows + 2 * slabs) * c floats.
-extern "C" int64_t s2r_bn_slabs(const void* a, const void* b, int64_t m, int64_t c,
-                                int64_t itemsize) {
-  return itemsize == 2 ? plan<__nv_bfloat16>(a, b, m, c).slabs : plan<float>(a, b, m, c).slabs;
+// Slabs of pass 1 over a, b [m, c] of `itemsize` bytes an element,
+// `aligned` if both are 16-byte aligned: a workspace holds (rows + 2 *
+// slabs) * c floats.
+extern "C" int64_t s2r_bn_slabs(int aligned, int64_t m, int64_t c, int64_t itemsize) {
+  return itemsize == 2 ? plan<__nv_bfloat16>(aligned != 0, m, c).slabs
+                       : plan<float>(aligned != 0, m, c).slabs;
 }
 
 // All [m, c] matrices are channels-last and contiguous; per-channel vectors
@@ -547,8 +671,9 @@ extern "C" int64_t s2r_bn_slabs(const void* a, const void* b, int64_t m, int64_t
 // The split entries of synchronized BatchNorm (the caller all-reduces rows
 // 0 and 1 of ws between the two calls of a direction):
 //   s2r_bn_stats_sums_*: ws rows kSumX, kSumXX.  As s2r_bn_stats.
-//   s2r_bn_stats_finish: ws rows kMean..kShift and the running statistics
-//     from rows kSumX, kSumXX.  One launch.
+//   s2r_bn_finish_apply_*: y = x * inv + shift from rows kSumX, kSumXX of
+//     ws, which also receives rows kMean..kShift; the running statistics
+//     as s2r_bn_stats.  One launch.
 //   s2r_bn_grad_sums_local_*: ws rows kSumG (G = sum g + d(shift)),
 //     kSumGX, and this rank's shares kDWeight, kDBias.  As s2r_bn_grad_sums.
 //   s2r_bn_grad_finish: ws rows kCoefB, kCoefC0 from rows kSumG, kSumGX
@@ -568,6 +693,15 @@ extern "C" int64_t s2r_bn_slabs(const void* a, const void* b, int64_t m, int64_t
     return sums<T, kForward>(                                                                 \
         x, x, stats_args(nullptr, nullptr, nullptr, nullptr, ws, 1.0, 0.0, 0.0, kSumsOnly),   \
         m, c, (cudaStream_t)stream);                                                          \
+  }                                                                                           \
+  extern "C" int s2r_bn_finish_apply_##SUFFIX(                                                \
+      const void* x, void* ws, const void* weight, const void* bias, void* running_mean,      \
+      void* running_var, void* y, int64_t m, int64_t c, double count, double eps,             \
+      double momentum, void* stream) {                                                        \
+    return finish_apply<T>(x,                                                                 \
+                           stats_args(weight, bias, running_mean, running_var, ws, count,     \
+                                      eps, momentum, kFused),                                 \
+                           y, m, c, (cudaStream_t)stream);                                    \
   }                                                                                           \
   extern "C" int s2r_bn_apply_##SUFFIX(const void* x, const void* inv, const void* shift,      \
                                        void* y, int64_t m, int64_t c, void* stream) {         \
@@ -595,16 +729,7 @@ extern "C" int64_t s2r_bn_slabs(const void* a, const void* b, int64_t m, int64_t
 S2R_BN_ENTRIES(f32, float)
 S2R_BN_ENTRIES(bf16, __nv_bfloat16)
 
-extern "C" int s2r_bn_stats_finish(const void* weight, const void* bias, void* running_mean,
-                                   void* running_var, void* ws, int64_t c, double count,
-                                   double eps, double momentum, void* stream) {
-  return finish<kForward>(
-      stats_args(weight, bias, running_mean, running_var, ws, count, eps, momentum, kFinish), c,
-      (cudaStream_t)stream);
-}
-
 extern "C" int s2r_bn_grad_finish(const void* st, void* ws, int64_t c, double count,
                                   void* stream) {
-  return finish<kBackward>(grad_args(st, nullptr, ws, c, count, kFinish), c,
-                           (cudaStream_t)stream);
+  return grad_finish(grad_args(st, nullptr, ws, c, count, kFinish), c, (cudaStream_t)stream);
 }

@@ -19,15 +19,23 @@ PyTorch version (``*_plain``) only for CPU tensors; there is no fallback:
 - ``batch_norm_dx(g, x, inv, b, c0)``: dx = g * inv + x * b + c0 (one
   launch).
 
+The wrappers' host path is lean, since most of a step's BatchNorms are
+small enough that it, not the card, sets their pace: each typed C entry is
+bound once (``_lib``), the slab count is cached by what the library
+computes it from (``_slabs``), and the checks read tensor attributes
+without building views.
+
 Synchronized BatchNorm (data-parallel training, one process per card)
 splits each direction's statistics at the all-reduce of its two sums, and
 the caller reduces rows 0-1 of the result between the two calls:
 
 - ``batch_norm_sums(x)``: rows SUM_X, SUM_XX (the sums' launches of
   batch_norm_stats, the epilogue cut to those rows);
-  ``batch_norm_finish(stats, weight, bias, count, eps, ...)``: the rest
-  of the rows and the running statistics from the reduced sums over the
-  global count (one launch);
+  ``batch_norm_finish_apply(x, stats, weight, bias, count, eps, ...)``:
+  y = x * inv + shift from the reduced sums over the global count, with
+  the rest of the rows filled in place and the running statistics updated
+  (one launch: every block computes its channels' inv and shift as the
+  fused epilogue does, so a forward is two launches and one all-reduce);
 - ``batch_norm_grad_sums_local(g, x, stats, gshift)``: rows SUM_G = sum g
   + gshift (this rank's cotangent of shift, added before the reduction),
   SUM_GX, and this rank's shares of DWEIGHT and DBIAS (summed over ranks
@@ -98,8 +106,9 @@ def batch_norm_sums_plain(x) -> torch.Tensor:
 def batch_norm_finish_plain(stats, weight, bias, count: int, eps: float,
                             running_mean=None, running_var=None,
                             momentum: float = 0.1) -> torch.Tensor:
-    """batch_norm_finish in PyTorch: [STAT_ROWS, C] from rows SUM_X and
-    SUM_XX of `stats` (a new tensor)."""
+    """The per-channel half of batch_norm_finish_apply_plain (and of
+    batch_norm_stats_plain): [STAT_ROWS, C] from rows SUM_X and SUM_XX of
+    `stats` (a new tensor), the running statistics updated in place."""
     sx, sxx = stats[SUM_X], stats[SUM_XX]
     mean = sx / count
     var = sxx / count - mean * mean
@@ -127,6 +136,18 @@ def batch_norm_apply_plain(x, inv, shift) -> torch.Tensor:
     the result in x's type."""
     f = torch.promote_types(x.dtype, torch.float32)
     return (x.to(f) * inv + shift).to(x.dtype)
+
+
+def batch_norm_finish_apply_plain(x, stats, weight, bias, count: int,
+                                  eps: float, running_mean=None,
+                                  running_var=None, momentum: float = 0.1
+                                  ) -> torch.Tensor:
+    """batch_norm_finish_apply in PyTorch: rows MEAN..SHIFT of `stats`
+    filled in place from its rows SUM_X and SUM_XX, the running statistics
+    updated, and y = x * inv + shift returned."""
+    stats.copy_(batch_norm_finish_plain(stats, weight, bias, count, eps,
+                                        running_mean, running_var, momentum))
+    return batch_norm_apply_plain(x, stats[INV], stats[SHIFT])
 
 
 def _grad_coefs(big_g, sgx, stats, count: int):
@@ -173,74 +194,113 @@ def batch_norm_dx_plain(g, x, inv, b, c0) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    """The kernels' library with its entries' types set, once."""
+def _lib() -> dict:
+    """The kernels' C entries, loaded and typed once: {(entry, dtype):
+    function}, dtype None for the untyped ones (slabs, grad_finish)."""
     lib = build.load("batchnorm")
     if (lib.s2r_bn_stat_rows(), lib.s2r_bn_grad_rows()) != (STAT_ROWS,
                                                             GRAD_ROWS):
         raise RuntimeError("batchnorm: the library's row layout is not the "
                            "wrapper's")
-    p, i64, dbl = ctypes.c_void_p, ctypes.c_int64, ctypes.c_double
-    lib.s2r_bn_slabs.argtypes = [p, p, i64, i64, i64]
-    lib.s2r_bn_slabs.restype = i64
-    entries = [("stats_finish", [p] * 5 + [i64, dbl, dbl, dbl, p]),
-               ("grad_finish", [p] * 2 + [i64, dbl, p])]
-    for sfx in _SUFFIX.values():
-        entries += [(f"{name}_{sfx}", args) for name, args in (
-            ("stats", [p] * 6 + [i64, i64, dbl, dbl, dbl, p]),
-            ("stats_sums", [p] * 2 + [i64, i64, p]),
-            ("apply", [p] * 4 + [i64, i64, p]),
-            ("grad_sums", [p] * 5 + [i64, i64, dbl, p]),
-            ("grad_sums_local", [p] * 5 + [i64, i64, p]),
-            ("dx", [p] * 6 + [i64, i64, p]))]
-    for name, args in entries:
-        fn = getattr(lib, f"s2r_bn_{name}")
-        fn.argtypes = args
-        fn.restype = ctypes.c_int
-    return lib
+    p, i, i64, dbl = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
+                      ctypes.c_double)
+    typed = {"stats": [p] * 6 + [i64, i64, dbl, dbl, dbl, p],
+             "stats_sums": [p] * 2 + [i64, i64, p],
+             "finish_apply": [p] * 7 + [i64, i64, dbl, dbl, dbl, p],
+             "apply": [p] * 4 + [i64, i64, p],
+             "grad_sums": [p] * 5 + [i64, i64, dbl, p],
+             "grad_sums_local": [p] * 5 + [i64, i64, p],
+             "dx": [p] * 6 + [i64, i64, p]}
+
+    def bind(fn, args, res=i):
+        fn.argtypes, fn.restype = args, res
+        return fn
+
+    fns = {(name, dtype): bind(getattr(lib, f"s2r_bn_{name}_{sfx}"), args)
+           for name, args in typed.items() for dtype, sfx in _SUFFIX.items()}
+    fns["grad_finish", None] = bind(lib.s2r_bn_grad_finish,
+                                    [p] * 2 + [i64, dbl, p])
+    fns["slabs", None] = bind(lib.s2r_bn_slabs, [i, i64, i64, i64], i64)
+    return fns
 
 
-def _check_rows(what: str, *mats: torch.Tensor) -> None:
-    """Raise unless every [M, C] matrix can go to the kernels: CUDA on the
-    current device, one type of the kernels', one shape, contiguous."""
-    x = mats[0]
-    if x.dim() != 2 or any(m.shape != x.shape for m in mats):
-        raise ValueError(f"{what}: inputs {[tuple(m.shape) for m in mats]} "
-                         "must be one [M, C] shape")
-    if any(m.device != x.device for m in mats):
+@functools.lru_cache(maxsize=4096)
+def _slabs(m: int, c: int, itemsize: int, aligned: bool) -> int:
+    """Slabs of the sums over [m, c] inputs: what s2r_bn_slabs reads (the
+    shape, the element size, and whether both inputs are 16-byte aligned),
+    asked of the library once a key."""
+    return _lib()["slabs", None](int(aligned), m, c, itemsize)
+
+
+def _workspace(ap: int, bp: int, like: torch.Tensor, rows: int
+               ) -> torch.Tensor:
+    """One float32 buffer [rows + 2 * slabs, C]: the per-channel results,
+    then the slab partials of the sums over the inputs at ap, bp (like's
+    shape and type)."""
+    m, c = like.shape
+    slabs = _slabs(m, c, like.element_size(), not (ap | bp) & 15)
+    return torch.empty((rows + 2 * slabs, c), dtype=torch.float32,
+                       device=like.device)
+
+
+def _plain_device(what: str, t: torch.Tensor) -> None:
+    """Raise unless t, which is not on the card, is on the CPU: the only
+    device the plain versions serve."""
+    if t.device.type != "cpu":
+        raise ValueError(f"{what}: no kernel for {t.device}")
+
+
+def _check_rows(what: str, x: torch.Tensor,
+                g: Optional[torch.Tensor] = None) -> int:
+    """Raise unless x (and g) [M, C] can go to the kernels: CUDA on the
+    current device, one type of the kernels', one shape, contiguous; the
+    device's index."""
+    if x.dim() != 2 or (g is not None and g.shape != x.shape):
+        shapes = [tuple(t.shape) for t in (x, g) if t is not None]
+        raise ValueError(f"{what}: inputs {shapes} must be one [M, C] shape")
+    dev = x.get_device()
+    if g is not None and g.get_device() != dev:
         raise ValueError(f"{what}: inputs on different devices")
-    if x.device.type != "cuda":
+    if not x.is_cuda:
         raise ValueError(f"{what}: no kernel for {x.device}")
-    if x.dtype not in _SUFFIX or any(m.dtype != x.dtype for m in mats):
-        raise TypeError(f"{what}: inputs {[m.dtype for m in mats]} must all "
-                        "be float32 or all bfloat16")
-    if not all(m.is_contiguous() for m in mats):
+    if x.dtype not in _SUFFIX or (g is not None and g.dtype != x.dtype):
+        types = [t.dtype for t in (x, g) if t is not None]
+        raise TypeError(f"{what}: inputs {types} must all be float32 or all "
+                        "bfloat16")
+    if not x.is_contiguous() or (g is not None and not g.is_contiguous()):
         raise ValueError(f"{what}: inputs must be contiguous")
-    if x.device.index != torch.cuda.current_device():
+    if dev != torch.cuda.current_device():
         raise ValueError(f"{what}: input is not on the current device")
+    return dev
 
 
-def _check_vectors(what: str, x: torch.Tensor, *vecs) -> None:
-    """Raise unless each per-channel vector is float32 [C], contiguous, on
-    x's device (None passes)."""
+def _check_vectors(what: str, c: int, dev: int, *vecs) -> None:
+    """Raise unless each per-channel vector is float32 [c], contiguous, on
+    card `dev` (None passes)."""
     for v in vecs:
         if v is None:
             continue
-        if (v.dtype != torch.float32 or v.shape != (x.shape[-1],)
-                or v.device != x.device or not v.is_contiguous()):
+        if (v.dtype != torch.float32 or v.dim() != 1 or v.shape[0] != c
+                or v.get_device() != dev or not v.is_contiguous()):
             raise ValueError(f"{what}: per-channel inputs must be contiguous "
-                             f"float32 [{x.shape[-1]}] on {x.device}, got "
-                             f"{v.dtype} {tuple(v.shape)} on {v.device}")
+                             f"float32 [{c}] on cuda:{dev}, got {v.dtype} "
+                             f"{tuple(v.shape)} on {v.device}")
 
 
-def _workspace(lib, a, b, rows: int) -> torch.Tensor:
-    """One float32 buffer [rows + 2 * slabs, C]: the per-channel results,
-    then the slab partials of the sums over a, b."""
-    m, c = a.shape
-    slabs = lib.s2r_bn_slabs(a.data_ptr(), b.data_ptr(), m, c,
-                             a.element_size())
-    return torch.empty((rows + 2 * slabs, c), dtype=torch.float32,
-                       device=a.device)
+def _check_head(what: str, head: torch.Tensor, rows: int, c: int,
+                dev: int) -> None:
+    """Raise unless `head` is a contiguous float32 [rows, c] tensor on card
+    `dev`: per-channel rows of the entries (statistics, backward sums)."""
+    if (head.dtype != torch.float32 or head.dim() != 2
+            or head.shape[0] != rows or head.shape[1] != c
+            or head.get_device() != dev or not head.is_contiguous()):
+        raise ValueError(f"{what}: want the contiguous float32 [{rows}, {c}] "
+                         f"rows of the entries on cuda:{dev}, got "
+                         f"{head.dtype} {tuple(head.shape)} on {head.device}")
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
 
 
 def batch_norm_stats(x: torch.Tensor, weight: torch.Tensor,
@@ -255,27 +315,25 @@ def batch_norm_stats(x: torch.Tensor, weight: torch.Tensor,
     ring: the sums are unchanged).  running_mean and running_var, if given,
     become (1 - momentum) * old + momentum * (mean, var * count / (count -
     1)), in place."""
+    what = "batch_norm_stats"
     if (running_mean is None) != (running_var is None):
-        raise ValueError("batch_norm_stats: give both running statistics "
-                         "or neither")
-    if x.device.type == "cpu":
+        raise ValueError(f"{what}: give both running statistics or neither")
+    if not x.is_cuda:
+        _plain_device(what, x)
         return batch_norm_stats_plain(x, weight, bias, count, eps,
                                       running_mean, running_var, momentum)
-    _check_rows("batch_norm_stats", x)
-    _check_vectors("batch_norm_stats", x, weight, bias, running_mean,
-                   running_var)
+    dev = _check_rows(what, x)
     m, c = x.shape
+    _check_vectors(what, c, dev, weight, bias, running_mean, running_var)
     if m == 0:
-        raise ValueError("batch_norm_stats: no rows")
-    lib = _lib()
-    ws = _workspace(lib, x, x, STAT_ROWS)
-    err = getattr(lib, f"s2r_bn_stats_{_SUFFIX[x.dtype]}")(
-        x.data_ptr(), weight.data_ptr(), bias.data_ptr(),
-        None if running_mean is None else running_mean.data_ptr(),
-        None if running_var is None else running_var.data_ptr(),
-        ws.data_ptr(), m, c, float(count), float(eps), float(momentum),
-        build.stream(x))
-    build.check(err, "batch_norm_stats")
+        raise ValueError(f"{what}: no rows")
+    xp = x.data_ptr()
+    ws = _workspace(xp, xp, x, STAT_ROWS)
+    err = _lib()["stats", x.dtype](
+        xp, weight.data_ptr(), bias.data_ptr(), _ptr(running_mean),
+        _ptr(running_var), ws.data_ptr(), m, c, float(count), float(eps),
+        float(momentum), build.stream(x))
+    build.check(err, what)
     batch_norm_stats.launches += 1
     return ws[:STAT_ROWS]
 
@@ -287,17 +345,19 @@ def batch_norm_apply(x: torch.Tensor, inv: torch.Tensor,
                      shift: torch.Tensor) -> torch.Tensor:
     """x [M, C] f32/bf16, inv and shift float32 [C] -> y = x * inv + shift,
     [M, C] in x's type, the math in float32."""
-    if x.device.type == "cpu":
+    what = "batch_norm_apply"
+    if not x.is_cuda:
+        _plain_device(what, x)
         return batch_norm_apply_plain(x, inv, shift)
-    _check_rows("batch_norm_apply", x)
-    _check_vectors("batch_norm_apply", x, inv, shift)
+    dev = _check_rows(what, x)
+    _check_vectors(what, x.shape[1], dev, inv, shift)
     y = torch.empty_like(x)
     if x.numel() == 0:
         return y
-    err = getattr(_lib(), f"s2r_bn_apply_{_SUFFIX[x.dtype]}")(
-        x.data_ptr(), inv.data_ptr(), shift.data_ptr(), y.data_ptr(),
-        *x.shape, build.stream(x))
-    build.check(err, "batch_norm_apply")
+    err = _lib()["apply", x.dtype](x.data_ptr(), inv.data_ptr(),
+                                   shift.data_ptr(), y.data_ptr(), *x.shape,
+                                   build.stream(x))
+    build.check(err, what)
     batch_norm_apply.launches += 1
     return y
 
@@ -313,27 +373,25 @@ def batch_norm_grad_sums(g: torch.Tensor, x: torch.Tensor,
     sum g, sum g*x, dweight = rstd * t, dbias = G, and the dx coefficients
     b = -inv * rstd^2 * t / count and c0 = -inv * G / count - b * mean,
     where G = sum g + gshift and t = sum g*x - mean * G."""
+    what = "batch_norm_grad_sums"
     if g.shape != x.shape:
-        raise ValueError(f"batch_norm_grad_sums: g {tuple(g.shape)} and x "
+        raise ValueError(f"{what}: g {tuple(g.shape)} and x "
                          f"{tuple(x.shape)} must be one [M, C] shape")
-    if x.device.type == "cpu":
+    if not x.is_cuda:
+        _plain_device(what, x)
         return batch_norm_grad_sums_plain(g, x, stats, gshift, count)
-    _check_rows("batch_norm_grad_sums", g, x)
-    c = x.shape[1]
-    if (stats.dtype != torch.float32 or stats.shape != (STAT_ROWS, c)
-            or not stats.is_contiguous() or stats.device != x.device):
-        raise ValueError("batch_norm_grad_sums: stats must be "
-                         "batch_norm_stats' result for x")
-    _check_vectors("batch_norm_grad_sums", x, gshift)
-    if x.shape[0] == 0:
-        raise ValueError("batch_norm_grad_sums: no rows")
-    lib = _lib()
-    ws = _workspace(lib, g, x, GRAD_ROWS)
-    err = getattr(lib, f"s2r_bn_grad_sums_{_SUFFIX[x.dtype]}")(
-        g.data_ptr(), x.data_ptr(), stats.data_ptr(),
-        None if gshift is None else gshift.data_ptr(), ws.data_ptr(),
-        *x.shape, float(count), build.stream(x))
-    build.check(err, "batch_norm_grad_sums")
+    dev = _check_rows(what, g, x)
+    m, c = x.shape
+    _check_head(what, stats, STAT_ROWS, c, dev)
+    _check_vectors(what, c, dev, gshift)
+    if m == 0:
+        raise ValueError(f"{what}: no rows")
+    gp, xp = g.data_ptr(), x.data_ptr()
+    ws = _workspace(gp, xp, x, GRAD_ROWS)
+    err = _lib()["grad_sums", x.dtype](
+        gp, xp, stats.data_ptr(), _ptr(gshift), ws.data_ptr(), m, c,
+        float(count), build.stream(x))
+    build.check(err, what)
     batch_norm_grad_sums.launches += 1
     return ws[:GRAD_ROWS]
 
@@ -345,20 +403,22 @@ def batch_norm_dx(g: torch.Tensor, x: torch.Tensor, inv: torch.Tensor,
                   b: torch.Tensor, c0: torch.Tensor) -> torch.Tensor:
     """g, x [M, C] of one type, inv, b, c0 float32 [C] -> dx = g * inv + x
     * b + c0, [M, C] in x's type, the math in float32."""
+    what = "batch_norm_dx"
     if g.shape != x.shape:
-        raise ValueError(f"batch_norm_dx: g {tuple(g.shape)} and x "
+        raise ValueError(f"{what}: g {tuple(g.shape)} and x "
                          f"{tuple(x.shape)} must be one [M, C] shape")
-    if x.device.type == "cpu":
+    if not x.is_cuda:
+        _plain_device(what, x)
         return batch_norm_dx_plain(g, x, inv, b, c0)
-    _check_rows("batch_norm_dx", g, x)
-    _check_vectors("batch_norm_dx", x, inv, b, c0)
+    dev = _check_rows(what, g, x)
+    _check_vectors(what, x.shape[1], dev, inv, b, c0)
     dx = torch.empty_like(x)
     if x.numel() == 0:
         return dx
-    err = getattr(_lib(), f"s2r_bn_dx_{_SUFFIX[x.dtype]}")(
-        g.data_ptr(), x.data_ptr(), inv.data_ptr(), b.data_ptr(),
-        c0.data_ptr(), dx.data_ptr(), *x.shape, build.stream(x))
-    build.check(err, "batch_norm_dx")
+    err = _lib()["dx", x.dtype](g.data_ptr(), x.data_ptr(), inv.data_ptr(),
+                                b.data_ptr(), c0.data_ptr(), dx.data_ptr(),
+                                *x.shape, build.stream(x))
+    build.check(err, what)
     batch_norm_dx.launches += 1
     return dx
 
@@ -366,32 +426,24 @@ def batch_norm_dx(g: torch.Tensor, x: torch.Tensor, inv: torch.Tensor,
 batch_norm_dx.launches = 0
 
 
-def _check_head(what: str, head: torch.Tensor, rows: int) -> None:
-    """Raise unless `head` is a float32 [rows, C] head of a workspace on
-    the card (a split entry's first call's result)."""
-    if (head.dtype != torch.float32 or head.dim() != 2
-            or head.shape[0] != rows or not head.is_contiguous()
-            or head.device.type != "cuda"):
-        raise ValueError(f"{what}: want the float32 [{rows}, C] result of "
-                         "the direction's sums on the card")
-
-
 def batch_norm_sums(x: torch.Tensor) -> torch.Tensor:
     """x [M, C] (f32/bf16) -> float32 [STAT_ROWS, C] with rows SUM_X = sum x
-    and SUM_XX = sum x^2 (the other rows are batch_norm_finish's): the
-    first half of batch_norm_stats, for a reduction of rows 0-1 over ranks
-    in between."""
-    if x.device.type == "cpu":
+    and SUM_XX = sum x^2 (batch_norm_finish_apply fills the other rows):
+    the first half of batch_norm_stats, for a reduction of rows 0-1 over
+    ranks in between."""
+    what = "batch_norm_sums"
+    if not x.is_cuda:
+        _plain_device(what, x)
         return batch_norm_sums_plain(x)
-    _check_rows("batch_norm_sums", x)
+    _check_rows(what, x)
     m, c = x.shape
     if m == 0:
-        raise ValueError("batch_norm_sums: no rows")
-    lib = _lib()
-    ws = _workspace(lib, x, x, STAT_ROWS)
-    err = getattr(lib, f"s2r_bn_stats_sums_{_SUFFIX[x.dtype]}")(
-        x.data_ptr(), ws.data_ptr(), m, c, build.stream(x))
-    build.check(err, "batch_norm_sums")
+        raise ValueError(f"{what}: no rows")
+    xp = x.data_ptr()
+    ws = _workspace(xp, xp, x, STAT_ROWS)
+    err = _lib()["stats_sums", x.dtype](xp, ws.data_ptr(), m, c,
+                                        build.stream(x))
+    build.check(err, what)
     batch_norm_sums.launches += 1
     return ws[:STAT_ROWS]
 
@@ -399,37 +451,42 @@ def batch_norm_sums(x: torch.Tensor) -> torch.Tensor:
 batch_norm_sums.launches = 0
 
 
-def batch_norm_finish(stats: torch.Tensor, weight: torch.Tensor,
-                      bias: torch.Tensor, count: int, eps: float,
-                      running_mean: Optional[torch.Tensor] = None,
-                      running_var: Optional[torch.Tensor] = None,
-                      momentum: float = 0.1) -> torch.Tensor:
-    """batch_norm_sums' rows (reduced over ranks) -> the rows
-    batch_norm_stats gives, over `count` positions (every rank's), the
-    running statistics updated as it updates them; in place on the card,
-    a new tensor on the CPU."""
+def batch_norm_finish_apply(x: torch.Tensor, stats: torch.Tensor,
+                            weight: torch.Tensor, bias: torch.Tensor,
+                            count: int, eps: float,
+                            running_mean: Optional[torch.Tensor] = None,
+                            running_var: Optional[torch.Tensor] = None,
+                            momentum: float = 0.1) -> torch.Tensor:
+    """x [M, C] (f32/bf16) and batch_norm_sums' rows of it, SUM_X and
+    SUM_XX reduced over ranks -> y = x * inv + shift in x's type, with
+    inv and shift what batch_norm_stats gives over `count` positions
+    (every rank's).  Rows MEAN..SHIFT of `stats` are filled in place and
+    the running statistics updated as batch_norm_stats updates them."""
+    what = "batch_norm_finish_apply"
     if (running_mean is None) != (running_var is None):
-        raise ValueError("batch_norm_finish: give both running statistics "
-                         "or neither")
-    if stats.device.type == "cpu":
-        return batch_norm_finish_plain(stats, weight, bias, count, eps,
-                                       running_mean, running_var, momentum)
-    _check_head("batch_norm_finish", stats, STAT_ROWS)
-    like = stats[0]
-    _check_vectors("batch_norm_finish", like, weight, bias, running_mean,
-                   running_var)
-    err = _lib().s2r_bn_stats_finish(
-        weight.data_ptr(), bias.data_ptr(),
-        None if running_mean is None else running_mean.data_ptr(),
-        None if running_var is None else running_var.data_ptr(),
-        stats.data_ptr(), stats.shape[1], float(count), float(eps),
-        float(momentum), build.stream(stats))
-    build.check(err, "batch_norm_finish")
-    batch_norm_finish.launches += 1
-    return stats
+        raise ValueError(f"{what}: give both running statistics or neither")
+    if not x.is_cuda:
+        _plain_device(what, x)
+        return batch_norm_finish_apply_plain(x, stats, weight, bias, count,
+                                             eps, running_mean, running_var,
+                                             momentum)
+    dev = _check_rows(what, x)
+    m, c = x.shape
+    _check_head(what, stats, STAT_ROWS, c, dev)
+    _check_vectors(what, c, dev, weight, bias, running_mean, running_var)
+    if m == 0:
+        raise ValueError(f"{what}: no rows")
+    y = torch.empty_like(x)
+    err = _lib()["finish_apply", x.dtype](
+        x.data_ptr(), stats.data_ptr(), weight.data_ptr(), bias.data_ptr(),
+        _ptr(running_mean), _ptr(running_var), y.data_ptr(), m, c,
+        float(count), float(eps), float(momentum), build.stream(x))
+    build.check(err, what)
+    batch_norm_finish_apply.launches += 1
+    return y
 
 
-batch_norm_finish.launches = 0
+batch_norm_finish_apply.launches = 0
 
 
 def batch_norm_grad_sums_local(g: torch.Tensor, x: torch.Tensor,
@@ -441,23 +498,25 @@ def batch_norm_grad_sums_local(g: torch.Tensor, x: torch.Tensor,
     C] with rows SUM_G = sum g + gshift, SUM_GX = sum g*x, and this rank's
     shares DWEIGHT = rstd * (SUM_GX - mean * SUM_G) and DBIAS = SUM_G (the
     coefficient rows are batch_norm_grad_finish's)."""
+    what = "batch_norm_grad_sums_local"
     if g.shape != x.shape:
-        raise ValueError(f"batch_norm_grad_sums_local: g {tuple(g.shape)} "
-                         f"and x {tuple(x.shape)} must be one [M, C] shape")
-    if x.device.type == "cpu":
+        raise ValueError(f"{what}: g {tuple(g.shape)} and x "
+                         f"{tuple(x.shape)} must be one [M, C] shape")
+    if not x.is_cuda:
+        _plain_device(what, x)
         return batch_norm_grad_sums_local_plain(g, x, stats, gshift)
-    _check_rows("batch_norm_grad_sums_local", g, x)
-    _check_head("batch_norm_grad_sums_local", stats, STAT_ROWS)
-    _check_vectors("batch_norm_grad_sums_local", x, stats[0], gshift)
-    if x.shape[0] == 0:
-        raise ValueError("batch_norm_grad_sums_local: no rows")
-    lib = _lib()
-    ws = _workspace(lib, g, x, GRAD_ROWS)
-    err = getattr(lib, f"s2r_bn_grad_sums_local_{_SUFFIX[x.dtype]}")(
-        g.data_ptr(), x.data_ptr(), stats.data_ptr(),
-        None if gshift is None else gshift.data_ptr(), ws.data_ptr(),
-        *x.shape, build.stream(x))
-    build.check(err, "batch_norm_grad_sums_local")
+    dev = _check_rows(what, g, x)
+    m, c = x.shape
+    _check_head(what, stats, STAT_ROWS, c, dev)
+    _check_vectors(what, c, dev, gshift)
+    if m == 0:
+        raise ValueError(f"{what}: no rows")
+    gp, xp = g.data_ptr(), x.data_ptr()
+    ws = _workspace(gp, xp, x, GRAD_ROWS)
+    err = _lib()["grad_sums_local", x.dtype](
+        gp, xp, stats.data_ptr(), _ptr(gshift), ws.data_ptr(), m, c,
+        build.stream(x))
+    build.check(err, what)
     batch_norm_grad_sums_local.launches += 1
     return ws[:GRAD_ROWS]
 
@@ -470,17 +529,18 @@ def batch_norm_grad_finish(grads: torch.Tensor, stats: torch.Tensor,
     """batch_norm_grad_sums_local's rows (SUM_G and SUM_GX reduced over
     ranks) -> with COEF_B and COEF_C0 over `count` positions (every
     rank's); in place on the card, a new tensor on the CPU."""
-    if grads.device.type == "cpu":
+    what = "batch_norm_grad_finish"
+    if not grads.is_cuda:
+        _plain_device(what, grads)
         return batch_norm_grad_finish_plain(grads, stats, count)
-    _check_head("batch_norm_grad_finish", grads, GRAD_ROWS)
-    _check_head("batch_norm_grad_finish", stats, STAT_ROWS)
-    if stats.shape[1] != grads.shape[1] or stats.device != grads.device:
-        raise ValueError("batch_norm_grad_finish: stats and grads of "
-                         "different channels or devices")
-    err = _lib().s2r_bn_grad_finish(stats.data_ptr(), grads.data_ptr(),
-                                    grads.shape[1], float(count),
-                                    build.stream(grads))
-    build.check(err, "batch_norm_grad_finish")
+    if grads.dim() != 2:
+        raise ValueError(f"{what}: grads must be [GRAD_ROWS, C]")
+    c, dev = grads.shape[1], grads.get_device()
+    _check_head(what, grads, GRAD_ROWS, c, dev)
+    _check_head(what, stats, STAT_ROWS, c, dev)
+    err = _lib()["grad_finish", None](stats.data_ptr(), grads.data_ptr(), c,
+                                      float(count), build.stream(grads))
+    build.check(err, what)
     batch_norm_grad_finish.launches += 1
     return grads
 
@@ -535,11 +595,12 @@ class BatchNormTrain(torch.autograd.Function):
     statistics over the ranks' batches, the JAX package's BatchNorm under
     a sharded batch and the reference's SynchronizedBatchNorm: the sums
     are all-reduced (float32, SUM) between batch_norm_sums and
-    batch_norm_finish, and between batch_norm_grad_sums_local and
-    batch_norm_grad_finish; the count is every rank's (the ranks' batches
-    have one shape), so the running statistics come out equal on every
-    rank.  dweight and dbias are this rank's shares, which the step sums
-    over ranks with the other gradients.
+    batch_norm_finish_apply (which writes y), and between
+    batch_norm_grad_sums_local and batch_norm_grad_finish; the count is
+    every rank's (the ranks' batches have one shape), so the running
+    statistics come out equal on every rank.  dweight and dbias are this
+    rank's shares, which the step sums over ranks with the other
+    gradients.
 
     `real` (masked batch padding, models/layers.py ``bn_real_batch``):
     only the first `real` samples are real.  The statistics, the running
@@ -576,6 +637,7 @@ class BatchNormTrain(torch.autograd.Function):
         count = k * (h + 2 * pad) * (w + 2 * pad)
         if sync is not None:
             count *= sync.size
+        y = None
         if stats_in is not None:
             stats = stats_in.clone()  # outputs are views of it
         elif sync is None:
@@ -584,11 +646,13 @@ class BatchNormTrain(torch.autograd.Function):
         else:
             stats = batch_norm_sums(rows)
             sync.all_reduce_(stats[:SUM_XX + 1])
-            stats = batch_norm_finish(stats, weight, bias, count, eps,
-                                      running_mean, running_var, momentum)
+            y = batch_norm_finish_apply(rows, stats, weight, bias, count, eps,
+                                        running_mean, running_var, momentum)
         if stats_out is not None:
             stats_out.append(stats.detach().clone())
-        y = _nchw(batch_norm_apply(rows, stats[INV], stats[SHIFT]), x)
+        if y is None:
+            y = batch_norm_apply(rows, stats[INV], stats[SHIFT])
+        y = _nchw(y, x)
         ctx.save_for_backward(rows, stats)
         ctx.count = count
         ctx.sync = sync

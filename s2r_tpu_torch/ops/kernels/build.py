@@ -150,7 +150,7 @@ def stream(t: torch.Tensor) -> int:
     """The raw handle of the current CUDA stream on t's device (what
     torch.cuda.current_stream().cuda_stream gives, without building a
     Stream object: a few microseconds a launch)."""
-    return torch._C._cuda_getCurrentRawStream(t.device.index)
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def check(err: int, what: str) -> None:

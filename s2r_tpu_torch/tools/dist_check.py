@@ -66,7 +66,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.dirname(
 # the BatchNorm entries (ops/kernels/batchnorm.py) whose launches a step
 # the timing task reports
 BN_ENTRIES = ("batch_norm_stats", "batch_norm_apply", "batch_norm_grad_sums",
-              "batch_norm_dx", "batch_norm_sums", "batch_norm_finish",
+              "batch_norm_dx", "batch_norm_sums", "batch_norm_finish_apply",
               "batch_norm_grad_sums_local", "batch_norm_grad_finish")
 
 

@@ -10,7 +10,10 @@ against one process and against the JAX package, on the CPU.
   the running variance takes the global count's unbiased factor.
   BatchNormTrain, the global losses and the batch-axis softmax with W
   ranks simulated by threads (an all-reduce over shared memory): values
-  and gradients equal the whole batch's (float64, 1e-12).
+  and gradients equal the whole batch's (float64, 1e-12); BatchNormTrain's
+  synchronized route over 4 thread ranks in float32 against the JAX
+  package's Pallas batch_norm_train (interpret mode) and its VJP on the
+  whole batch (max relative error 1e-5).
 - Four gloo processes (tools/dist_check.py, one torch thread each; as
   tests/test_multihost.py spawns its children): the output step (from
   JAX's state) and the feature step, 2 steps each in float64 with every
@@ -40,6 +43,7 @@ from s2r_tpu.core.distributed import local_shard as jax_local_shard
 from s2r_tpu.core.precision import Policy
 from s2r_tpu.data.loader import DataLoader as JaxLoader
 from s2r_tpu.models import layers as JL
+from s2r_tpu.ops.pallas.batchnorm import batch_norm_train as jax_bn_train
 from s2r_tpu.train.setup import build_method as jax_build_method
 from s2r_tpu_torch.config import Config
 from s2r_tpu_torch.core.distributed import local_shard
@@ -110,13 +114,19 @@ def test_split_batchnorm_entries_equal_fused_f64():
         rs.uniform(0.5, 1.5, c))
     rm, rv = rm0.clone(), rv0.clone()
     want = BN.batch_norm_stats(x, weight, bias, count, 1e-5, rm, rv)
+    want_y = BN.batch_norm_apply(x, want[BN.INV], want[BN.SHIFT])
     srm, srv = rm0.clone(), rv0.clone()
     xs = x.chunk(chunks)
     sums = sum(BN.batch_norm_sums(xc)[:2] for xc in xs)
-    stats = BN.batch_norm_sums(xs[0])
-    stats[:2] = sums
-    got = BN.batch_norm_finish(stats, weight, bias, count, 1e-5, srm, srv)
+    got = BN.batch_norm_sums(xs[0])
+    got[:2] = sums
+    # each rank applies its own rows with the global statistics
+    ys = [BN.batch_norm_finish_apply(xc, got.clone(), weight, bias, count,
+                                     1e-5) for xc in xs[1:]]
+    y = BN.batch_norm_finish_apply(xs[0], got, weight, bias, count, 1e-5,
+                                   srm, srv)  # fills got's rows in place
     assert _rel(got, want) <= 1e-12
+    assert _rel(torch.cat([y] + ys), want_y) <= 1e-12
     assert _rel(srm, rm) <= 1e-12 and _rel(srv, rv) <= 1e-12
     # the running variance's unbiased factor is the global count's
     var = want[BN.VAR]
@@ -241,6 +251,74 @@ def test_batchnorm_train_synchronized_equals_whole_batch(pad):
     assert _rel(sum(o[1][1] for o in out), gw) <= 1e-12
     assert _rel(sum(o[1][2] for o in out), gb) <= 1e-12
     assert _rel(out[0][2], rm) <= 1e-12 and _rel(out[0][3], rv) <= 1e-12
+
+
+def test_batchnorm_train_synchronized_matches_jax_pallas(monkeypatch):
+    """The synchronized route (batch_norm_sums, the all-reduce,
+    batch_norm_finish_apply; grad_sums_local, the all-reduce, grad_finish,
+    dx) of BatchNormTrain over 4 thread ranks, float32, against the JAX
+    package's Pallas batch_norm_train (interpret mode) and its VJP on the
+    whole batch: y, dx, and dweight and dbias summed over the ranks
+    (float32: the two packages sum in different orders)."""
+    rs = np.random.RandomState(5)
+    n, c, h, w = 8, 16, 6, 5
+    x = (rs.randn(n, h, w, c) * 1.5 + 0.5).astype(np.float32)
+    gy = rs.randn(n, h, w, c).astype(np.float32)
+    scale = rs.uniform(0.5, 1.5, c).astype(np.float32)
+    bias = (rs.randn(c) * 0.1).astype(np.float32)
+
+    def jax_loss(xx, s, b):
+        y, _, _ = jax_bn_train(xx, s, b, 1e-5, True)
+        return jnp.sum(y * gy)
+
+    want_y = np.asarray(jax_bn_train(jnp.asarray(x), jnp.asarray(scale),
+                                     jnp.asarray(bias), 1e-5, True)[0])
+    want_dx, want_ds, want_db = (np.asarray(v) for v in jax.grad(
+        jax_loss, argnums=(0, 1, 2))(jnp.asarray(x), jnp.asarray(scale),
+                                     jnp.asarray(bias)))
+    nchw = torch.from_numpy(x).permute(0, 3, 1, 2)
+    g_nchw = torch.from_numpy(gy).permute(0, 3, 1, 2)
+    calls = dict.fromkeys(dist_check.BN_ENTRIES, 0)
+    lock = threading.Lock()
+
+    def counted(name, fn):
+        def call(*args, **kwargs):
+            with lock:
+                calls[name] += 1
+            return fn(*args, **kwargs)
+        return call
+
+    for name in dist_check.BN_ENTRIES:
+        monkeypatch.setattr(BN, name, counted(name, getattr(BN, name)))
+
+    def rank(mesh, r):
+        xr = nchw[r::WORLD].clone().requires_grad_(True)
+        s = torch.from_numpy(scale).requires_grad_(True)
+        b = torch.from_numpy(bias).requires_grad_(True)
+        y, _, _, _ = BN.BatchNormTrain.apply(xr, s, b, 1e-5, 0, None, None,
+                                             0.1, mesh)
+        (y * g_nchw[r::WORLD]).sum().backward()
+        return (y.detach().permute(0, 2, 3, 1), xr.grad.permute(0, 2, 3, 1),
+                s.grad, b.grad, mesh.calls)
+
+    out = _threads(WORLD, rank)
+    got_y, got_dx = np.empty_like(x), np.empty_like(x)
+    for r, o in enumerate(out):
+        got_y[r::WORLD], got_dx[r::WORLD] = o[0].numpy(), o[1].numpy()
+        assert o[4] == 2  # one all-reduce each way
+    # each rank's route: two entries and an all-reduce a direction, and dx
+    route = ("batch_norm_sums", "batch_norm_finish_apply",
+             "batch_norm_grad_sums_local", "batch_norm_grad_finish",
+             "batch_norm_dx")
+    assert calls == {k: WORLD * (k in route) for k in calls}, calls
+
+    def max_rel(a, b):
+        return float(np.abs(a - b).max() / np.abs(b).max())
+
+    assert max_rel(got_y, want_y) <= 1e-5
+    assert max_rel(got_dx, want_dx) <= 1e-5
+    assert max_rel(sum(o[2] for o in out).numpy(), want_ds) <= 1e-5
+    assert max_rel(sum(o[3] for o in out).numpy(), want_db) <= 1e-5
 
 
 def _seg_inputs():

@@ -81,7 +81,8 @@ def test_port_imports_no_jax_flax_or_jax_package():
                 "s2r_tpu_torch.tools.profile_dist",
                 "s2r_tpu_torch.data.native",
                 "s2r_tpu_torch.data.native_loader",
-                "s2r_tpu_torch.utils.profiling"):
+                "s2r_tpu_torch.utils.profiling",
+                "s2r_tpu_torch.tools.profile_bn_split"):
         assert mod in result["modules"]
     leaked = [m for m in FORBIDDEN if m in result["loaded"]]
     assert not leaked, leaked
