@@ -253,14 +253,43 @@ Phases, each of which must pass:
    that records pad_stats False and serves ring-free; launches as
    predicted.
 13. Print the kernels line (each kernel's launches, and by the paths
-   that launched it, phase 11's runs under 'native'; floats to 6
-   significant digits), the card's name and power limit, and as the last
-   line {"ok": true, "device": {...}}.
+   that launched it, phase 11's runs under 'native' and phase 14's under
+   'spatial_*'; floats to 6 significant digits), the card's name and
+   power limit, and as the last line {"ok": true, "device": {...}}.
+14. The spatial arms (--spatial-shard, --eval-spatial-shard; ROADMAP
+   A.8), run before phase 13's line.  (a) Each kernel of the spatial
+   output step against its plain version at a rank's band plus halo of
+   the train cell (all 8 samples, 256 of the 512 rows), float32 and
+   bfloat16, at phase 2's tolerances: the depthwise forward, dx and dk
+   on the band plus d rows a side, the split BatchNorm entries and dx on
+   the band's rows with the global image's ring count, disc_conv1 on the
+   band plus 2 rows a side.  (b) Two gloo ranks on the one card (1 data
+   x 2 bands of rows), as phase 10b runs them: 10b's check at
+   --spatial-shard 2 against 10b's one-process runs, at its bounds (after
+   the first step a loss may also lie within 3x its float32 spread, one
+   process on the card against the CPU, as G's leaves may), the
+   launches as step_launches(world=2, spatial=2) predicts (ASPP's pooled
+   BatchNorm on the one-card entries); then timed at the train cell
+   (512x1024 batch 8 bf16): ms/step, launches, all-reduces and halo
+   gathers a step with the halo elements, peak memory a rank.  (c) The
+   same check at 4 ranks (2 data x 2 bands), which runs the batch-axis
+   softmax over the 'data' group.  (d) --eval-spatial-shard over the 2
+   ranks: a 2048x1024 validation batch of 2 in float32 against one
+   process: loss rtol 1e-5 and labels > 0.999 equal
+   (tests/test_spatial_shard.py's bounds), the confusion matrix equal
+   but for labels at float32 near-ties of the one-process logits (top
+   two within 1e-4; tests/test_torch_port_eval.py's rule: at 2048x1024
+   float32 flips a few of 4M labels); the Trainer with
+   --spatial-shard 2 --eval-spatial-shard --device-aug for one epoch
+   (512x512 batch 4 bf16) and its validation: finite losses, mIoU in
+   [0, 1] and the same on every rank, rank 0 alone writing the run
+   directory.  (e) The output step at 2048x1024 global batch 4 bf16:
+   peak memory a rank at --spatial-shard 2 against one process.
 
 Without a CUDA device, or outside a checkout holding s2r_tpu_torch, it exits
 non-zero and prints no result.  Float32 convs run with TF32 off.  It writes
 the kernel build directory, and phase 5's run root in the temporary
-directory (and phase 6d's, 7's, 8's, 9's, 10's, 11's and 12e's, the
+directory (and phase 6d's, 7's, 8's, 9's, 10's, 11's, 12e's and 14d's, the
 checkpoints phases 5 and 6d hand to phases 8 and 10 and the frames phase 8
 hands to phases 9 and 10), which it removes.
 """
@@ -326,7 +355,8 @@ LAYERS = {"mobilenet": (14, 60), "resnet101": (0, 113), "resnet50": (0, 62),
           "xception": (56, 133), "drn": (0, 65)}
 
 
-def step_launches(method, backbone="mobilenet", world=1, remat=False):
+def step_launches(method, backbone="mobilenet", world=1, remat=False,
+                  spatial=1):
     """Each kernel's launches in one step of `method` on `backbone`: the
     depthwise forward and dx of the source and target forwards and their
     dk, the four BatchNorm entries of each G forward (the feature
@@ -341,7 +371,11 @@ def step_launches(method, backbone="mobilenet", world=1, remat=False):
     feature step's target decoder takes none): each wrapped BatchNorm
     applies again on its forward's statistics (MobileNetV2's all but the
     stem's; ASPP's 6 and the decoder's 3 on every backbone) and each
-    wrapped depthwise conv runs again (MobileNetV2's, all in blocks)."""
+    wrapped depthwise conv runs again (MobileNetV2's, all in blocks).
+    Under --spatial-shard `spatial` == `world` (one data row) ASPP's
+    pooled branch, the same on every rank, takes its BatchNorm on the
+    one-card entries (no other rank holds other samples); with more data
+    rows it is synchronized over them, as the others are."""
     dw, bn = LAYERS[backbone]
     out = {"depthwise_conv3x3": 4 * dw, "requant_s32_to_s8": 0,
            "depthwise_dk": 2 * dw, **dict.fromkeys(_BN, 2 * bn),
@@ -365,6 +399,14 @@ def step_launches(method, backbone="mobilenet", world=1, remat=False):
                    batch_norm_apply=out["batch_norm_apply"] - fwd,
                    batch_norm_grad_sums=0, batch_norm_grad_sums_local=bwd,
                    batch_norm_grad_finish=bwd)
+        if spatial == world:
+            pooled = 1 if method == "source_only" else 2
+            out.update(batch_norm_stats=pooled, batch_norm_sums=fwd - pooled,
+                       batch_norm_finish_apply=fwd - pooled,
+                       batch_norm_apply=out["batch_norm_apply"] + pooled,
+                       batch_norm_grad_sums=pooled,
+                       batch_norm_grad_sums_local=bwd - pooled,
+                       batch_norm_grad_finish=bwd - pooled)
     return out
 
 # phase 7: the real datasets, from full-size PNG fixtures (tools/fixtures.py:
@@ -3135,6 +3177,66 @@ def _leaf_updates(snaps, net):
             and not k.endswith(("running_mean", "running_var"))}
 
 
+def against_one_process(tag, got_all, ref, cpu, loss_spread=False):
+    """A steps task of every rank (`got_all`, by rank) against one process
+    on the card (`ref`) and on the CPU (`cpu`) at the whole batch: every
+    rank's state bit-equal; losses rel 1e-5 at the first step and 1e-4
+    after (tests/test_steps.py:85's bound for the JAX package's sharded
+    step), or with `loss_spread` after the first step 3x the loss's
+    float32 spread if larger (one process on the card against the CPU, as
+    G's leaves are bounded: D's first Adam step moves each weight by the
+    learning rate times the sign of its gradient, so float32 rounding
+    alone flips a few and moves the next step's losses by ~1e-4); G's
+    update per leaf within LEAF_BOUND (relative L2) or 3x the
+    leaf's float32 spread (the one-process step on the card against the
+    CPU); D's update of the same sign on >= 99% of elements (phase 4a's
+    bounds); the BatchNorm running statistics within 1e-3 of each layer's
+    largest.  Returns ({leaf: (rel err, spread)}, the worst leaf, D's sign
+    agreement, G's worst leaf after the steps, the statistics' error)."""
+    got = got_all[0]
+    require(all(r["ranks_equal"] for r in got_all),
+            f"{tag}: the ranks' states differ")
+    for i in range(len(ref["metrics"])):
+        # step 0 starts from one state; later steps also carry the first
+        # step's float32 rounding
+        for k in ("seg_loss", "adv_loss", "d_loss"):
+            a, b = got["metrics"][i][k], ref["metrics"][i][k]
+            tol = 1e-5 if i == 0 else 1e-4
+            if i and loss_spread:
+                tol = max(tol, 3 * abs(cpu["metrics"][i][k] - b) / abs(b))
+            require(np.isfinite(a) and abs(a - b) <= tol * abs(b),
+                    f"{tag} step {i} {k}: {len(got_all)} ranks {a}, one "
+                    f"process {b} (CPU {cpu['metrics'][i][k]}), rel bound "
+                    f"{tol:.3g}")
+
+    def rel(a, b):
+        den = float(b.norm())
+        return float((a - b).norm()) / den if den else float(a.norm())
+
+    gu, wu, cu = (_leaf_updates(r["snapshots"], "G") for r in (got, ref, cpu))
+    # G per leaf, as phase 4a bounds the card against float64: within
+    # LEAF_BOUND of one process, or 3x that leaf's float32 spread (one
+    # process on the card against one on the CPU) if larger
+    leaf = {k: (rel(gu[k], wu[k]), rel(cu[k], wu[k])) for k in wu}
+    bad = {k: v for k, v in leaf.items() if v[0] > max(LEAF_BOUND, 3 * v[1])}
+    worst = max(leaf, key=lambda k: leaf[k][0])
+    require(not bad, f"{tag} G update per leaf off one process: {bad}")
+    d_got, d_ref = (torch.cat([v.reshape(-1) for v in _leaf_updates(
+        r["snapshots"], "D").values()]) for r in (got, ref))
+    sign = float((torch.sign(d_got) == torch.sign(d_ref)).double().mean())
+    require(sign >= 0.99, f"{tag} D update sign agreement {sign}")
+    value = max(rel(got["snapshots"][-1]["G"][k].double(),
+                    ref["snapshots"][-1]["G"][k].double()) for k in wu)
+    stats = [k for k in ref["snapshots"][-1]["G"]
+             if k.endswith(("running_mean", "running_var"))]
+    stats_err = max(float((got["snapshots"][-1]["G"][k].double()
+                           - ref["snapshots"][-1]["G"][k].double()).abs().max()
+                          / ref["snapshots"][-1]["G"][k].abs().max())
+                    for k in stats)
+    require(stats_err <= 1e-3, f"{tag} BatchNorm running stats {stats_err}")
+    return leaf, worst, sign, value, stats_err
+
+
 def dist_phase(smi):
     """Phase 10b: two ranks on the one card (gloo, each its own process,
     s2r_tpu_torch/tools/dist_check.py) against one process.  (i) The
@@ -3171,41 +3273,8 @@ def dist_phase(smi):
     got = ranks[0][0]
     require(all(r[0]["ranks_equal"] and r[1]["ranks_equal"] for r in ranks),
             "10b: the ranks' states differ")
-    for i in range(DIST_STEPS):
-        # step 0 starts from one state; later steps also carry the first
-        # step's float32 rounding: the JAX package's own bound for its
-        # sharded step against one device (tests/test_steps.py:85)
-        tol = 1e-5 if i == 0 else 1e-4
-        for k in ("seg_loss", "adv_loss", "d_loss"):
-            a, b = got["metrics"][i][k], ref["metrics"][i][k]
-            require(np.isfinite(a) and abs(a - b) <= tol * abs(b),
-                    f"10b step {i} {k}: 2 ranks {a}, one process {b}")
-
-    def rel(a, b):
-        den = float(b.norm())
-        return float((a - b).norm()) / den if den else float(a.norm())
-
-    gu, wu, cu = (_leaf_updates(r["snapshots"], "G") for r in (got, ref, cpu))
-    # G per leaf, as phase 4a bounds the card against float64: within
-    # LEAF_BOUND of one process, or 3x that leaf's float32 spread (one
-    # process on the card against one on the CPU) if larger
-    leaf = {k: (rel(gu[k], wu[k]), rel(cu[k], wu[k])) for k in wu}
-    bad = {k: v for k, v in leaf.items() if v[0] > max(LEAF_BOUND, 3 * v[1])}
-    worst = max(leaf, key=lambda k: leaf[k][0])
-    require(not bad, f"10b G update per leaf off one process: {bad}")
-    d_got, d_ref = (torch.cat([v.reshape(-1) for v in _leaf_updates(
-        r["snapshots"], "D").values()]) for r in (got, ref))
-    sign = float((torch.sign(d_got) == torch.sign(d_ref)).double().mean())
-    require(sign >= 0.99, f"10b D update sign agreement {sign}")
-    value = max(rel(got["snapshots"][-1]["G"][k].double(),
-                    ref["snapshots"][-1]["G"][k].double()) for k in wu)
-    stats = [k for k in ref["snapshots"][-1]["G"]
-             if k.endswith(("running_mean", "running_var"))]
-    stats_err = max(float((got["snapshots"][-1]["G"][k].double()
-                           - ref["snapshots"][-1]["G"][k].double()).abs().max()
-                          / ref["snapshots"][-1]["G"][k].abs().max())
-                    for k in stats)
-    require(stats_err <= 1e-3, f"10b BatchNorm running stats {stats_err}")
+    leaf, worst, sign, value, stats_err = against_one_process(
+        "10b", [r[0] for r in ranks], ref, cpu)
     per_step = step_launches("output_adapt", world=DIST_WORLD)
     for r in ranks:
         for task, steps in ((0, DIST_STEPS), (1, 7)):
@@ -3253,7 +3322,8 @@ def dist_phase(smi):
             for k, v in r[task]["kernel_launches"].items():
                 paths[path][k] = paths[path].get(k, 0) + v
     return paths, {"dist_ms_per_step": max(ms),
-                   "dist_peak_gib": max(t["peak_gib"] or 0 for t in tm)}
+                   "dist_peak_gib": max(t["peak_gib"] or 0 for t in tm),
+                   "check_refs": (ref, cpu)}
 
 
 def nccl_world1_phase(counted):
@@ -4118,6 +4188,295 @@ def arms_phase(counted, smi):
     return by_path, summary
 
 
+# phase 14: the spatial arms (--spatial-shard, --eval-spatial-shard).  Two
+# bands of rows a sample; the checks reuse phase 10b's one-process runs of
+# its check (DIST_CHECK_HW, DIST_CHECK_BATCH, float32, DIST_STEPS steps).
+SPATIAL = 2
+SPATIAL_EVAL_BATCH = 2          # at FULL_HW, float32
+SPATIAL_PEAK_BATCH = 4          # at FULL_HW, bf16: two ranks on one card
+SPATIAL_TRAINER_HW, SPATIAL_TRAINER_BATCH = 512, 4
+
+
+def check_spatial_shapes(dw, bn, dc):
+    """Phase 14a: each kernel of the spatial output step against its plain
+    version at a rank's band plus halo of the train cell (TRAIN_HW, all
+    BATCH samples of the one data row, TRAIN_HW[0] / SPATIAL rows), float32
+    and bfloat16, at phase 2's tolerances: the depthwise forward, dx and dk
+    on the band plus d rows a side (dk's cotangent zero on the cropped
+    rows); the four split BatchNorm entries and dx on the band's rows
+    with the global image's ring count; disc_conv1 on the band plus 2 rows
+    a side."""
+    from s2r_tpu_torch.models.mobilenet import block_plan
+
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 14)
+    n, eps, mom = BATCH, 1e-5, 0.1
+    shapes = sorted(set(dw_shapes(TRAIN_HW, block_plan)))
+    worst_dk = 0.0
+    for c, h, w, d in shapes:
+        hb = h // SPATIAL + 2 * d
+        for dtype in (torch.float32, torch.bfloat16):
+            x = randn((n, hb, w, c), dtype, gen)
+            g = randn((n, hb, w, c), dtype, gen)
+            g[:, :d] = 0
+            g[:, hb - d:] = 0
+            k = (randn((3, 3, c), torch.float32, gen) / 3).to(dtype)
+            dw_check(dw, x, k, d)
+            dw_check(dw, g, k.flip((0, 1)).contiguous(), d)
+            worst_dk = max(worst_dk, dk_check(dw, x, g, d)[2])
+    bn_shapes = sorted(set(s for s in bn_input_shapes(TRAIN_HW) if s[1] > 1))
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for c, h, w in bn_shapes:
+        m, count = n * (h // SPATIAL) * w, n * (h + 2) * (w + 2)
+        for dtype in (torch.float32, torch.bfloat16):
+            tol = 1e-5 if dtype == torch.float32 else 1e-4
+            x = randn((m, c), dtype, gen)
+            g = randn((m, c), dtype, gen)
+            weight = 1 + 0.1 * torch.randn(c, device=DEV, generator=gen)
+            bias = 0.1 * torch.randn(c, device=DEV, generator=gen)
+            gshift = torch.randn(c, device=DEV, generator=gen)
+            run = [0.1 * torch.randn(c, device=DEV, generator=gen),
+                   0.5 + torch.rand(c, device=DEV, generator=gen)]
+            run_p = [t.clone() for t in run]
+            sums = bn.batch_norm_sums(x)
+            sums_in = sums.clone()
+            sums_p = sums.clone()
+            y = bn.batch_norm_finish_apply(x, sums, weight, bias, count, eps,
+                                           *run, mom)
+            bn.batch_norm_finish_apply_plain(x, sums_p, weight, bias, count,
+                                             eps, *run_p, mom)
+            local = bn.batch_norm_grad_sums_local(g, x, sums, gshift)
+            local_in = local.clone()
+            fin = bn.batch_norm_grad_finish(local, sums, count)
+            dx = bn.batch_norm_dx(g, x, sums[bn.INV], fin[bn.COEF_B],
+                                  fin[bn.COEF_C0])
+            torch.cuda.synchronize()
+            pairs = {
+                "sums": (sums_in[:2], bn.batch_norm_sums_plain(x)[:2]),
+                "finish_apply": (sums, sums_p),
+                "finish_apply y": (y.view(1, -1), bn.batch_norm_apply_plain(
+                    x, sums[bn.INV], sums[bn.SHIFT]).view(1, -1)),
+                "running": (torch.stack(run), torch.stack(run_p)),
+                "grad_sums_local": (local_in[:4],
+                                    bn.batch_norm_grad_sums_local_plain(
+                                        g, x, sums, gshift)[:4]),
+                "grad_finish": (fin, bn.batch_norm_grad_finish_plain(
+                    local_in, sums, count)),
+                "dx": (dx.view(1, -1), bn.batch_norm_dx_plain(
+                    g, x, sums[bn.INV], fin[bn.COEF_B],
+                    fin[bn.COEF_C0]).view(1, -1))}
+            e = {k: max(bn_rel(u, v)) for k, (u, v) in pairs.items()}
+            require(max(e.values()) <= tol,
+                    f"14a batchnorm {(n, c, h // SPATIAL, w)} {dtype}: rel "
+                    f"errs {e} > {tol}")
+            worst[dtype] = max(worst[dtype], max(e.values()))
+    disc_err = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        _, x, k, b = disc_inputs(n, 19, TRAIN_HW[0] // SPATIAL + 4,
+                                 TRAIN_HW[1], 64, dtype, gen)
+        disc_err[dtype] = disc_check(dc, x, k, b)[1]
+    log(f"[14a halo shapes] depthwise forward, dx and dk at "
+        f"{len(shapes)} bands plus halo ("
+        + ", ".join(f"C{c} {h // SPATIAL + 2 * d}x{w} d{d}"
+                    for c, h, w, d in shapes)
+        + f"; worst dk rel err {worst_dk:.3g}); the split BatchNorm "
+        f"entries and dx at {len(bn_shapes)} band shapes, worst rel err "
+        f"f32 {worst[torch.float32]:.3g}, bf16 {worst[torch.bfloat16]:.3g}"
+        f"; disc_conv1 at {n}x{TRAIN_HW[0] // SPATIAL + 4}x19x{TRAIN_HW[1]}"
+        f" max_abs_err f32 {disc_err[torch.float32]:.3g}, bf16 "
+        f"{disc_err[torch.bfloat16]:.3g}: all at phase 2's tolerances")
+
+
+def spatial_phase(smi, check_refs):
+    """Phase 14b-e: the spatial arms through tools/dist_check.py, gloo
+    ranks on the one card.  (c) 4 ranks (2 data rows x 2 bands) and (b) 2
+    ranks (1 x 2) take phase 10b's check (its one-process runs on the
+    card and the CPU are `check_refs`) at --spatial-shard 2, at 10b's
+    bounds (against_one_process); (b) then times the output step at the
+    train cell (ms/step, launches, all-reduces and halo gathers a step,
+    halo elements, peak memory a rank).  (d) --eval-spatial-shard over
+    the 2 ranks: a FULL_HW validation batch of SPATIAL_EVAL_BATCH float32
+    against one process (loss rtol 1e-5, labels > 0.999 equal; the
+    confusion matrix equal but for labels at near-ties); then the
+    Trainer with --spatial-shard 2 --eval-spatial-shard for one epoch and
+    its validation (finite losses, mIoU in [0, 1], rank 0 alone writes
+    the run directory).  (e) The output step at FULL_HW bf16, global
+    batch SPATIAL_PEAK_BATCH: peak memory a rank against one process at
+    that batch.  Returns ({path: launches summed over the ranks},
+    summary)."""
+    from s2r_tpu_torch.tools import dist_check
+
+    ref, cpu = check_refs
+    check = dict(kind="steps", method="output_adapt",
+                 hw=list(DIST_CHECK_HW), batch=DIST_CHECK_BATCH,
+                 steps=DIST_STEPS, precision="f32", spatial=SPATIAL)
+    timing = dict(kind="timing", method="output_adapt", hw=list(TRAIN_HW),
+                  batch=BATCH, precision="bf16", warmup=2, timed=5,
+                  spatial=SPATIAL)
+    evals = dict(kind="eval", method="output_adapt", hw=list(FULL_HW),
+                 batch=SPATIAL_EVAL_BATCH, precision="f32", spatial=SPATIAL,
+                 eval_spatial=True)
+    root = tempfile.mkdtemp(prefix="s2r_spatial_")
+    trainer = dict(kind="trainer", hw=SPATIAL_TRAINER_HW,
+                   batch=SPATIAL_TRAINER_BATCH, precision="bf16",
+                   train_steps=2, run_root=root, spatial=SPATIAL,
+                   eval_spatial=True, device_aug=True)
+    peak = dict(kind="timing", method="output_adapt", hw=list(FULL_HW),
+                batch=SPATIAL_PEAK_BATCH, precision="bf16", warmup=1, timed=2,
+                spatial=SPATIAL)
+    try:
+        t0 = time.perf_counter()
+        four = dist_check.start({"tasks": [check]}, 2 * SPATIAL, DEV,
+                                backend="gloo", timeout=600)
+        # one process meanwhile: the eval reference and the peak at (e)
+        one_eval = dist_check.run_tasks({"tasks": [dict(
+            evals, spatial=1, eval_spatial=False, ties=True)]},
+            torch.device(DEV, 0))[0]
+        torch.cuda.empty_cache()
+        one_peak = dist_check.run_tasks({"tasks": [dict(peak, spatial=1)]},
+                                        torch.device(DEV, 0))[0]
+        torch.cuda.empty_cache()
+        four = four.results()
+        four_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        two = dist_check.spawn({"tasks": [check, timing, evals, trainer,
+                                          peak]}, SPATIAL, DEV,
+                               backend="gloo", timeout=900)
+        two_s = time.perf_counter() - t0
+        runs = os.listdir(os.path.join(root, "synthetic",
+                                       "deeplab-mobilenet"))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out = {}
+    for tag, ranks in (("14c", four), ("14b", two)):
+        leaf, worst, sign, value, stats_err = against_one_process(
+            tag, [r[0] for r in ranks], ref, cpu, loss_spread=True)
+        got = ranks[0][0]
+        world = len(ranks)
+        want = {k: v * DIST_STEPS for k, v in step_launches(
+            "output_adapt", world=world, spatial=SPATIAL).items()}
+        for r in ranks:
+            require(r[0]["kernel_launches"] == want,
+                    f"{tag} rank launches {r[0]['kernel_launches']}, "
+                    f"expected {want}")
+        out[tag] = got
+        log(f"[{tag} spatial check] {world} ranks ({world // SPATIAL} data "
+            f"x {SPATIAL} bands) on one card (gloo), {DIST_CHECK_HW[1]}x"
+            f"{DIST_CHECK_HW[0]} global batch {DIST_CHECK_BATCH} f32, "
+            f"{DIST_STEPS} steps against one process: losses (ranks / one "
+            "process / one process on the CPU) " + "; ".join(
+                f"step {i} " + ", ".join(
+                    f"{k} {got['metrics'][i][k]:.7g}/"
+                    f"{ref['metrics'][i][k]:.7g}/{cpu['metrics'][i][k]:.7g}"
+                    for k in ("seg_loss", "adv_loss", "d_loss"))
+                for i in range(DIST_STEPS))
+            + f"; G update worst leaf {leaf[worst][0]:.3g} ({worst}; one "
+            f"process card against CPU {leaf[worst][1]:.3g}), G after the "
+            f"steps worst leaf {value:.3g}; D update sign agreement "
+            f"{100 * sign:.3f}%; BatchNorm running stats {stats_err:.3g}; "
+            f"ranks bit-equal; {got['collectives_per_step']:.0f} all-reduces"
+            f" ({got['world_collectives_per_step']:.0f} over the world) and "
+            f"{got['gathers_per_step']:.0f} halo gathers a step; launches as "
+            f"predicted ({four_s if tag == '14c' else two_s:.1f} s the "
+            "spawn)")
+    tm = [r[1] for r in two]
+    per_step = step_launches("output_adapt", world=SPATIAL, spatial=SPATIAL)
+    for r in two:
+        want = {k: v * 7 for k, v in per_step.items()}
+        require(r[1]["kernel_launches"] == want,
+                f"14b timed rank launches {r[1]['kernel_launches']}, "
+                f"expected {want}")
+        require(r[1]["ranks_equal"] and all(
+            np.isfinite(v) for v in r[1]["losses"].values()),
+            f"14b timed: ranks differ or losses not finite {r[1]['losses']}")
+    ms = [statistics.median(t["ms"]) for t in tm]
+    log(f"[14b spatial step] {SPATIAL} ranks (1 data x {SPATIAL} bands), "
+        f"{TRAIN_HW[1]}x{TRAIN_HW[0]} batch {BATCH} ({TRAIN_HW[0] // SPATIAL}"
+        " rows a rank) bf16: " + ", ".join(
+            f"rank {i} {m:.3f} ms/step (median of 5: "
+            + ", ".join(f"{v:.3f}" for v in t["ms"]) + ")"
+            for i, (m, t) in enumerate(zip(ms, tm)))
+        + f"; launches a step {per_step}; "
+        f"{tm[0]['collectives_per_step']:.0f} all-reduces "
+        f"({tm[0]['elements_per_step'] / 1e6:.3f}M elements) and "
+        f"{tm[0]['gathers_per_step']:.0f} halo gathers "
+        f"({tm[0]['halo_elements_per_step'] / 1e6:.3f}M elements sent) a "
+        "step; peak " + ", ".join(f"{t['peak_gib'] or 0:.3f}" for t in tm)
+        + " GiB a rank; gloo moves every collective through the host, so "
+        f"this is not a time of NCCL across cards ({smi})")
+    # (d) --eval-spatial-shard against one process
+    ev = [r[2] for r in two]
+    loss = sum(e["loss"] for e in ev)
+    cm = sum(e["confusion"] for e in ev)
+    pred = torch.cat([e["pred"] for e in ev], dim=1)
+    differ = pred != one_eval["pred"]
+    agree = 1.0 - float(differ.double().mean())
+    flips, cm_l1 = int(differ.sum()), int((cm - one_eval["confusion"]).abs()
+                                          .sum())
+    require(abs(loss - one_eval["loss"]) <= 1e-5 * abs(one_eval["loss"]),
+            f"14d eval loss {loss}, one process {one_eval['loss']}")
+    require(agree > 0.999, f"14d label agreement {agree}")
+    # the confusion matrix equal but for labels at float32 near-ties of
+    # the one-process logits (tests/test_torch_port_eval.py's rule)
+    require(not (differ & ~one_eval["ties"]).any()
+            and cm_l1 <= 2 * flips,
+            f"14d confusion matrix off one process's by {cm_l1} counts; "
+            f"{int((differ & ~one_eval['ties']).sum())} of {flips} "
+            "differing labels are not near-ties")
+    tr = [r[3] for r in two]
+    means = tr[0]["train_means"][0]
+    require(all(np.isfinite(means[k]) for k in ("seg_loss", "adv_loss",
+                                                "d_loss"))
+            and 0.0 <= tr[0]["miou"] <= 1.0
+            and all(t["ranks_equal"] and t["miou"] == tr[0]["miou"]
+                    for t in tr)
+            and sorted(runs) == ["experiment_0", "model_best.ckpt"],
+            f"14d trainer: losses {means}, mIoU {tr[0]['miou']}, run "
+            f"directory {runs}")
+    log(f"[14d eval-spatial-shard] {SPATIAL} ranks, {FULL_HW[1]}x"
+        f"{FULL_HW[0]} batch {SPATIAL_EVAL_BATCH} f32, each "
+        f"{FULL_HW[0] // SPATIAL} rows: loss {loss:.9g} against one "
+        f"process {one_eval['loss']:.9g}, labels {100 * agree:.5f}% equal "
+        f"({flips} differ, all at near-ties of the one-process logits, of "
+        f"{int(one_eval['ties'].sum())} near-ties), confusion matrix off by "
+        f"{cm_l1} counts, {ev[0]['gathers']} halo gathers and "
+        f"{ev[0]['collectives']} all-reduces a forward; the Trainer with "
+        f"--spatial-shard {SPATIAL} --eval-spatial-shard at "
+        f"{SPATIAL_TRAINER_HW}x{SPATIAL_TRAINER_HW} batch "
+        f"{SPATIAL_TRAINER_BATCH} bf16 --device-aug, one epoch of 2 steps: "
+        f"seg_loss {means['seg_loss']:.4f}, adv_loss {means['adv_loss']:.4f}"
+        f", d_loss {means['d_loss']:.4f}, mIoU {tr[0]['miou']:.4f} on every"
+        f" rank, run directory {sorted(runs)} (rank 0's)")
+    pk = [r[4] for r in two]
+    log(f"[14e spatial peak] output step {FULL_HW[1]}x{FULL_HW[0]} global "
+        f"batch {SPATIAL_PEAK_BATCH} bf16: peak "
+        + ", ".join(f"{t['peak_gib'] or 0:.3f}" for t in pk)
+        + f" GiB a rank at --spatial-shard {SPATIAL} ({SPATIAL} ranks on "
+        f"one card), against {one_peak['peak_gib'] or 0:.3f} GiB one "
+        "process; "
+        "ms/step a rank " + ", ".join(
+            f"{statistics.median(t['ms']):.3f}" for t in pk)
+        + f" (gloo), one process {statistics.median(one_peak['ms']):.3f} "
+        f"(run beside 14c's four ranks) ({smi})")
+    paths = {"spatial_step_check": {}, "spatial_2x2_step_check": {},
+             "spatial_step": {}, "spatial_eval": {}, "spatial_train_adapt": {},
+             "spatial_step_fullres": {}}
+    for ranks, tasks in ((two, (("spatial_step_check", 0),
+                                ("spatial_step", 1), ("spatial_eval", 2),
+                                ("spatial_train_adapt", 3),
+                                ("spatial_step_fullres", 4))),
+                         (four, (("spatial_2x2_step_check", 0),))):
+        for r in ranks:
+            for path, task in tasks:
+                for k, v in r[task]["kernel_launches"].items():
+                    paths[path][k] = paths[path].get(k, 0) + v
+    for path in ("spatial_eval", "spatial_train_adapt"):
+        require(paths[path]["depthwise_conv3x3"] > 0,
+                f"14: {path} launched no depthwise kernel")
+    return paths, {"spatial_ms_per_step": max(ms),
+                   "spatial_peak_gib": max(t["peak_gib"] or 0 for t in pk),
+                   "one_peak_gib": one_peak["peak_gib"] or 0}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4211,6 +4570,14 @@ def main():
         arms_launches, arms = arms_phase(counted, smi)
         driver_launches.update(arms_launches)
         log(f"[12] phase 12 in {time.perf_counter() - t12:.1f} s")
+        torch.cuda.empty_cache()
+        t14 = time.perf_counter()
+        check_spatial_shapes(dw, bn, dc)
+        torch.cuda.empty_cache()
+        spatial_launches, spatial = spatial_phase(
+            smi, dist_summary.pop("check_refs"))
+        driver_launches.update(spatial_launches)
+        log(f"[14] phase 14 in {time.perf_counter() - t14:.1f} s")
         bn_entries[0]["composite"] = dict(
             bn_composite, ms_covers="one 512x1024 batch-8 bf16 train step: "
             "all four entries of 120 BatchNorm calls; library_ms: "
@@ -4270,7 +4637,12 @@ def main():
         f"output step --remat {arms['remat_step_ms']:.3f} ms, "
         f"{arms['remat_step_peak_gib']:.2f} GiB, against "
         f"{arms['default_step_ms']:.3f} ms, "
-        f"{arms['default_step_peak_gib']:.2f} GiB, "
+        f"{arms['default_step_peak_gib']:.2f} GiB; --spatial-shard "
+        f"{SPATIAL} over {SPATIAL} gloo ranks on one card: "
+        f"{spatial['spatial_ms_per_step']:.3f} ms/step at the train cell, "
+        f"peak {spatial['spatial_peak_gib']:.3f} GiB a rank against "
+        f"{spatial['one_peak_gib']:.3f} one process at {FULL_HW[1]}x"
+        f"{FULL_HW[0]} batch {SPATIAL_PEAK_BATCH}, "
         f"on {smi}; {time.perf_counter() - t_start:.1f} s after imports")
     print(json.dumps({"kernels": significant(kernels)}))
     print(smi)

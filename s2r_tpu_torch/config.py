@@ -124,11 +124,8 @@ class Config:
 
 
 # (field, flag, the values the port runs, ROADMAP item) of every feature
-# the port lacks.
-_UNPORTED = (
-    ("spatial_shard", "--spatial-shard", (1,), "A.8"),
-    ("eval_spatial_shard", "--eval-spatial-shard", (False,), "A.8"),
-)
+# the port lacks: none now.
+_UNPORTED = ()
 
 
 # The training methods (s2r_tpu/train/setup.py build_method).

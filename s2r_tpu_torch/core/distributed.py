@@ -12,7 +12,8 @@ torchrun, which sets ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
 (NCCL for the card, gloo for ``S2R_PLATFORM=cpu``) and binds the process
 to ``cuda:LOCAL_RANK``.  Each process feeds its strided share of every
 global batch (data/loader.py): ranks agree on the epoch's permutation and
-take disjoint slices ``rank::world`` of each batch (``local_shard``).
+take disjoint slices ``rank::world`` of each batch (``local_shard``), or
+under ``--spatial-shard`` their data row's slice (``process_shares``).
 """
 
 from __future__ import annotations
@@ -56,6 +57,22 @@ def process_info() -> Tuple[int, int]:
     if not dist.is_initialized():
         return 0, 1
     return dist.get_rank(), dist.get_world_size()
+
+
+def process_shares(spatial: int = 1, eval_rows: bool = False
+                   ) -> Tuple[Tuple[int, int], Tuple[int, int]]:
+    """((index, count) of a train loader's share of every global batch,
+    the same of an eval loader's).  Without a spatial axis both are
+    (rank, world).  Under ``--spatial-shard S`` the S ranks of a data row
+    load the same samples, the share of their row (rank // S, world // S),
+    and each keeps its band of the rows; the eval loaders follow the JAX
+    package (s2r_tpu/parallel/feed.py:30, s2r_tpu/core/mesh.py:106-122):
+    the data row's share, or with ``--eval-spatial-shard`` the whole
+    batch, every rank keeping its band of the world's rows."""
+    rank, world = process_info()
+    spatial = max(1, int(spatial))
+    train = (rank // spatial, max(world // spatial, 1))
+    return train, ((0, 1) if eval_rows else train)
 
 
 def local_shard(index_range: int, process_id: int,

@@ -4,25 +4,42 @@ The JAX package jits one step over a device mesh: the batch dimension is
 sharded over the 'data' axis, and every global reduction of the traced
 program (gradient means, BatchNorm statistics, loss normalizers) becomes a
 cross-device psum.  The port runs one process per GPU and makes those
-reductions itself, through a ``Mesh``:
+reductions itself, through a ``Mesh`` (over the default process group, or
+over a subgroup of it):
 
 - ``all_reduce_`` sums (or maxes) one tensor over the ranks in place: the
   BatchNorm sums (models/layers.py), the loss normalizers and metrics
   (train/losses.py), the batch-axis softmax (train/steps.py);
 - ``all_reduce_flat`` sums a list of tensors in one flat buffer: a step's
   gradients;
+- ``all_gather`` hands every rank each rank's tensor, as the bytes it
+  holds (no arithmetic, so any dtype on any backend): the halo exchanges
+  of row-sharded layers (ops/halo.py);
 - ``broadcast_`` copies rank 0's tensors to every rank: the initial or
   resumed state;
 - ``barrier``.
 
 Every helper is the identity at one process and then makes no collective
 call, so a single-device run takes exactly the path it took before.
-``calls`` and ``elements`` count what the collectives moved.
+``calls`` and ``elements`` count what the all-reduces and broadcasts
+moved, ``gathers`` and ``gathered`` the all-gathers (elements this rank
+sent).
+
+``--spatial-shard S`` (s2r_tpu/core/mesh.py:26-50, ``make_mesh(spatial=
+S)``): a 2-D ('data', 'space') ``Layout`` of the world, rank r at data row
+r // S and space column r % S.  The S ranks of a data row load the same
+samples and each holds a contiguous band of their image rows; the
+'space' group of a row exchanges halos (ops/halo.py) and sums ASPP's
+pool, the 'data' group of a column (the ranks holding the same rows of
+different samples) takes the batch-axis softmax, and the world stays the
+group of the gradients, BatchNorm and the loss normalizers.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+import dataclasses
+import os
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -31,15 +48,19 @@ from s2r_tpu_torch.core.distributed import process_info
 
 
 class Mesh:
-    """`size` processes, this one `rank`, over the default process group."""
+    """`size` processes, this one `rank` of them, over `group` (a
+    torch.distributed group; None: the default one, the world)."""
 
-    def __init__(self, size: int = 1, rank: int = 0):
+    def __init__(self, size: int = 1, rank: int = 0, group=None):
         if not 0 <= rank < size:
             raise ValueError(f"rank {rank} of a mesh of {size}")
         self.size = int(size)
         self.rank = int(rank)
-        self.calls = 0      # collectives issued
+        self.group = group
+        self.calls = 0      # all-reduces and broadcasts issued
         self.elements = 0   # elements all-reduced or broadcast
+        self.gathers = 0    # all-gathers issued
+        self.gathered = 0   # elements this rank sent in them
 
     def __repr__(self) -> str:
         return f"Mesh(size={self.size}, rank={self.rank})"
@@ -57,9 +78,26 @@ class Mesh:
             raise ValueError("Mesh.all_reduce_: the tensor must be "
                              "contiguous")
         dist.all_reduce(t, op=dist.ReduceOp.SUM if op == "sum"
-                        else dist.ReduceOp.MAX)
+                        else dist.ReduceOp.MAX, group=self.group)
         self._count(t)
         return t
+
+    def all_gather(self, t: torch.Tensor) -> List[torch.Tensor]:
+        """Every rank's `t` (one shape and dtype on every rank), by rank;
+        [t] at one process.  The bytes travel as uint8, so no backend's
+        list of reduction types limits the dtype (gloo has no bfloat16
+        all-gather) and the values arrive bit for bit."""
+        if self.size == 1:
+            return [t]
+        t = t.contiguous()
+        if t.dim() == 0:
+            t = t.reshape(1)
+        bits = t.view(torch.uint8)
+        out = [torch.empty_like(bits) for _ in range(self.size)]
+        dist.all_gather(out, bits, group=self.group)
+        self.gathers += 1
+        self.gathered += t.numel()
+        return [o.view(t.dtype) for o in out]
 
     def all_reduce_flat(self, tensors: Sequence[torch.Tensor]
                         ) -> List[torch.Tensor]:
@@ -83,16 +121,18 @@ class Mesh:
         groups = {}
         for t in tensors:
             groups.setdefault((t.dtype, t.device), []).append(t)
+        src = 0 if self.group is None else dist.get_global_rank(
+            self.group, 0)
         for group in groups.values():
             flat = torch.cat([t.reshape(-1) for t in group])
-            dist.broadcast(flat, src=0)
+            dist.broadcast(flat, src=src, group=self.group)
             self._count(flat)
             for t, v in zip(group, flat.split([t.numel() for t in group])):
                 t.copy_(v.view_as(t))
 
     def barrier(self) -> None:
         if self.size > 1:
-            dist.barrier()
+            dist.barrier(group=self.group)
 
 
 def make_mesh(num_devices: Optional[int] = None) -> Mesh:
@@ -107,16 +147,138 @@ def make_mesh(num_devices: Optional[int] = None) -> Mesh:
     return Mesh(world, rank)
 
 
-def pick_num_devices(batch_size: int, requested: Optional[int] = None) -> int:
-    """The data-parallel width: the process group's size, which
-    ``--num-devices`` must equal when given, and which must divide the
-    global batch (the JAX package's multi-host rule,
-    s2r_tpu/train/trainer.py:66-71)."""
+def pick_num_devices(batch_size: int, requested: Optional[int] = None,
+                     spatial: int = 1) -> int:
+    """The process group's size, which ``--num-devices`` must equal when
+    given (s2r_tpu/train/trainer.py:40-71).  Without a spatial axis it
+    must divide the global batch (the JAX package's multi-host rule).
+    With ``--spatial-shard S`` > 1, S must divide it and the batch only
+    the data rows, world // S; where the JAX package idles the devices a
+    batch does not divide, the port raises, as its data-parallel rule
+    does (ROADMAP C.16).  A world spanning nodes raises
+    NotImplementedError, as the JAX package's multi-host refusal does:
+    the spatial arm is one node's."""
     world = make_mesh(requested).size
+    if spatial > 1:
+        local = int(os.environ.get("LOCAL_WORLD_SIZE", world))
+        if local != world:
+            raise NotImplementedError(
+                f"--spatial-shard is one node's: this world of {world} "
+                f"processes spans nodes of {local}")
+        if world % spatial:
+            raise ValueError(f"--spatial-shard {spatial} must divide the "
+                             f"device count ({world})")
+        rows = world // spatial
+        if batch_size % rows:
+            raise ValueError(
+                f"global batch_size ({batch_size}) must be divisible by the "
+                f"data rows ({rows} = {world} processes / --spatial-shard "
+                f"{spatial})")
+        return world
     if batch_size % world:
         raise ValueError(f"global batch_size ({batch_size}) must be "
                          f"divisible by the number of processes ({world})")
     return world
+
+
+@dataclasses.dataclass
+class Layout:
+    """The 2-D ('data', 'space') layout of `world`: `spatial` columns, rank
+    r at data row r // spatial and column r % spatial (the module
+    docstring).  `space` is the mesh of this rank's data row (its rank:
+    the column), `data` that of its column (its rank: the data row); at
+    spatial 1, `space` is one process and `data` the world itself; at
+    spatial == world, `space` is the world and `data` one process."""
+    world: Mesh
+    space: Mesh
+    data: Mesh
+    spatial: int = 1
+
+    @property
+    def meshes(self) -> List[Mesh]:
+        """The distinct meshes of more than one process, each once."""
+        out = []
+        for m in (self.world, self.space, self.data):
+            if m.size > 1 and all(m is not o for o in out):
+                out.append(m)
+        return out
+
+    @property
+    def calls(self) -> int:
+        """All-reduces and broadcasts issued over every group."""
+        return sum(m.calls for m in self.meshes)
+
+    def rows_mesh(self, eval_rows: bool = False) -> Mesh:
+        """The mesh whose ranks split a sample's rows: the space group, or
+        the world with `eval_rows`."""
+        return self.world if eval_rows else self.space
+
+    def band(self, arrays: Dict, eval_rows: bool = False) -> Dict:
+        """This rank's band of rows of every [N, H, ...] tensor of `arrays`
+        (NHWC images, [N, H, W] labels; others pass): rows [s*H/S,
+        (s+1)*H/S) for rank s of the S ranks of ``rows_mesh`` (the row
+        rule of ops/halo.py).  H must divide."""
+        mesh = self.rows_mesh(eval_rows)
+        if mesh.size == 1:
+            return arrays
+        out = {}
+        for k, v in arrays.items():
+            if torch.is_tensor(v) and v.dim() >= 3:
+                if v.shape[1] % mesh.size:
+                    raise ValueError(f"{v.shape[1]} rows do not split over "
+                                     f"{mesh.size} ranks")
+                h = v.shape[1] // mesh.size
+                v = v[:, mesh.rank * h:(mesh.rank + 1) * h]
+            out[k] = v
+        return out
+
+
+def check_rows(height: int, spatial: int, stride: int) -> None:
+    """Refuse a global image height that is not divisible by `spatial`
+    times the path's largest stride: every activation of the path must
+    split evenly over the ranks (uneven shards: ROADMAP A.8)."""
+    unit = spatial * stride
+    if spatial > 1 and height % unit:
+        smallest = -(-height // unit) * unit
+        raise ValueError(
+            f"a crop of {height} rows does not split over {spatial} ranks "
+            f"at stride {stride}: the height must be a multiple of "
+            f"{unit}; the smallest crop that works is {smallest}")
+
+
+# (world size, spatial) -> the torch.distributed groups of every row and
+# column, made once: every rank must call new_group for each group, in
+# the same order
+_GROUPS: Dict[Tuple[int, int], Tuple[list, list]] = {}
+
+
+def _subgroups(world: int, spatial: int) -> Tuple[list, list]:
+    key = (world, spatial)
+    if key not in _GROUPS:
+        rows = [dist.new_group(list(range(d * spatial, (d + 1) * spatial)))
+                for d in range(world // spatial)]
+        cols = [dist.new_group(list(range(c, world, spatial)))
+                for c in range(spatial)]
+        _GROUPS[key] = (rows, cols)
+    return _GROUPS[key]
+
+
+def make_layout(world: Mesh, spatial: int = 1) -> Layout:
+    """The 2-D layout of `world` at `spatial` columns (Layout).  Subgroups
+    are made only where a group of more than one process is neither the
+    world nor one process, so spatial 1 and spatial == world make none."""
+    spatial = max(1, int(spatial))
+    if world.size % spatial:
+        raise ValueError(f"--spatial-shard {spatial} must divide the "
+                         f"device count ({world.size})")
+    if spatial == 1:
+        return Layout(world, Mesh(), world, 1)
+    row, col = divmod(world.rank, spatial)
+    if spatial == world.size:
+        return Layout(world, world, Mesh(), spatial)
+    rows, cols = _subgroups(world.size, spatial)
+    return Layout(world, Mesh(spatial, col, rows[row]),
+                  Mesh(world.size // spatial, row, cols[col]), spatial)
 
 
 def rank_seed(seed: int, mesh: Mesh, step: int = 0) -> int:

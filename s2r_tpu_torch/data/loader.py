@@ -14,7 +14,10 @@
   the world does not divide is dropped on every rank (s2r_tpu/data/
   loader.py:46-66,87-91).  A tuple of ints hashes the same in every process
   (PYTHONHASHSEED salts only str and bytes), so the batches are
-  bit-identical to JAX's.
+  bit-identical to JAX's.  Under ``--spatial-shard`` the share is the
+  rank's data row's, and under ``--eval-spatial-shard`` the eval loaders
+  load whole batches (core/distributed.py ``process_shares``); the
+  Trainer keeps each rank's band of the rows.
 - ``gtav2cityscapes`` and ``gtav`` read the PNG roots of the config
   (data/datasets.py), staged for ``--device-aug`` and cached with
   ``--data-cache`` (up to ``--data-cache-gb``); ``synthetic`` makes scenes.
@@ -39,7 +42,7 @@ from typing import Dict, Iterator, List, Optional
 import numpy as np
 
 from s2r_tpu_torch.config import Config, check_ported
-from s2r_tpu_torch.core.distributed import process_info
+from s2r_tpu_torch.core.distributed import process_shares
 from s2r_tpu_torch.data import datasets as D
 from s2r_tpu_torch.data import synthetic as S
 from s2r_tpu_torch.data.native_loader import NativeEvalLoader, \
@@ -133,15 +136,17 @@ class DataLoader:
 
 
 def _native_loaders(cfg: Config, seed: int, train_set, val_set, test_set,
-                    rank: int, world: int):
+                    train_share, eval_share):
     """The gtav2cityscapes loaders of --data-backend native
-    (s2r_tpu/data/loader.py:140-167)."""
-    share = dict(threads=cfg.workers, process_index=rank,
-                 process_count=world)
+    (s2r_tpu/data/loader.py:140-167); each share (index, count)."""
     train = NativeTrainLoader(train_set.sources, cfg.src_label_root,
                               train_set.targets, cfg.base_size,
                               cfg.crop_size, cfg.batch_size, seed=seed,
-                              **share)
+                              threads=cfg.workers,
+                              process_index=train_share[0],
+                              process_count=train_share[1])
+    share = dict(threads=cfg.workers, process_index=eval_share[0],
+                 process_count=eval_share[1])
     val_imgs = [os.path.join(
         cfg.val_img_root,
         os.path.basename(p)[:-len("gtFine_labelIds.png")] + "leftImg8bit.png")
@@ -160,9 +165,9 @@ def make_data_loader(cfg: Config, seed: Optional[int] = None):
     them (dataloders/__init__.py:4-28, plus the synthetic dataset)."""
     seed = cfg.seed if seed is None else seed
     check_ported(cfg)
-    rank, world = process_info()
-    kw = dict(num_workers=cfg.workers, seed=seed, process_index=rank,
-              process_count=world)
+    train_share, eval_share = process_shares(cfg.spatial_shard,
+                                             cfg.eval_spatial_shard)
+    kw = dict(num_workers=cfg.workers, seed=seed)
     cache = dict(staged=cfg.device_aug, cache=cfg.data_cache,
                  cache_bytes=int(cfg.data_cache_gb * 1e9))
     if cfg.dataset == "gtav2cityscapes":
@@ -175,7 +180,7 @@ def make_data_loader(cfg: Config, seed: Optional[int] = None):
                              cfg.crop_size)
         if cfg.data_backend == "native":
             return _native_loaders(cfg, seed, train_set, val_set, test_set,
-                                   rank, world)
+                                   train_share, eval_share)
     elif cfg.dataset == "gtav":
         roots = (cfg.src_img_root, cfg.src_label_root, cfg.base_size,
                  cfg.crop_size)
@@ -194,10 +199,12 @@ def make_data_loader(cfg: Config, seed: Optional[int] = None):
         raise NotImplementedError(cfg.dataset)
     # all three loaders use batch_size (the reference parses
     # --test-batch-size and leaves it unused: dataloders/__init__.py:11-13)
+    shares = dict(zip(("process_index", "process_count"), eval_share))
     train = DataLoader(train_set, cfg.batch_size, shuffle=True,
-                       drop_last=True, **kw)
+                       drop_last=True, process_index=train_share[0],
+                       process_count=train_share[1], **kw)
     val = DataLoader(val_set, cfg.batch_size, shuffle=False,
-                     drop_last=cfg.val_drop_last, **kw)
+                     drop_last=cfg.val_drop_last, **shares, **kw)
     test = DataLoader(test_set, cfg.batch_size, shuffle=False,
-                      drop_last=cfg.val_drop_last, **kw)
+                      drop_last=cfg.val_drop_last, **shares, **kw)
     return train, val, test, train_set.NUM_CLASSES

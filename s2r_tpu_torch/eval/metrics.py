@@ -111,18 +111,22 @@ class Evaluator:
 
 def evaluate(eval_step: Callable, loader: Iterable,
              device: Union[str, torch.device], num_class: int,
-             mesh=None) -> Tuple[Evaluator, float]:
+             mesh=None, band: Optional[Callable] = None
+             ) -> Tuple[Evaluator, float]:
     """`eval_step` over the uint8 batches of `loader`, prefetched to
     `device` and normalized there: (the Evaluator holding the summed
     confusion matrix, the summed loss).  The matrices and losses stay on
     the device during the loop; the losses are read once after it.  Under
     `mesh` (core/mesh.py; data parallel, each rank evaluating its share of
     every batch, its loss the share of the batch's) the matrix and the
-    loss are summed over the ranks, so every rank gets the global ones."""
+    loss are summed over the ranks, so every rank gets the global ones.
+    `band` maps each device batch to the part this rank evaluates (its
+    band of the rows under spatial sharding); its matrix and loss are
+    shares too."""
     ev = Evaluator(num_class)
     losses = []
     for batch in prefetch_to_device(loader, device):
-        arrays = normalize_u8_batch(batch)
+        arrays = normalize_u8_batch(band(batch) if band else batch)
         loss, cm, _ = eval_step(arrays["image"], arrays["label"])
         ev.merge(cm)
         losses.append(loss)

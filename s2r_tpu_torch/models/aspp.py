@@ -8,6 +8,12 @@ ReLU -> Dropout(0.5), the identity in eval.  With ``split_concat``
 (s2r_tpu/models/aspp.py:74-80) the 1x1 conv takes the five branches as
 parts (models/layers.py ``Conv2d``): no 1280-channel concat is built, and
 the pool branch enters it once at [N,256,1,1], unbroadcast.
+
+Under row sharding (ops/halo.py) the pool is the sum over the group's
+bands (``space_sum``: the 'space' group, or the world under
+``--eval-spatial-shard``) over the global H*W; the pooled branch is the
+same on every rank of the group and runs unsharded (ops/halo.py
+``replicated``: its train-mode BatchNorm over the 'data' group).
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ import torch
 import torch.nn as nn
 
 from s2r_tpu_torch.models.layers import BatchNorm, Conv2d, Dropout, relu
+from s2r_tpu_torch.ops import halo
 
 _DILATIONS = {16: (1, 6, 12, 18), 8: (1, 12, 24, 36)}
 
@@ -60,9 +67,16 @@ class ASPP(nn.Module):
         dropout mask in train mode."""
         branches = [self.aspp1(x), self.aspp2(x), self.aspp3(x), self.aspp4(x)]
         gap = self.global_avg_pool
-        g = x.to(torch.promote_types(x.dtype, torch.float32)).mean(
-            dim=(2, 3), keepdim=True).to(x.dtype)
-        g = relu(gap[2](gap[1](g)))
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        rows = halo.current()
+        if rows is None:
+            g = xf.mean(dim=(2, 3), keepdim=True).to(x.dtype)
+        else:  # the sum over the group's bands, over the global H*W
+            area = x.shape[2] * rows.size * x.shape[3]
+            g = (halo.space_sum(xf.sum(dim=(2, 3), keepdim=True))
+                 / area).to(x.dtype)
+        with halo.replicated():
+            g = relu(gap[2](gap[1](g)))
         if self.split_concat:
             y = self.conv1((*branches, g))
         else:

@@ -32,6 +32,14 @@ sets it False) and ``stem_s2d`` are MobileNetV2's (models/mobilenet.py);
 the other backbones ignore ``pad_stats``, as the JAX package does, and
 ``stem_s2d`` on them raises a ValueError where the JAX package ignores
 it silently (ROADMAP C.7).
+
+Row sharding (``--spatial-shard``, ``--eval-spatial-shard``): a forward
+inside ops/halo.py's ``row_shard`` context takes a band of each image's
+rows and returns the same band of the logits; every layer reads the
+context (the convs' halos, BatchNorm's ring count, ASPP's pool, the
+align-corners resizes, ResNet's max pool).  ``row_stride`` is the
+largest stride of the model's path, which the global height must divide
+times the number of bands.
 """
 
 from __future__ import annotations
@@ -141,6 +149,11 @@ class DeepLab(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.decoder.conv1.weight.device
+
+    @property
+    def row_stride(self) -> int:
+        """The largest stride of the model's path: ASPP's."""
+        return aspp_stride(self.backbone_name, self.output_stride)
 
     def train(self, mode: bool = True) -> "DeepLab":
         """Train mode for every submodule, unless `freeze_bn` holds them in

@@ -16,6 +16,13 @@ s2d_convs convs run through space-to-depth (ops/s2d.py) on an even input
 size, the direct conv otherwise.  conv1 stays on the hand-written kernel
 whatever it says, and both compute one function, so it acts from conv2
 on: ``s2d_convs=1`` changes nothing here.
+
+Under row sharding (ops/halo.py) the kernel runs on the band plus 2
+rows a side with its own one-row padding, its first and last output rows
+dropped: output rows [r0/2, r1/2) read input rows r0-1 .. r1, and an
+even start keeps the stride-2 alignment (a one-row halo would shift it
+by one).  The dense convs read exactly their rows (models/layers.py
+``Conv2d``), the s2d ones as conv1 does.
 """
 
 from __future__ import annotations
@@ -27,7 +34,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from s2r_tpu_torch.core.device import resolve_device, resolve_dtype
-from s2r_tpu_torch.models.layers import leaky_relu, s2d_applies
+from s2r_tpu_torch.models.layers import leaky_relu, s2d_applies, s2d_rows
+from s2r_tpu_torch.ops import halo
 from s2r_tpu_torch.ops.kernels.disc_conv import DiscConv1
 from s2r_tpu_torch.ops.s2d import conv4x4s2_via_s2d
 
@@ -69,16 +77,25 @@ class FCDiscriminator(nn.Module):
         [N, 1, H/32, W/32] in the compute dtype."""
         dt = self.compute_dtype
         x = x.to(dt)
+        sharded = halo.current() is not None
         c1 = self.conv1
-        y = DiscConv1.apply(x.permute(0, 2, 1, 3),
+        y = DiscConv1.apply((halo.halo(x, 2) if sharded else x
+                             ).permute(0, 2, 1, 3),
                             c1.weight.to(dt).permute(2, 3, 1, 0).contiguous(),
                             c1.bias.to(dt)).permute(0, 3, 1, 2)
+        if sharded:
+            y = y[:, :, 1:-1].contiguous(memory_format=torch.channels_last)
         for i, name in enumerate(NAMES[1:], start=1):
             conv = getattr(self, name)
             y = leaky_relu(y, 0.2)
             if i < self.s2d_convs and s2d_applies(conv, y):
-                y = (conv4x4s2_via_s2d(y, conv.weight.to(dt))
+                w = conv.weight.to(dt)
+                y = ((s2d_rows(conv4x4s2_via_s2d, y, w) if sharded
+                      else conv4x4s2_via_s2d(y, w))
                      + conv.bias.to(dt).view(1, -1, 1, 1))
+            elif sharded:
+                y = F.conv2d(halo.conv_input(y, 4, 2, 1), conv.weight.to(dt),
+                             conv.bias.to(dt), stride=2, padding=(0, 1))
             else:
                 y = F.conv2d(y, conv.weight.to(dt), conv.bias.to(dt),
                              stride=2, padding=1)

@@ -55,6 +55,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from s2r_tpu_torch.ops import halo
 from s2r_tpu_torch.ops.kernels.batchnorm import BatchNormTrain
 from s2r_tpu_torch.ops.kernels.depthwise import DepthwiseConv3x3
 from s2r_tpu_torch.ops.s2d import conv3x3s2_via_s2d, conv4x4s2_via_s2d
@@ -90,10 +91,10 @@ def _real_of(x: torch.Tensor) -> Optional[int]:
 class _Frame:
     """What one remat call records in its forward, in call order: each
     train-mode BatchNorm's statistics and each Dropout's generator state;
-    and the real batch it ran under."""
+    and the real batch and the row mesh it ran under."""
 
     def __init__(self):
-        self.stats, self.rng, self.real = [], [], None
+        self.stats, self.rng, self.real, self.rows = [], [], None, None
 
 
 class _FrameScope:
@@ -107,15 +108,18 @@ class _FrameScope:
         if _scope() is not None:
             raise RuntimeError("remat: regions do not nest")
         self._prev = getattr(_local, "real", None)
+        self._prev_rows = halo.state()
         if self.recompute:
             _local.real = self.frame.real
+            halo.set_state(self.frame.rows)
         else:
-            self.frame.real = self._prev
+            self.frame.real, self.frame.rows = self._prev, self._prev_rows
         self.n_stats = self.n_rng = 0
         _local.scope = self
 
     def __exit__(self, *exc):
         _local.scope, _local.real = None, self._prev
+        halo.set_state(self._prev_rows)
 
     def next_stats(self) -> torch.Tensor:
         self.n_stats += 1
@@ -188,24 +192,44 @@ class Conv2d(nn.Conv2d):
             if self.groups != self.in_channels or self.out_channels != self.in_channels:
                 raise ValueError("fill is only defined for depthwise convs")
             x = x - _col(fill.to(x.dtype))
+        sharded = halo.current() is not None
         if self.dw_stride1_3x3:
+            d = self.dilation[0]
+            xh = halo.halo(x, d) if sharded else x
             y = DepthwiseConv3x3.apply(
-                x.permute(0, 2, 3, 1).contiguous(),
-                w[:, 0].permute(1, 2, 0).contiguous(),
-                self.dilation[0]).permute(0, 3, 1, 2)
+                xh.permute(0, 2, 3, 1).contiguous(),
+                w[:, 0].permute(1, 2, 0).contiguous(), d)
+            if sharded:  # the halo rows' outputs
+                y = y[:, d:d + x.shape[2]].contiguous()
+            y = y.permute(0, 3, 1, 2)
         elif self.s2d and s2d_applies(self, x):
             lower = (conv4x4s2_via_s2d if self.kernel_size == (4, 4)
                      else conv3x3s2_via_s2d)
-            y = lower(x, w)
+            y = s2d_rows(lower, x, w) if sharded else lower(x, w)
         else:
-            y = F.conv2d(x, w, None, self.stride, self.padding, self.dilation,
-                         self.groups)
+            y = F.conv2d(self._rows(x), w, None, self.stride,
+                         self._padding(), self.dilation, self.groups)
         if fill is not None:
             ksum = self.weight.sum(dim=(1, 2, 3))  # [C], float32
             y = y + _col((fill * ksum).to(y.dtype))
         if self.bias is not None:
             y = y + _col(self.bias.to(y.dtype))
         return y
+
+    def _rows(self, x: torch.Tensor) -> torch.Tensor:
+        """x, or under row sharding the rows this rank's output rows read
+        (ops/halo.py ``conv_input``)."""
+        if halo.current() is None:
+            return x
+        return halo.conv_input(x, self.kernel_size[0], self.stride[0],
+                               self.padding[0], self.dilation[0])
+
+    def _padding(self):
+        """The conv's padding; under row sharding none along H (the rows
+        outside the image came in with ``_rows``)."""
+        if halo.current() is None:
+            return self.padding
+        return (0, self.padding[1])
 
     def _split_forward(self, parts) -> torch.Tensor:
         """conv(concat(parts, channels)) as the sum over parts of conv(part,
@@ -252,8 +276,10 @@ class Conv2d(nn.Conv2d):
             elif hw != full:
                 raise ValueError(f"split part of spatial size {hw}: want "
                                  f"{full} (or [1,1] under a 1x1 kernel)")
+            else:  # a full-size part: under row sharding, its rows
+                p = self._rows(p)
             outs.append(F.conv2d(p, w[:, off:off + c], None, self.stride,
-                                 self.padding, self.dilation))
+                                 self._padding(), self.dilation))
             off += c
         # the sum in float32, started from a full-size part, each other
         # part added in place (no float32 copy of it)
@@ -265,6 +291,14 @@ class Conv2d(nn.Conv2d):
         if self.bias is not None:
             y.add_(_col(self.bias.to(acc)))
         return y.to(dtype)
+
+
+def s2d_rows(lower, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """A space-to-depth lowering (ops/s2d.py) of a stride-2 padding-1 conv
+    on row-sharded x: on the band plus 2 rows a side (an even offset, so
+    the s2d pairs are the unsharded ones), the first and the last output
+    row dropped."""
+    return lower(halo.halo(x, 2), w)[:, :, 1:-1]
 
 
 def s2d_applies(conv: nn.Conv2d, x: torch.Tensor) -> bool:
@@ -297,14 +331,19 @@ class BatchNorm(nn.BatchNorm2d):
         are updated in place with momentum 0.1 (:341-349).  Under
         bn_real_batch(k), over the first k samples only; in a remat
         recompute, the forward's statistics are reused and nothing is
-        updated (module docstring)."""
+        updated (module docstring).  Under row sharding (ops/halo.py) x
+        is a band of the global image's rows: the ring is the global
+        image's; in its ``replicated`` regions the statistics are
+        synchronized over the ranks holding other samples only."""
         if not self.training:
             inv = torch.rsqrt(self.running_var + self.eps) * self.weight
             shift = self.bias - self.running_mean * inv
             y = x * _col(inv.to(x.dtype)) + _col(shift.to(x.dtype))
             return (y, shift) if ring else y
-        sync = self.sync if self.sync is not None and self.sync.size > 1 \
-            else None
+        rows = halo.state()
+        sync = rows.columns if rows.replicated else self.sync
+        if sync is not None and sync.size == 1:
+            sync = None
         scope = _scope()
         stats_in = stats_out = None
         if scope is not None and scope.recompute:
@@ -314,7 +353,8 @@ class BatchNorm(nn.BatchNorm2d):
         y, shift, _, _ = BatchNormTrain.apply(
             x, self.weight, self.bias, self.eps, int(zero_pad_width),
             self.running_mean, self.running_var, float(self.momentum), sync,
-            _real_of(x), stats_in, stats_out)
+            _real_of(x), stats_in, stats_out,
+            1 if rows.rows is None else rows.rows.size)
         if stats_in is None:
             with torch.no_grad():
                 self.num_batches_tracked.add_(1)

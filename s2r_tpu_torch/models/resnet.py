@@ -21,6 +21,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from s2r_tpu_torch.models.layers import BatchNorm, Conv2d, relu
+from s2r_tpu_torch.ops import halo
 
 # copied from s2r_tpu/models/resnet.py
 LAYER_BLOCKS = {"resnet101": (3, 4, 23, 3), "resnet50": (3, 4, 6, 3)}
@@ -40,8 +41,12 @@ def max_pool_3x3_s2(x: torch.Tensor) -> torch.Tensor:
     """torch MaxPool2d(3, stride 2, padding 1): the JAX package's -inf
     padded reduce_window max.  The gradient goes to one maximum of each
     window; the input follows a ReLU, so the only ties are zeros, whose
-    gradient the ReLU stops either way."""
-    return F.max_pool2d(x, 3, 2, 1)
+    gradient the ReLU stops either way.  Under row sharding (ops/halo.py)
+    the rows its local output rows read, rows outside the image -inf."""
+    if halo.current() is None:
+        return F.max_pool2d(x, 3, 2, 1)
+    return F.max_pool2d(halo.conv_input(x, 3, 2, 1, pad=float("-inf")), 3,
+                        2, (0, 1))
 
 
 class Bottleneck(nn.Module):

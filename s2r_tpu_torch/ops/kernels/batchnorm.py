@@ -612,6 +612,16 @@ class BatchNormTrain(torch.autograd.Function):
     s2r_tpu/models/layers.py:300-349; every loss masks them, so g is zero
     there).
 
+    `bands` (row sharding, ops/halo.py): x is a band of h rows of each
+    sample's image of bands * h, its other rows on the other ranks of the
+    band's group (`bands` of them), and `sync` the world they belong to
+    (sync.size / bands data rows, each of k samples).  The ring is the
+    global image's, so the count is k*(bands*h + 2*pad)*(w + 2*pad) times
+    the data rows: each band has the image's left and right ring, the
+    top and bottom ring once.  With a ring (pad > 0) the count a band
+    would give times sync.size, k*(h+2*pad)*(w+2*pad)*sync.size, counts
+    the top and bottom ring on every band.
+
     `stats_in` (a recompute under remat, models/layers.py ``remat``): the
     statistics this call's forward computed on the same x, a copy of the
     [STAT_ROWS, C] rows; no statistics are taken, the running statistics
@@ -624,7 +634,7 @@ class BatchNormTrain(torch.autograd.Function):
     def forward(ctx, x, weight, bias, eps: float, pad: int,
                 running_mean=None, running_var=None, momentum: float = 0.1,
                 sync=None, real: Optional[int] = None, stats_in=None,
-                stats_out=None):
+                stats_out=None, bands: int = 1):
         n, _, h, w = x.shape
         rows = channels_last_rows(x)
         k = n if real is None else int(real)
@@ -634,9 +644,13 @@ class BatchNormTrain(torch.autograd.Function):
             raise NotImplementedError("BatchNormTrain: batch padding under "
                                       "synchronized BatchNorm (ROADMAP A.9)")
         m = k * h * w
-        count = k * (h + 2 * pad) * (w + 2 * pad)
+        if bands > 1 and (sync is None or sync.size % bands):
+            raise ValueError(f"BatchNormTrain: rows sharded over {bands} "
+                             f"ranks need a synchronizing world of a "
+                             f"multiple of {bands}")
+        count = k * (bands * h + 2 * pad) * (w + 2 * pad)
         if sync is not None:
-            count *= sync.size
+            count *= sync.size // bands
         y = None
         if stats_in is not None:
             stats = stats_in.clone()  # outputs are views of it
@@ -685,4 +699,4 @@ class BatchNormTrain(torch.autograd.Function):
             dx = _nchw(dx, ctx.x_like)
         dweight = grads[DWEIGHT] if ctx.needs_input_grad[1] else None
         dbias = grads[DBIAS] if ctx.needs_input_grad[2] else None
-        return (dx, dweight, dbias) + (None,) * 9
+        return (dx, dweight, dbias) + (None,) * 10

@@ -4,6 +4,13 @@ The port of s2r_tpu/ops/resize.py: separable 1-D interpolation written as two
 dense products, out = M_h @ x @ M_w^T per (batch, channel), in float32 (f64
 stays f64), with the interpolation matrices built in float64 by numpy.
 Inputs are NCHW.
+
+Under row sharding (ops/halo.py) x and the output are bands of their
+global heights: a rank takes its output rows of the global H matrix,
+gathers the input rows in their nonzero column window (align-corners
+windows cross the bands on either side; every rank gathers the widest
+window's halo, so all gather one shape) and applies the W matrix as
+before.
 """
 
 from __future__ import annotations
@@ -12,6 +19,8 @@ import functools
 
 import numpy as np
 import torch
+
+from s2r_tpu_torch.ops import halo
 
 
 @functools.lru_cache(maxsize=64)
@@ -48,6 +57,28 @@ def _matrix(in_size: int, out_size: int, dtype: torch.dtype,
             device, dtype)
 
 
+@functools.lru_cache(maxsize=64)
+def _band_matrix(h: int, oh: int, size: int, rank: int, dtype: torch.dtype,
+                 device: torch.device):
+    """(above, below, M): the rows of the global (oh*size, h*size) matrix
+    that rank `rank`'s output band takes, over its input band extended by
+    `above` and `below` rows (the widest window over the ranks; the rows
+    outside the image weigh 0)."""
+    full = _interp_matrix(h * size, oh * size)
+    above = below = 0
+    for t in range(size):
+        cols = np.nonzero(full[t * oh:(t + 1) * oh].any(axis=0))[0]
+        above = max(above, t * h - int(cols[0]))
+        below = max(below, int(cols[-1]) + 1 - (t + 1) * h)
+    lo = rank * h - above
+    m = np.zeros((oh, h + above + below))
+    for j in range(m.shape[1]):
+        if 0 <= lo + j < h * size:
+            m[:, j] = full[rank * oh:(rank + 1) * oh, lo + j]
+    with torch.inference_mode(False):
+        return above, below, torch.from_numpy(m).to(device, dtype)
+
+
 def resize_bilinear_align_corners(x: torch.Tensor, out_hw,
                                   dtype: torch.dtype = None) -> torch.Tensor:
     """Resize NCHW `x` to spatial size `out_hw` (h, w), output in `dtype`
@@ -59,6 +90,14 @@ def resize_bilinear_align_corners(x: torch.Tensor, out_hw,
     if (oh, ow) == (h, w):
         return x.to(out_dtype)
     compute = torch.promote_types(x.dtype, torch.float32)
-    y = torch.matmul(_matrix(h, oh, compute, x.device), x.to(compute))
+    mesh = halo.current()
+    if mesh is None:
+        y = torch.matmul(_matrix(h, oh, compute, x.device), x.to(compute))
+    else:
+        above, below, m = _band_matrix(h, oh, mesh.size, mesh.rank, compute,
+                                       x.device)
+        r0 = mesh.rank * h
+        xg = halo.gather_rows(x, r0 - above, r0 + h + below, mesh)
+        y = torch.matmul(m, xg.to(compute))
     y = torch.matmul(y, _matrix(w, ow, compute, x.device).T)
     return y.to(out_dtype)

@@ -3,6 +3,8 @@ Trainer at a world of W processes, each stepping its share of every global
 batch, against one process stepping the whole batch.
 
     python -m s2r_tpu_torch.tools.dist_check --world 4 --device cpu
+    python -m s2r_tpu_torch.tools.dist_check --world 4 --spatial 2 \
+        --device cpu        # 2 data rows x 2 bands of rows
     python -m s2r_tpu_torch.tools.dist_check --world 2 --device cuda \\
         --backend gloo      # two ranks on one card
 
@@ -19,18 +21,28 @@ LOCAL_RANK 0.  A spec (JSON) names the tasks each rank runs:
   (``float64_leaves``: the float32-free reference of the CPU tests); then
   take `steps` steps on seeded global batches (``global_batch``; labels
   with ignored rows spread unevenly over the samples), each rank on
-  ``b[rank::W]``.  Results: the metrics of each step, whether every rank
+  ``b[rank::W]``, or under ``spatial`` S its data row's samples and its
+  band of their rows (``remat`` and ``spatial`` are the Config's).  Results: the metrics of each step, whether every rank
   holds the same state bit for bit (``ranks_equal``, by an all-reduce of
   the maximum and the minimum), the collectives a step, and on rank 0 the
   state before the first step and after each;
 - ``timing``: ms/step (host clock around synchronized steps), each
-  BatchNorm entry's launches and the collectives a step, and peak device
-  memory;
+  BatchNorm entry's launches and the collectives a step (all-reduces
+  over every group, and the halo all-gathers with the elements a rank
+  sent), and peak device memory;
 - ``ping``: one all-reduce of a one-element tensor;
+- ``eval``: the method's eval step on a seeded global batch
+  (``eval_batch``), BatchNorm statistics perturbed, each rank on its
+  share (under ``eval_spatial``, ``--eval-spatial-shard``: the whole
+  batch and its band of the world's rows): the loss share, the confusion
+  matrix share, the labels (uint8), the collectives and gathers; with
+  ``ties`` (one process) also where the logits' top two lie within 1e-4
+  of the larger's magnitude (or of 1), where float32 may flip a label;
 - ``trainer``: a Trainer (``cli.train_adapt``'s) on ``--dataset
   synthetic``: the validation confusion matrix of the initial state, then
   ``fit`` for one epoch of `train_steps` steps (rank 0 alone writes the
-  run directory).
+  run directory); ``spatial`` and ``eval_spatial`` set
+  ``--spatial-shard`` and ``--eval-spatial-shard``.
 
 ``run_tasks`` runs the same tasks in this process at W = 1: the
 reference.  chip_smoke.py phase 10b and tests/test_torch_port_distributed.py
@@ -56,7 +68,7 @@ import torch.distributed as dist
 
 from s2r_tpu_torch.config import Config
 from s2r_tpu_torch.core.distributed import maybe_initialize
-from s2r_tpu_torch.core.mesh import Mesh, make_mesh, state_tensors
+from s2r_tpu_torch.core.mesh import Layout, Mesh, make_mesh, state_tensors
 from s2r_tpu_torch.models.layers import set_dropout
 from s2r_tpu_torch.tools.step_conditioning import perturb_batchnorm
 from s2r_tpu_torch.train.setup import build_method
@@ -86,9 +98,18 @@ def global_batch(method: str, hw, n: int, seed: int) -> Dict[str, np.ndarray]:
     return {"src_image": src, "tgt_image": tgt, "src_label": label}
 
 
-def shard(batch: Dict[str, np.ndarray], mesh: Mesh) -> Dict[str, np.ndarray]:
-    """This rank's share of a global batch: the loader's b[rank::world]."""
-    return {k: v[mesh.rank::mesh.size] for k, v in batch.items()}
+def shard(batch: Dict[str, np.ndarray], layout: Layout
+          ) -> Dict[str, np.ndarray]:
+    """This rank's share of a global batch: the loader's b[row::rows] of
+    its data row (b[rank::world] without a spatial axis), and its band of
+    their rows (dim 1)."""
+    data, space = layout.data, layout.space
+    out = {}
+    for k, v in batch.items():
+        v = v[data.rank::data.size]
+        h = v.shape[1] // space.size
+        out[k] = v[:, space.rank * h:(space.rank + 1) * h]
+    return out
 
 
 def _to_float64(state) -> None:
@@ -109,7 +130,9 @@ def _config(spec: Dict) -> Config:
                   logits_dtype=spec.get("logits_dtype", "f32"),
                   loss_type=spec.get("loss_type", "ce"),
                   crop_size=hw, base_size=hw, batch_size=spec["batch"],
-                  seed=spec.get("seed", 1))
+                  seed=spec.get("seed", 1), remat=spec.get("remat", False),
+                  spatial_shard=spec.get("spatial", 1),
+                  eval_spatial_shard=spec.get("eval_spatial", False))
 
 
 def build(spec: Dict, device, mesh: Mesh):
@@ -157,24 +180,32 @@ def _snapshot(state) -> Dict:
             for net in ("G", "D")}
 
 
+def _gathers(layout: Layout):
+    """(all-gathers, elements sent) over the layout's groups so far."""
+    return (sum(m.gathers for m in layout.meshes),
+            sum(m.gathered for m in layout.meshes))
+
+
 def run_steps(spec: Dict, device, mesh: Mesh) -> Dict:
     m, state = build(spec, device, mesh)
     metrics, snapshots = [], []
-    mesh = m.mesh  # the method's: it counts the step's collectives
+    mesh, layout = m.mesh, m.layout  # the method's: they count
     keep = mesh.rank == 0 and spec.get("snapshots", True)
     if keep:
         snapshots.append(_snapshot(state))
-    calls = mesh.calls
+    calls, world_calls, gathers = layout.calls, mesh.calls, _gathers(layout)
     for i in range(spec["steps"]):
         batch = global_batch(spec["method"], spec["hw"], spec["batch"],
                              spec.get("data_seed", 7) + i)
-        state, met = m.step_fn(state, shard(batch, mesh))
+        state, met = m.step_fn(state, shard(batch, layout))
         metrics.append({k: float(v) for k, v in met.items()})
         if keep:
             snapshots.append(_snapshot(state))
-    per_step = (mesh.calls - calls) / max(spec["steps"], 1)
+    n = max(spec["steps"], 1)
     return {"metrics": metrics, "snapshots": snapshots,
-            "collectives_per_step": per_step,
+            "collectives_per_step": (layout.calls - calls) / n,
+            "world_collectives_per_step": (mesh.calls - world_calls) / n,
+            "gathers_per_step": (_gathers(layout)[0] - gathers[0]) / n,
             "ranks_equal": ranks_equal(mesh, state_tensors(state))}
 
 
@@ -187,18 +218,20 @@ def run_timing(spec: Dict, device, mesh: Mesh) -> Dict:
     """Steps timed: `warmup`, then `timed` steps, each ended by a
     synchronize on the card (host clock)."""
     m, state = build(spec, device, mesh)
-    mesh = m.mesh
+    mesh, layout = m.mesh, m.layout
     card = torch.device(device).type == "cuda"
     sync = torch.cuda.synchronize if card else (lambda: None)
     batch = shard(global_batch(spec["method"], spec["hw"], spec["batch"],
-                               spec.get("data_seed", 7)), mesh)
+                               spec.get("data_seed", 7)), layout)
     batch = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
     for _ in range(spec.get("warmup", 2)):
         state, met = m.step_fn(state, batch)
     sync()
     if card:
         torch.cuda.reset_peak_memory_stats()
-    before, calls, elements = _bn_counts(), mesh.calls, mesh.elements
+    before, calls, elements = _bn_counts(), layout.calls, sum(
+        g.elements for g in layout.meshes)
+    gathers = _gathers(layout)
     times = []
     for _ in range(spec.get("timed", 5)):
         t0 = time.perf_counter()
@@ -206,16 +239,57 @@ def run_timing(spec: Dict, device, mesh: Mesh) -> Dict:
         sync()
         times.append(1e3 * (time.perf_counter() - t0))
     n = len(times)
-    after = _bn_counts()
+    after, gathered = _bn_counts(), _gathers(layout)
     return {"ms": times,
             "launches_per_step": {k: (after[k] - before[k]) / n
                                   for k in BN_ENTRIES},
-            "collectives_per_step": (mesh.calls - calls) / n,
-            "elements_per_step": (mesh.elements - elements) / n,
+            "collectives_per_step": (layout.calls - calls) / n,
+            "elements_per_step": (sum(g.elements for g in layout.meshes)
+                                  - elements) / n,
+            "gathers_per_step": (gathered[0] - gathers[0]) / n,
+            "halo_elements_per_step": (gathered[1] - gathers[1]) / n,
             "peak_gib": (torch.cuda.max_memory_allocated() / 2 ** 30
                          if card else None),
             "losses": {k: float(v) for k, v in met.items()},
             "ranks_equal": ranks_equal(mesh, state_tensors(state))}
+
+
+def eval_batch(hw, n: int, seed: int) -> Dict[str, np.ndarray]:
+    """A seeded validation batch: NHWC float32 images and int64 labels in
+    [0, 19) with the top row of each sample ignored."""
+    h, w = (hw, hw) if isinstance(hw, int) else hw
+    rs = np.random.RandomState(seed)
+    label = rs.randint(0, 19, (n, h, w)).astype(np.int64)
+    label[:, :1] = 255
+    return {"image": rs.randn(n, h, w, 3).astype(np.float32),
+            "label": label}
+
+
+def run_eval(spec: Dict, device, mesh: Mesh) -> Dict:
+    m, _ = build(spec, device, mesh)
+    layout = m.layout
+    eval_rows = spec.get("eval_spatial", False)
+    batch = {k: torch.as_tensor(v, device=device) for k, v in eval_batch(
+        spec["hw"], spec["batch"], spec.get("data_seed", 7)).items()}
+    if not eval_rows:  # the data row's samples; else the whole batch
+        batch = {k: v[layout.data.rank::layout.data.size]
+                 for k, v in batch.items()}
+    batch = layout.band(batch, eval_rows)
+    calls, gathers = layout.calls, _gathers(layout)
+    loss, cm, pred = m.eval_step(batch["image"], batch["label"])
+    out = {"loss": float(loss), "confusion": cm.cpu(),
+           "pred": pred.to(torch.uint8).cpu(),
+           "collectives": layout.calls - calls,
+           "gathers": _gathers(layout)[0] - gathers[0]}
+    if spec.get("ties"):
+        if layout.world.size > 1:
+            raise ValueError("eval ties: one process only")
+        with torch.no_grad():
+            logits, _ = m.deeplab.eval()(batch["image"].permute(0, 3, 1, 2))
+            top = logits.topk(2, dim=1).values
+            out["ties"] = (top[:, 0] - top[:, 1] <= 1e-4 * top[:, 0].abs()
+                           .clamp(min=1.0)).cpu()
+    return out
 
 
 def run_trainer(spec: Dict, device, mesh: Mesh) -> Dict:
@@ -225,15 +299,23 @@ def run_trainer(spec: Dict, device, mesh: Mesh) -> Dict:
                  crop_size=spec["hw"], base_size=spec["hw"],
                  batch_size=spec["batch"], epochs=1, workers=1,
                  run_root=spec["run_root"], async_save=False,
-                 num_devices=mesh.size if mesh.size > 1 else None)
+                 num_devices=mesh.size if mesh.size > 1 else None,
+                 spatial_shard=spec.get("spatial", 1),
+                 eval_spatial_shard=spec.get("eval_spatial", False),
+                 device_aug=spec.get("device_aug", False))
     trainer = Trainer(cfg, method="output_adapt", device=device)
     if spec.get("train_steps"):  # a shorter epoch of the synthetic set
         trainer.train_loader.dataset.length = spec["train_steps"] * \
             cfg.batch_size
     trainer.validation(0)
     cm = trainer.evaluator.confusion_matrix
+    means, training = [], trainer.training
+    trainer.training = lambda epoch: means.append(training(epoch)) or \
+        means[-1]
     trainer.fit()
     return {"confusion": cm, "best_pred": trainer.best_pred,
+            "train_means": means,
+            "miou": trainer.evaluator.Mean_Intersection_over_Union()[0],
             "experiment_dir": trainer.saver.experiment_dir,
             "ranks_equal": ranks_equal(mesh, state_tensors(trainer.state))}
 
@@ -245,7 +327,7 @@ def run_ping(spec: Dict, device, mesh: Mesh) -> Dict:
 
 
 TASKS = {"steps": run_steps, "timing": run_timing, "trainer": run_trainer,
-         "ping": run_ping}
+         "ping": run_ping, "eval": run_eval}
 
 
 def kernel_wrappers() -> List:
@@ -399,6 +481,8 @@ def main(argv=None):
                                  "source_only"])
     parser.add_argument("--precision", type=str, default="f64",
                         choices=["f64", "f32", "bf16"])
+    parser.add_argument("--spatial", type=int, default=1,
+                        help="--spatial-shard: bands of rows a sample")
     args = parser.parse_args(argv)
     if args.child:
         _child(args.child, args.out)
@@ -406,12 +490,13 @@ def main(argv=None):
     task = {"kind": "steps", "method": args.method, "hw": args.hw,
             "batch": args.batch, "steps": args.steps,
             "precision": args.precision,
-            "float64_leaves": args.precision == "f64"}
+            "float64_leaves": args.precision == "f64",
+            "spatial": args.spatial}
     spec = {"tasks": [task]}
     device = "cpu" if args.device == "cpu" else torch.device("cuda", 0)
     ranks = spawn(spec, args.world, args.device, args.backend,
                   one_card=not args.card_per_rank)
-    ref = run_tasks(spec, device)[0]
+    ref = run_tasks({"tasks": [dict(task, spatial=1)]}, device)[0]
     got = ranks[0][0]
     for i, (a, b) in enumerate(zip(got["metrics"], ref["metrics"])):
         print(f"step {i}: " + ", ".join(
@@ -422,7 +507,8 @@ def main(argv=None):
                      if want[k].is_floating_point()), default=(0.0, None))
         print(f"{net}: worst leaf {worst[1]} rel L2 {worst[0]:.3g}")
     print(f"ranks equal: {all(r[0]['ranks_equal'] for r in ranks)}; "
-          f"collectives a step {got['collectives_per_step']:.0f}")
+          f"collectives a step {got['collectives_per_step']:.0f}, halo "
+          f"gathers {got['gathers_per_step']:.0f}")
     return ranks, ref
 
 

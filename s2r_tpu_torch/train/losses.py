@@ -22,6 +22,9 @@ the ranks.  The cross-entropy all-reduces its normalizer (the summed
 weights of the counted pixels, which carry no gradient); the focal loss
 needs the global CE on every rank for its chain-rule factor and
 all-reduces the detached CE; the plain means divide by the global count.
+Under a spatial layout (core/mesh.py Layout) a rank holds a band of its
+data row's samples' rows, every band the same size: the world still
+counts every pixel once, so the same normalizers hold.
 """
 
 from __future__ import annotations

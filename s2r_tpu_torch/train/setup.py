@@ -13,7 +13,10 @@ method, on any backbone of ``cfg.backbone`` (models/deeplab.py):
 With no method given it is inferred from ``cfg.dataset`` as the JAX
 package does: 'gtav' is source-only, any other dataset feature_adapt.  A
 Config setting the port lacks raises (config.check_ported).  `n_devices`
-must be the process group's size (core/mesh.py).  Batch padding
+must be the process group's size (core/mesh.py); ``--spatial-shard S``
+lays the group out as data rows x S columns (core/mesh.py
+``make_layout``) and ``--eval-spatial-shard`` splits the eval step's rows
+over the whole group (train/steps.py, spatial sharding).  Batch padding
 (``--batch-pad``) keeps the JAX package's rule (``_step_pad_to``): it
 pays only on a TPU, so both values give None here and the steps get no
 ``pad_to``; the steps pad when a caller gives them one.  ``--remat`` and
@@ -32,7 +35,8 @@ import torch
 
 from s2r_tpu_torch.config import Config, check_ported
 from s2r_tpu_torch.core.device import resolve_device
-from s2r_tpu_torch.core.mesh import Mesh, make_mesh, rank_seed
+from s2r_tpu_torch.core.mesh import (Layout, Mesh, make_layout, make_mesh,
+                                     rank_seed)
 from s2r_tpu_torch.models.deeplab import DeepLab
 from s2r_tpu_torch.models.discriminator import FCDiscriminator
 from s2r_tpu_torch.models.domain import DomainClassifier
@@ -60,6 +64,7 @@ class Method:
     aux_model: Optional[torch.nn.Module] = None  # D: discriminator or
     # domain classifier
     mesh: Mesh = dataclasses.field(default_factory=Mesh)  # data parallel
+    layout: Optional[Layout] = None  # the mesh's (data x space) layout
 
     def eval_variables(self, state: TrainState) -> torch.nn.Module:
         """The segmenter for eval and inference: the module `state` holds
@@ -85,6 +90,7 @@ def build_method(cfg: Config, iters_per_epoch: int,
         method = "source_only" if cfg.dataset == "gtav" else "feature_adapt"
     check_ported(cfg, method)
     mesh = make_mesh(n_devices)
+    layout = make_layout(mesh, cfg.spatial_shard)
     pad_to = _step_pad_to(cfg, mesh.size)
     device = resolve_device(device)
     if generator is None:
@@ -100,7 +106,8 @@ def build_method(cfg: Config, iters_per_epoch: int,
     seg_loss_fn = build_seg_loss(cfg.loss_type, class_weights, mesh=mesh)
     lr_fn = make_lr_schedule(cfg.lr_scheduler, cfg.lr, cfg.epochs,
                              iters_per_epoch, cfg.lr_step, cfg.warmup_epochs)
-    eval_step = make_eval_step(deeplab, seg_loss_fn, cfg.num_classes)
+    eval_step = make_eval_step(deeplab, seg_loss_fn, cfg.num_classes,
+                               layout.rows_mesh(cfg.eval_spatial_shard))
 
     def new_generator() -> torch.Generator:
         return torch.Generator(device=device).manual_seed(
@@ -117,7 +124,7 @@ def build_method(cfg: Config, iters_per_epoch: int,
         d_opt = Adam(b1=0.9, b2=0.99)
         step_fn = make_output_adapt_step(deeplab, discr, g_opt, d_opt, lr_fn,
                                          seg_loss_fn, cfg.adv_softmax_axis,
-                                         pad_to=pad_to, mesh=mesh)
+                                         pad_to=pad_to, layout=layout)
 
         def init_state() -> TrainState:
             """Step 0, zero optimizer state over the models' current
@@ -132,7 +139,7 @@ def build_method(cfg: Config, iters_per_epoch: int,
                               generator=new_generator())
 
         return Method(method, deeplab, step_fn, eval_step, init_state,
-                      aux_model=discr, mesh=mesh)
+                      aux_model=discr, mesh=mesh, layout=layout)
 
     # feature_adapt / source_only (train.py:47-82)
     domain = DomainClassifier(backbone=cfg.backbone, dtype=cfg.precision,
@@ -143,7 +150,7 @@ def build_method(cfg: Config, iters_per_epoch: int,
     step_fn = make_feature_adapt_step(deeplab, domain, opt, opt, opt, lr_fn,
                                       seg_loss_fn,
                                       source_only=(method == "source_only"),
-                                      pad_to=pad_to, mesh=mesh)
+                                      pad_to=pad_to, layout=layout)
 
     def init_state() -> TrainState:
         """Step 0, the four zero optimizer states (train.py:63-82) over the
@@ -162,4 +169,4 @@ def build_method(cfg: Config, iters_per_epoch: int,
             generator=new_generator())
 
     return Method(method, deeplab, step_fn, eval_step, init_state,
-                  aux_model=domain, mesh=mesh)
+                  aux_model=domain, mesh=mesh, layout=layout)

@@ -51,6 +51,18 @@ gradient, and DDP would also re-broadcast the BatchNorm buffers from rank
 draws its dropout masks from its own generator (train/setup.py).  At one
 process nothing of this runs.
 
+Spatial sharding (`layout`, core/mesh.py Layout with spatial S > 1;
+s2r_tpu/core/mesh.py:26-69): each rank steps a band of its data row's
+samples' rows.  The forwards (G's, D's or the domain classifier's) run
+inside ops/halo.py's ``row_shard`` over the 'space' group, the global
+height refused unless S times the path's largest stride divides it
+(ASPP's output stride, and 32 for the discriminator's input); the
+batch-axis softmax reduces over the 'data' group, the ranks holding
+the same rows of other samples; the losses, BatchNorm, the gradients
+and the metrics stay over the world.  The eval step runs under
+``row_shard`` over its `rows` mesh (the 'space' group, or the world
+under ``--eval-spatial-shard``).
+
 Masked batch padding (`pad_to`, s2r_tpu/train/steps.py:86-130,
 :205-245): with pad_to = N > k, the batch of k samples is zero-padded to
 N (labels with 255, which the seg loss ignores) and the padding samples
@@ -71,13 +83,14 @@ from typing import Callable, Dict, List, Tuple
 import torch
 import torch.nn as nn
 
-from s2r_tpu_torch.core.mesh import Mesh
+from s2r_tpu_torch.core.mesh import Layout, Mesh, make_layout
 from s2r_tpu_torch.eval.metrics import confusion_matrix
 from s2r_tpu_torch.io.convert import (deeplab_param_order,
                                       discriminator_param_order,
                                       domain_param_order,
                                       feature_param_order)
 from s2r_tpu_torch.models.layers import bn_real_batch
+from s2r_tpu_torch.ops import halo
 from s2r_tpu_torch.train.losses import bce_with_logits, domain_loss
 from s2r_tpu_torch.train.optim import FusedOptimizer
 from s2r_tpu_torch.train.state import TrainState
@@ -173,6 +186,22 @@ def feature_params(deeplab) -> List[nn.Parameter]:
     return [params[k] for k in feature_param_order(deeplab.backbone_name)]
 
 
+def _layout(mesh, layout) -> Layout:
+    """The step's layout: `layout`, or `mesh` (None: one process) without
+    a spatial axis."""
+    if layout is not None:
+        return layout
+    return make_layout(mesh or Mesh())
+
+
+def _rows(layout: Layout, x: torch.Tensor, stride: int):
+    """The row sharding of a forward over NCHW x, a band of its samples'
+    rows under a spatial layout (nothing without one)."""
+    space = layout.space
+    return halo.row_shard(space, x.shape[2] * space.size, stride,
+                          layout.data)
+
+
 def _check_pad(pad_to, mesh) -> None:
     if pad_to is not None and mesh.size > 1:
         raise NotImplementedError(
@@ -202,7 +231,7 @@ class _Padding:
 def make_output_adapt_step(deeplab, discriminator, g_opt, d_opt,
                            lr_fn: Callable, seg_loss_fn: Callable,
                            adv_softmax_mode: str = "batch",
-                           pad_to: int = None, mesh=None):
+                           pad_to: int = None, mesh=None, layout=None):
     """step(state, batch) -> (state, metrics) over `deeplab` (G) and
     `discriminator` (D), the modules `state` holds.
 
@@ -211,10 +240,14 @@ def make_output_adapt_step(deeplab, discriminator, g_opt, d_opt,
     'adv_loss', 'd_loss' and 'lr' as device tensors.  The modules are left
     in train mode.  `pad_to`: masked batch padding (module docstring).
     `mesh`: data parallel (module docstring); `seg_loss_fn` must then be
-    built over the same mesh.
+    built over the same mesh.  `layout` (core/mesh.py Layout; its world
+    replaces `mesh`): spatial sharding (module docstring).
     """
-    mesh = mesh or Mesh()
+    layout = _layout(mesh, layout)
+    mesh = layout.world
     _check_pad(pad_to, mesh)
+    # D reads the full-resolution maps through five stride-2 convs
+    stride = max(deeplab.row_stride, 32)
     if adv_softmax_mode not in ("batch", "class"):
         raise ValueError(f"adv_softmax_mode {adv_softmax_mode!r}")
     g_params, g_mult = segmenter_params(deeplab)
@@ -235,26 +268,29 @@ def make_output_adapt_step(deeplab, discriminator, g_opt, d_opt,
         label = pad(torch.as_tensor(batch["src_label"], device=dev), 255)
         deeplab.train()
         discriminator.train()
-        with bn_real_batch(padding.k):
-            src_logits, _ = deeplab(src, generator=state.generator)
-            tgt_logits, _ = deeplab(tgt, generator=state.generator)
-        l_seg = seg_loss_fn(src_logits, label)
-        tp = pad(_adv_softmax(real(tgt_logits), adv_softmax_mode, mesh))
-        sp = pad(_adv_softmax(real(src_logits.detach()), adv_softmax_mode,
-                              mesh))
-        # G's adversarial term: D constant (train_adapt.py:140-155)
-        for p in d_params:
-            p.requires_grad_(False)
-        try:
-            l_adv = bce_with_logits(real(discriminator(tp)), SOURCE_LABEL,
-                                    mesh)
-        finally:
+        with _rows(layout, src, stride):
+            with bn_real_batch(padding.k):
+                src_logits, _ = deeplab(src, generator=state.generator)
+                tgt_logits, _ = deeplab(tgt, generator=state.generator)
+            l_seg = seg_loss_fn(src_logits, label)
+            tp = pad(_adv_softmax(real(tgt_logits), adv_softmax_mode,
+                                  layout.data))
+            sp = pad(_adv_softmax(real(src_logits.detach()),
+                                  adv_softmax_mode, layout.data))
+            # G's adversarial term: D constant (train_adapt.py:140-155)
             for p in d_params:
-                p.requires_grad_(True)
-        # D's terms on detached maps (train_adapt.py:157-178)
-        l_d = (bce_with_logits(real(discriminator(sp)), SOURCE_LABEL, mesh)
-               + bce_with_logits(real(discriminator(tp.detach())),
-                                 TARGET_LABEL, mesh))
+                p.requires_grad_(False)
+            try:
+                l_adv = bce_with_logits(real(discriminator(tp)),
+                                        SOURCE_LABEL, mesh)
+            finally:
+                for p in d_params:
+                    p.requires_grad_(True)
+            # D's terms on detached maps (train_adapt.py:157-178)
+            l_d = (bce_with_logits(real(discriminator(sp)), SOURCE_LABEL,
+                                   mesh)
+                   + bce_with_logits(real(discriminator(tp.detach())),
+                                     TARGET_LABEL, mesh))
         grads = mesh.all_reduce_flat(torch.autograd.grad(
             l_seg + l_adv + l_d, g_params + d_params))
         state.opt_state = {
@@ -272,7 +308,7 @@ def make_output_adapt_step(deeplab, discriminator, g_opt, d_opt,
 def make_feature_adapt_step(deeplab, domain_cls, task_opt, d_opt, d_inv_opt,
                             lr_fn: Callable, seg_loss_fn: Callable,
                             source_only: bool = False, pad_to: int = None,
-                            mesh=None):
+                            mesh=None, layout=None):
     """step(state, batch) -> (state, metrics) over `deeplab` (G) and
     `domain_cls` (D), the modules `state` holds.
 
@@ -283,10 +319,12 @@ def make_feature_adapt_step(deeplab, domain_cls, task_opt, d_opt, d_inv_opt,
     `source_only`).  state.opt_state is {'task', 'd', 'd_inv', 'c'};
     'c' is carried and never stepped (train.py:202-204).  The modules are
     left in train mode.  `pad_to`: masked batch padding, `mesh`: data
-    parallel (module docstring).
+    parallel, `layout`: spatial sharding (module docstring).
     """
-    mesh = mesh or Mesh()
+    layout = _layout(mesh, layout)
+    mesh = layout.world
     _check_pad(pad_to, mesh)
+    stride = deeplab.row_stride
     g_params, _ = segmenter_params(deeplab)  # no 1x/10x groups here
     d_params = domain_params(domain_cls)
     f_params = feature_params(deeplab)
@@ -309,7 +347,8 @@ def make_feature_adapt_step(deeplab, domain_cls, task_opt, d_opt, d_inv_opt,
         label = pad(torch.as_tensor(batch[lbl_key], device=dev), 255)
         gen = state.generator
         deeplab.train()
-        with bn_real_batch(padding.k):
+        rows = _rows(layout, src, stride)
+        with rows, bn_real_batch(padding.k):
             src_out, src_feat = deeplab(src, generator=gen)
         task = seg_loss_fn(src_out, label)
         opt = dict(state.opt_state)
@@ -322,7 +361,7 @@ def make_feature_adapt_step(deeplab, domain_cls, task_opt, d_opt, d_inv_opt,
             tgt = pad(torch.as_tensor(batch["tgt_image"],
                                       device=dev)).permute(0, 3, 1, 2)
             domain_cls.train()
-            with bn_real_batch(padding.k):
+            with rows, bn_real_batch(padding.k):
                 src_d = domain_cls(src_feat, generator=gen)
                 _, tgt_feat = deeplab(tgt, generator=gen)
                 tgt_d = domain_cls(tgt_feat, generator=gen)
@@ -348,7 +387,8 @@ def make_feature_adapt_step(deeplab, domain_cls, task_opt, d_opt, d_inv_opt,
     return step
 
 
-def make_eval_step(deeplab, seg_loss_fn: Callable, num_classes: int):
+def make_eval_step(deeplab, seg_loss_fn: Callable, num_classes: int,
+                   rows=None):
     """eval_step(image, label) -> (loss, cm, pred) on `deeplab`.
 
     image NHWC float, label [N,H,W] int (tensors or arrays; moved to G's
@@ -356,6 +396,10 @@ def make_eval_step(deeplab, seg_loss_fn: Callable, num_classes: int):
     no dropout) and the module's mode is restored after it.  loss is a
     float32 scalar, cm the [C, C] int64 confusion matrix and pred the
     [N,H,W] argmax, all on the device: nothing is read back to the host.
+    `rows` (a mesh of more than one process): image and label are this
+    rank's band of the batch's rows, the forward runs row-sharded over
+    it, and loss and cm are this rank's shares (the seg loss over the
+    world).
     """
 
     @torch.no_grad()
@@ -366,7 +410,10 @@ def make_eval_step(deeplab, seg_loss_fn: Callable, num_classes: int):
         was_training = deeplab.training
         deeplab.eval()
         try:
-            logits, _ = deeplab(x)
+            with halo.row_shard(rows, x.shape[2] * (rows.size if rows
+                                                    else 1),
+                                deeplab.row_stride):
+                logits, _ = deeplab(x)
         finally:
             deeplab.train(was_training)
         loss = seg_loss_fn(logits, label)

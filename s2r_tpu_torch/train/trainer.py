@@ -32,6 +32,16 @@ and the loss, so best_pred is the same everywhere.  Rank 0 alone owns
 the experiment directory, the summaries and the checkpoints; the others
 write nothing, and train-image logging is skipped.  A barrier precedes
 ``--resume auto``'s search and ends ``fit``.
+
+Spatial sharding (``--spatial-shard S``, ``--eval-spatial-shard``;
+s2r_tpu/train/trainer.py:40-64, :122-129, :330-343): the world is laid
+out as data rows x S (core/mesh.py ``Layout``).  The S ranks of a data
+row load the same samples and, with ``--device-aug``, warp them with the
+same generator (the data row's share), then each keeps its band of the
+rows.  Validation takes the data row's samples and the band of the
+'space' group's rows, or with ``--eval-spatial-shard`` the whole batch
+and the band of the world's rows; the confusion matrix and the loss are
+summed over the world either way.
 """
 
 from __future__ import annotations
@@ -109,7 +119,8 @@ class Trainer:
         check_ported(cfg, method)
         self.cfg = cfg
         self.device = resolve_device(device)
-        n_devices = pick_num_devices(cfg.batch_size, cfg.num_devices)
+        n_devices = pick_num_devices(cfg.batch_size, cfg.num_devices,
+                                     cfg.spatial_shard)
         self.train_loader, self.val_loader, self.test_loader, self.nclass = \
             make_data_loader(cfg)
         weights = None
@@ -121,6 +132,7 @@ class Trainer:
                                            device=self.device,
                                            n_devices=n_devices)
         self.mesh = self.method.mesh
+        self.layout = self.method.layout
         # rank 0 alone owns the experiment directory, summaries and
         # checkpoints (s2r_tpu/train/trainer.py:101-113)
         self.is_main = self.mesh.rank == 0
@@ -166,18 +178,21 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def _finish_batch(self, arrays: Dict, epoch: int, i: int) -> Dict:
-        """A device batch of uint8 frames -> the step's inputs."""
+        """A device batch of uint8 frames -> the step's inputs (this
+        rank's band of their rows under --spatial-shard)."""
         cfg = self.cfg
+        band = self.layout.band
         if not cfg.device_aug:
-            return DA.normalize_u8_batch(arrays)
+            return DA.normalize_u8_batch(band(arrays))
         gen = DA.batch_generator(cfg.seed, epoch, i)
-        shard = dict(process_index=self.mesh.rank,
-                     process_count=self.mesh.size)
+        # the data row's share: a row's ranks warp the same samples alike
+        shard = dict(process_index=self.layout.data.rank,
+                     process_count=self.layout.data.size)
         if "src_image" in arrays:
-            return DA.augment_paired_batch(arrays, gen, cfg.base_size,
-                                           cfg.crop_size, **shard)
-        return DA.augment_batch(arrays, gen, cfg.base_size, cfg.crop_size,
-                                **shard)
+            return band(DA.augment_paired_batch(arrays, gen, cfg.base_size,
+                                                cfg.crop_size, **shard))
+        return band(DA.augment_batch(arrays, gen, cfg.base_size,
+                                     cfg.crop_size, **shard))
 
     def training(self, epoch: int) -> Dict[str, float]:
         cfg = self.cfg
@@ -237,8 +252,10 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def validation(self, epoch: int) -> float:
+        eval_rows = self.cfg.eval_spatial_shard
         ev, test_loss = evaluate(self.eval_step, self.val_loader,
-                                 self.device, self.nclass, self.mesh)
+                                 self.device, self.nclass, self.mesh,
+                                 lambda b: self.layout.band(b, eval_rows))
         self.evaluator = ev
         acc = ev.Pixel_Accuracy()
         acc_class = ev.Pixel_Accuracy_Class()

@@ -27,6 +27,15 @@ against one process and against the JAX package, on the CPU.
   8-device mesh).  The Trainer at world 4: the validation confusion
   matrix equals world 1's, best_pred is the same on every rank, and rank
   0 alone writes the run directory.
+- The same spawn at 2 data rows x 2 bands of rows (--spatial-shard 2):
+  the output step under --remat and the feature step, float64, against
+  one process (losses and every leaf's update within rel 1e-10, ranks
+  bit-equal; the recompute re-issues its halo gathers but no
+  all-reduce); one float32 output step against JAX's single-device step
+  at the bounds above (JAX's own tests/test_spatial_train.py ties that
+  step to its 2-D mesh); the Trainer with --spatial-shard 2, with and
+  without --eval-spatial-shard: the validation confusion matrix equals
+  world 1's.
 """
 
 import os
@@ -60,6 +69,7 @@ from s2r_tpu_torch.train.steps import batch_softmax
 from _torch_port_common import perturb_affine, perturb_stats
 
 WORLD, HW, BATCH = 4, 64, 4
+SPATIAL_HW = 64  # the smallest crop 4 bands split at stride 16
 F64 = torch.float64
 
 
@@ -381,15 +391,26 @@ def runs(tmp_path_factory):
     common = dict(hw=HW, batch=BATCH, steps=2, precision="f64",
                   float64_leaves=True)
 
-    def rest(run_root):
-        return {"tasks": [
-            dict(kind="steps", method="feature_adapt", **common),
-            dict(kind="trainer", hw=32, batch=BATCH, precision="f64",
-                 train_steps=2, run_root=str(run_root))]}
+    def rest(run_root, spatial):
+        tasks = [dict(kind="steps", method="feature_adapt", **common),
+                 dict(kind="trainer", hw=32, batch=BATCH, precision="f64",
+                      train_steps=2, run_root=str(run_root))]
+        if spatial:  # 2 data rows x 2 bands; at one process, the reference
+            tasks.append(dict(kind="steps", method="feature_adapt",
+                              spatial=2, **common))
+        tasks.append(dict(kind="trainer", hw=SPATIAL_HW, batch=BATCH,
+                          precision="f64", train_steps=1,
+                          run_root=str(run_root / "spatial"),
+                          spatial=2 if spatial else 1, eval_spatial=spatial))
+        if spatial:  # validation over the data rows and the bands
+            tasks.append(dict(tasks[-1], eval_spatial=False,
+                              run_root=str(run_root / "spatial_rows")))
+        return {"tasks": tasks}
 
-    rest4 = dist_check.start(rest(root / "run4"), WORLD, "cpu", timeout=300)
-    rest1 = dist_check.start(rest(root / "run1"), 1, "cpu", timeout=300,
-                             threads=2)
+    rest4 = dist_check.start(rest(root / "run4", True), WORLD, "cpu",
+                             timeout=300)
+    rest1 = dist_check.start(rest(root / "run1", False), 1, "cpu",
+                             timeout=300, threads=2)
     batch = dist_check.global_batch("output_adapt", HW, BATCH, 7)
     from_name = Policy.from_name.__func__
     with pytest.MonkeyPatch.context() as mp, jax.enable_x64(True):
@@ -417,7 +438,11 @@ def runs(tmp_path_factory):
             # tests/test_torch_port_train_step_f64.py
             dict(kind="steps", method="output_adapt", init=init, hw=HW,
                  batch=BATCH, steps=1, precision="f64")]}
-        out4 = dist_check.start(out, WORLD, "cpu", timeout=300)
+        # 2 data rows x 2 bands of rows, the first under --remat
+        spatial = {"tasks": [dict(t, spatial=2, remat=not i)
+                             for i, t in enumerate(out["tasks"])]}
+        out4 = dist_check.start({"tasks": out["tasks"] + spatial["tasks"]},
+                                WORLD, "cpu", timeout=300)
         out1 = dist_check.start(out, 1, "cpu", timeout=300, threads=2)
         state = state.replace(
             params=jax.tree_util.tree_map(jnp.asarray, params),
@@ -429,7 +454,8 @@ def runs(tmp_path_factory):
                    _np(state.batch_stats))
 
     def tasks(o, r):  # in the order the tests index them
-        return [o[0], r[0], r[1], o[1]]
+        return [o[0], r[0], r[1], o[1]] + ([o[2], r[2], o[3], r[3], r[4]]
+                                           if len(o) > 2 else [r[2]])
 
     ranks = [tasks(o, r) for o, r in zip(out4.results(), rest4.results())]
     return (jax_run, ranks, tasks(out1.results()[0], rest1.results()[0]),
@@ -443,15 +469,19 @@ def _updates(snaps, i):
             for net in ("G", "D")}
 
 
-@pytest.mark.parametrize("task", [0, 1], ids=["output", "feature"])
-def test_four_ranks_equal_one_process_f64(runs, task):
+@pytest.mark.parametrize("task,ref_task", [(0, 0), (1, 1), (4, 0), (5, 1)],
+                         ids=["output", "feature", "output_spatial_remat",
+                              "feature_spatial"])
+def test_four_ranks_equal_one_process_f64(runs, task, ref_task):
     _, ranks, ref, _ = runs
     assert all(r[task]["ranks_equal"] for r in ranks)
-    got, want = ranks[0][task], ref[task]
+    got, want = ranks[0][task], ref[ref_task]
     # G's 60 BatchNorms (and the domain classifier's 2) in both directions,
     # the softmax or the domain terms, the gradients, the metrics
     assert got["collectives_per_step"] >= 240
     assert want["collectives_per_step"] == 0
+    if task >= 4:  # the bands' halos: every 3x3, stride-2 and resize
+        assert got["gathers_per_step"] >= 100
     for i in range(2):
         for k, w in want["metrics"][i].items():
             assert abs(got["metrics"][i][k] - w) <= 1e-10 * abs(w), (i, k)
@@ -473,9 +503,19 @@ def test_four_ranks_equal_one_process_f64(runs, task):
 
 
 def test_four_ranks_output_step_matches_jax(runs):
+    _output_step_matches_jax(runs, 3)
+
+
+def test_spatial_output_step_matches_jax(runs):
+    """2 data rows x 2 bands of rows, float32 leaves, against JAX's
+    single-device step."""
+    _output_step_matches_jax(runs, 6)
+
+
+def _output_step_matches_jax(runs, task):
     (jax_metrics, jax_params, jax_stats), ranks, _, _ = runs
-    got = ranks[0][3]
-    assert all(r[3]["ranks_equal"] for r in ranks)
+    got = ranks[0][task]
+    assert all(r[task]["ranks_equal"] for r in ranks)
     for k in ("seg_loss", "adv_loss", "d_loss", "lr"):
         np.testing.assert_allclose(got["metrics"][0][k], jax_metrics[k],
                                    rtol=1e-5, err_msg=k)
@@ -511,6 +551,34 @@ def test_four_ranks_validation_and_run_directory(runs):
     assert files(run / "experiment_0") == [
         f for f in files(one / "experiment_0") if f != "images"]
     assert "checkpoint.ckpt" in files(run / "experiment_0")
+
+
+@pytest.mark.parametrize("task", [7, 8], ids=["eval_spatial", "eval_rows"])
+def test_spatial_trainer_validation(runs, task):
+    """--spatial-shard 2 at world 4, with --eval-spatial-shard (each rank a
+    band of a quarter of every batch's rows) or without (each rank its
+    data row's samples, a band of half their rows): the validation
+    confusion matrix equals world 1's, and every rank's state is the same
+    after the epoch."""
+    _, ranks, ref, _ = runs
+    want = ref[4]["confusion"]
+    assert want.sum() > 0
+    for r in ranks:
+        np.testing.assert_array_equal(r[task]["confusion"], want)
+        assert r[task]["ranks_equal"]
+        assert r[task]["best_pred"] == ranks[0][task]["best_pred"]
+
+
+def test_spatial_remat_recompute_gathers_again(runs):
+    """Under --remat the recompute replays BatchNorm's statistics (no
+    all-reduce) and re-issues its halo gathers: the remat output step's
+    all-reduces over the world equal the step's without remat, its
+    gathers are more."""
+    _, ranks, _, _ = runs
+    remat, plain = ranks[0][4], ranks[0][6]
+    assert remat["world_collectives_per_step"] == \
+        plain["world_collectives_per_step"]
+    assert remat["gathers_per_step"] > plain["gathers_per_step"]
 
 
 def test_dropout_stream_per_rank(monkeypatch):

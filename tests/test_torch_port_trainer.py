@@ -97,7 +97,8 @@ def test_parsers_register_the_same_flags():
 
 # flags of UNPORTED whose features are ported now: they parse and build
 PORTED = {"--num-devices", "--logits-dtype", "--split-concat",
-          "--data-backend", "--profile-dir", "--remat", "--fast-pad-stats"}
+          "--data-backend", "--profile-dir", "--remat", "--fast-pad-stats",
+          "--spatial-shard", "--eval-spatial-shard"}
 
 
 def _world_of(monkeypatch, world: int, rank: int = 0):
@@ -116,13 +117,17 @@ def test_unported_flag_raises(argv, flag, monkeypatch):
     from s2r_tpu_torch.core.mesh import pick_num_devices
     from s2r_tpu_torch.train.setup import build_method
 
-    if flag == "--num-devices":
+    two = flag in ("--num-devices", "--spatial-shard")
+    if two:
         _world_of(monkeypatch, 2)
     cfg = PC.config_from_args(_parse(PC, argv)[1])
-    n = pick_num_devices(cfg.batch_size, cfg.num_devices)
+    n = pick_num_devices(cfg.batch_size, cfg.num_devices, cfg.spatial_shard)
     m = build_method(cfg, 1, method="output_adapt", device="cpu",
                      n_devices=n)
-    assert m.mesh.size == n == (2 if flag == "--num-devices" else 1)
+    assert m.mesh.size == n == (2 if two else 1)
+    # --spatial-shard 2 at world 2: one data row of two bands of rows
+    assert m.layout.spatial == m.layout.space.size == \
+        (2 if flag == "--spatial-shard" else 1)
     assert m.deeplab.split_concat == (flag == "--split-concat")
     assert m.deeplab.logits_dtype == (torch.bfloat16
                                       if flag == "--logits-dtype" else None)
