@@ -200,7 +200,7 @@ Phases, each of which must pass:
    first step, 1e-4 after; G's update per leaf within LEAF_BOUND or 3x
    its float32 spread, card against CPU; D's update signs >= 99%; running
    statistics within 1e-3 of each layer's largest, every rank's state
-   bit-equal, 248 all-reduces a step, launches as predicted); then timed
+   bit-equal, 249 all-reduces a step, launches as predicted); then timed
    at the train cell (512x1024 global batch 8 bf16, 4 a rank): ms/step,
    launches and all-reduces a step, peak memory a rank (not a time of
    NCCL across cards).  (c) cli.train_adapt at the phase 5 cell for one
@@ -285,6 +285,21 @@ Phases, each of which must pass:
    [0, 1] and the same on every rank, rank 0 alone writing the run
    directory.  (e) The output step at 2048x1024 global batch 4 bf16:
    peak memory a rank at --spatial-shard 2 against one process.
+   Uneven bands and padding under a mesh (ROADMAP A.8, A.9), 513 rows
+   over 2 ranks (bands of 272 and 241 at the source-only path's stride
+   16, 288 and 225 at the output path's 32): (a) every kernel against
+   its plain version at the short band (batch 4, float32 and bfloat16):
+   the depthwise forward, dx and dk, all eight BatchNorm entries,
+   disc_conv1; the zero-row calls of an empty band return their empty
+   results with no launch (batch_norm_finish_apply finishes the
+   statistics in one).  (f) The source-only step at 513x513 batch 4
+   bf16 over 1 x 2 gloo ranks against one process, at (b)'s bounds with
+   the bf16 spread (one process in bf16 against float32 on the card).
+   (g) --eval-spatial-shard at 513x513 batch 2 float32 against one
+   process, at (d)'s bounds.  (h) The padded output step at world 2 (4
+   real samples padded to 8, the second rank padding only) at 10b's
+   check against one process's padded step, at 10b's bounds; the second
+   rank launches no BatchNorm sums.
 
 Without a CUDA device, or outside a checkout holding s2r_tpu_torch, it exits
 non-zero and prints no result.  Float32 convs run with TF32 off.  It writes
@@ -2893,9 +2908,10 @@ DIST_WORLD = 2
 DIST_CHECK_HW, DIST_CHECK_BATCH, DIST_STEPS = (256, 512), 4, 2
 # all-reduces of a rank's output step: 120 BatchNorm sums each way, the
 # batch-axis softmax of the target (max and sum, and one in its backward)
-# and of the source (max and sum), the CE normalizer, the gradients, the
-# logged losses
-DIST_COLLECTIVES = 248
+# and of the source (max and sum), the CE normalizer, the count of D's
+# real outputs (the BCE means' normalizer), the gradients, the logged
+# losses
+DIST_COLLECTIVES = 249
 
 
 def check_split_batchnorm(bn):
@@ -3177,7 +3193,9 @@ def _leaf_updates(snaps, net):
             and not k.endswith(("running_mean", "running_var"))}
 
 
-def against_one_process(tag, got_all, ref, cpu, loss_spread=False):
+def against_one_process(tag, got_all, ref, cpu, loss_spread=False,
+                        spread_first=False,
+                        losses=("seg_loss", "adv_loss", "d_loss")):
     """A steps task of every rank (`got_all`, by rank) against one process
     on the card (`ref`) and on the CPU (`cpu`) at the whole batch: every
     rank's state bit-equal; losses rel 1e-5 at the first step and 1e-4
@@ -3191,18 +3209,21 @@ def against_one_process(tag, got_all, ref, cpu, loss_spread=False):
     leaf's float32 spread (the one-process step on the card against the
     CPU); D's update of the same sign on >= 99% of elements (phase 4a's
     bounds); the BatchNorm running statistics within 1e-3 of each layer's
-    largest.  Returns ({leaf: (rel err, spread)}, the worst leaf, D's sign
-    agreement, G's worst leaf after the steps, the statistics' error)."""
+    largest.  With `spread_first` (a bfloat16 run, `cpu` then one process
+    in float32 on the card) the spread bounds the first step's losses too,
+    and the statistics within 3x their spread if larger.  Returns ({leaf:
+    (rel err, spread)}, the worst leaf, D's sign agreement, G's worst leaf
+    after the steps, the statistics' error)."""
     got = got_all[0]
     require(all(r["ranks_equal"] for r in got_all),
             f"{tag}: the ranks' states differ")
     for i in range(len(ref["metrics"])):
         # step 0 starts from one state; later steps also carry the first
         # step's float32 rounding
-        for k in ("seg_loss", "adv_loss", "d_loss"):
+        for k in losses:
             a, b = got["metrics"][i][k], ref["metrics"][i][k]
             tol = 1e-5 if i == 0 else 1e-4
-            if i and loss_spread:
+            if (i or spread_first) and loss_spread:
                 tol = max(tol, 3 * abs(cpu["metrics"][i][k] - b) / abs(b))
             require(np.isfinite(a) and abs(a - b) <= tol * abs(b),
                     f"{tag} step {i} {k}: {len(got_all)} ranks {a}, one "
@@ -3229,11 +3250,16 @@ def against_one_process(tag, got_all, ref, cpu, loss_spread=False):
                     ref["snapshots"][-1]["G"][k].double()) for k in wu)
     stats = [k for k in ref["snapshots"][-1]["G"]
              if k.endswith(("running_mean", "running_var"))]
-    stats_err = max(float((got["snapshots"][-1]["G"][k].double()
-                           - ref["snapshots"][-1]["G"][k].double()).abs().max()
-                          / ref["snapshots"][-1]["G"][k].abs().max())
-                    for k in stats)
-    require(stats_err <= 1e-3, f"{tag} BatchNorm running stats {stats_err}")
+    def stats_off(run):
+        return max(float((run["snapshots"][-1]["G"][k].double()
+                          - ref["snapshots"][-1]["G"][k].double()).abs().max()
+                         / ref["snapshots"][-1]["G"][k].abs().max())
+                   for k in stats)
+
+    stats_err = stats_off(got)
+    bound = max(1e-3, 3 * stats_off(cpu)) if spread_first else 1e-3
+    require(stats_err <= bound, f"{tag} BatchNorm running stats {stats_err}"
+            f" > {bound:.3g}")
     return leaf, worst, sign, value, stats_err
 
 
@@ -4477,6 +4503,351 @@ def spatial_phase(smi, check_refs):
                    "one_peak_gib": one_peak["peak_gib"] or 0}
 
 
+# phase 14, uneven bands: 513 rows over SPATIAL = 2 ranks, bench.py's
+# 513x513 cell.  The band rule (core/mesh.py band_rows) cuts bands of 272
+# and 241 rows at the source-only path's stride 16 (feature maps of
+# ceil(513 / k) rows, bands of 272 / k), 288 and 225 at the output path's
+# 32 (the discriminator's maps floor(513 / k) rows); the padded step pads
+# a global batch of UNEVEN_PAD_REAL real samples to UNEVEN_PAD_TO over 2
+# data ranks, the second holding padding only.
+UNEVEN_HW, UNEVEN_BATCH, UNEVEN_EVAL_BATCH = 513, 4, 2
+UNEVEN_PAD_REAL, UNEVEN_PAD_TO = 4, 8
+
+
+def short_band(height, level_rows, unit):
+    """The rows of the last (short) of SPATIAL bands at a level of
+    `level_rows` rows of an image of `height` at the band rule's `unit`,
+    and the level's full band (the level's stride read off its rows:
+    ceil(height / k) or floor(height / k))."""
+    from s2r_tpu_torch.core.mesh import band_bounds, band_rows
+
+    band = band_rows(height, SPATIAL, unit)
+    k = next(k for k in (1, 2, 4, 8, 16, 32)
+             if level_rows in (-(-height // k), height // k))
+    r0, r1 = band_bounds(level_rows, band // k, SPATIAL - 1)
+    return r1 - r0, band // k
+
+
+def check_uneven_shapes(dw, bn, dc):
+    """Phase 14a, uneven bands: each kernel against its plain version at
+    the short band of UNEVEN_HW rows over SPATIAL ranks, batch
+    UNEVEN_BATCH, float32 and bfloat16, at phase 2's tolerances: the
+    depthwise forward, dx and dk on the short band plus d rows a side of
+    every stride-1 depthwise conv of the source-only forward (bands of
+    241 / k rows); all eight BatchNorm entries on the short band's rows
+    of every BatchNorm input with the global image's ring count;
+    disc_conv1 on the output step's short band plus 2 rows a side (225 +
+    4 rows).  Then the zero-row calls of an empty band: the depthwise
+    forward and dk, batch_norm_sums, apply, grad_sums_local and dx
+    return their empty (or zero) results with no launch, and
+    batch_norm_finish_apply on no rows finishes the statistics and the
+    running update alone (one launch, equal to its plain version);
+    disc_conv1 with no output row returns it with no launch."""
+    from s2r_tpu_torch.models.mobilenet import block_plan
+
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 15)
+    n, eps, mom = UNEVEN_BATCH, 1e-5, 0.1
+    hw = (UNEVEN_HW, UNEVEN_HW)
+    dw_at, bn_at = layer_shapes(hw)
+    worst_dk, dw_rows = 0.0, []
+    for c, h, w, d in sorted(set(dw_at)):
+        rows = short_band(UNEVEN_HW, h, 16)[0] + 2 * d
+        dw_rows.append(f"C{c} {rows}x{w} d{d}")
+        for dtype in (torch.float32, torch.bfloat16):
+            x = randn((n, rows, w, c), dtype, gen)
+            g = randn((n, rows, w, c), dtype, gen)
+            g[:, :d] = 0
+            g[:, rows - d:] = 0
+            k = (randn((3, 3, c), torch.float32, gen) / 3).to(dtype)
+            dw_check(dw, x, k, d)
+            dw_check(dw, g, k.flip((0, 1)).contiguous(), d)
+            worst_dk = max(worst_dk, dk_check(dw, x, g, d)[2])
+    bn_shapes = sorted(set(s for s in bn_at if s[1] > 1))
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for c, h, w in bn_shapes:
+        rows = short_band(UNEVEN_HW, h, 16)[0]
+        m, count = n * rows * w, n * (h + 2) * (w + 2)
+        for dtype in (torch.float32, torch.bfloat16):
+            tol = 1e-5 if dtype == torch.float32 else 1e-4
+            x = randn((m, c), dtype, gen)
+            g = randn((m, c), dtype, gen)
+            weight = 1 + 0.1 * torch.randn(c, device=DEV, generator=gen)
+            bias = 0.1 * torch.randn(c, device=DEV, generator=gen)
+            gshift = torch.randn(c, device=DEV, generator=gen)
+            run = [0.1 * torch.randn(c, device=DEV, generator=gen),
+                   0.5 + torch.rand(c, device=DEV, generator=gen)]
+            run_p = [t.clone() for t in run]
+            stats = bn.batch_norm_stats(x, weight, bias, count, eps, *run,
+                                        mom)
+            stats_p = bn.batch_norm_stats_plain(x, weight, bias, count, eps,
+                                                *run_p, mom)
+            y = bn.batch_norm_apply(x, stats[bn.INV], stats[bn.SHIFT])
+            grads = bn.batch_norm_grad_sums(g, x, stats, gshift, count)
+            sums = bn.batch_norm_sums(x)
+            sums_in = sums.clone()
+            fin_y = bn.batch_norm_finish_apply(x, sums, weight, bias, count,
+                                               eps)
+            local = bn.batch_norm_grad_sums_local(g, x, sums, gshift)
+            local_in = local.clone()
+            fin = bn.batch_norm_grad_finish(local, sums, count)
+            dx = bn.batch_norm_dx(g, x, stats[bn.INV], grads[bn.COEF_B],
+                                  grads[bn.COEF_C0])
+            torch.cuda.synchronize()
+            pairs = {
+                "stats": (stats, stats_p),
+                "running": (torch.stack(run), torch.stack(run_p)),
+                "apply": (y.view(1, -1), bn.batch_norm_apply_plain(
+                    x, stats[bn.INV], stats[bn.SHIFT]).view(1, -1)),
+                "grad_sums": (grads, bn.batch_norm_grad_sums_plain(
+                    g, x, stats, gshift, count)),
+                "sums": (sums_in[:2], bn.batch_norm_sums_plain(x)[:2]),
+                "finish_apply": (sums, bn.batch_norm_finish_plain(
+                    sums_in, weight, bias, count, eps)),
+                "finish_apply y": (fin_y.view(1, -1),
+                                   bn.batch_norm_apply_plain(
+                                       x, sums[bn.INV],
+                                       sums[bn.SHIFT]).view(1, -1)),
+                "grad_sums_local": (local_in[:4],
+                                    bn.batch_norm_grad_sums_local_plain(
+                                        g, x, sums, gshift)[:4]),
+                "grad_finish": (fin, bn.batch_norm_grad_finish_plain(
+                    local_in, sums, count)),
+                "dx": (dx.view(1, -1), bn.batch_norm_dx_plain(
+                    g, x, stats[bn.INV], grads[bn.COEF_B],
+                    grads[bn.COEF_C0]).view(1, -1))}
+            e = {key: max(bn_rel(u, v)) for key, (u, v) in pairs.items()}
+            require(max(e.values()) <= tol,
+                    f"14a uneven batchnorm {(n, c, rows, w)} {dtype}: rel "
+                    f"errs {e} > {tol}")
+            worst[dtype] = max(worst[dtype], max(e.values()))
+    disc_rows = short_band(UNEVEN_HW, UNEVEN_HW, 32)[0] + 4
+    disc_err = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        _, x, k, b = disc_inputs(n, 19, disc_rows, UNEVEN_HW, 64, dtype, gen)
+        disc_err[dtype] = disc_check(dc, x, k, b)[1]
+    # the zero-row calls of an empty band
+    wrappers = (dw.depthwise_conv3x3, dw.depthwise_dk, bn.batch_norm_sums,
+                bn.batch_norm_apply, bn.batch_norm_grad_sums_local,
+                bn.batch_norm_dx, bn.batch_norm_finish_apply, dc.disc_conv1)
+    before = {f.__name__: f.launches for f in wrappers}
+    c, w = 96, UNEVEN_HW
+    x0 = torch.empty((n, 0, w, c), device=DEV)
+    k = torch.randn((3, 3, c), device=DEV, generator=gen)
+    require(dw.depthwise_conv3x3(x0, k, 2).shape == x0.shape
+            and not dw.depthwise_dk(x0, x0, 2).any(),
+            "14a zero rows: depthwise")
+    e0 = torch.empty((0, c), device=DEV)
+    weight = 1 + 0.1 * torch.randn(c, device=DEV, generator=gen)
+    bias = 0.1 * torch.randn(c, device=DEV, generator=gen)
+    gshift = torch.randn(c, device=DEV, generator=gen)
+    sums = torch.zeros((bn.STAT_ROWS, c), device=DEV)
+    sums[:2] = torch.rand((2, c), device=DEV, generator=gen) + 1
+    sums_p = sums.clone()
+    run = [torch.zeros(c, device=DEV), torch.ones(c, device=DEV)]
+    run_p = [t.clone() for t in run]
+    count = n * (UNEVEN_HW + 2) * (w + 2)
+    require(not bn.batch_norm_sums(e0).any(), "14a zero rows: sums")
+    y0 = bn.batch_norm_finish_apply(e0, sums, weight, bias, count, 1e-5,
+                                    *run, 0.1)
+    bn.batch_norm_finish_apply_plain(e0, sums_p, weight, bias, count, 1e-5,
+                                     *run_p, 0.1)
+    local = bn.batch_norm_grad_sums_local(e0, e0, sums, gshift)
+    local_p = bn.batch_norm_grad_sums_local_plain(e0, e0, sums, gshift)
+    torch.cuda.synchronize()
+    zero_err = max(max(bn_rel(sums, sums_p)),
+                   max(bn_rel(torch.stack(run), torch.stack(run_p))),
+                   max(bn_rel(local[:4], local_p[:4])))
+    require(y0.shape == e0.shape and zero_err <= 1e-5
+            and bn.batch_norm_apply(e0, weight, bias).shape == e0.shape
+            and bn.batch_norm_dx(e0, e0, weight, bias, gshift).shape
+            == e0.shape, f"14a zero rows: batchnorm rel err {zero_err}")
+    _, x1, kd, bd = disc_inputs(n, 19, 1, w, 64, torch.bfloat16, gen)
+    require(dc.disc_conv1(x1, kd, bd).shape == (n, 0, w // 2, 64),
+            "14a zero rows: disc_conv1")
+    moved = {f.__name__: f.launches - before[f.__name__] for f in wrappers}
+    require(moved == {**dict.fromkeys(before, 0),
+                      "batch_norm_finish_apply": 1},
+            f"14a zero rows: launches {moved}")
+    log(f"[14a uneven shapes] the short band of {UNEVEN_HW} rows over "
+        f"{SPATIAL} ranks, batch {n}: depthwise forward, dx and dk at "
+        f"{len(dw_rows)} bands plus halo ({', '.join(dw_rows)}; worst dk "
+        f"rel err {worst_dk:.3g}); all eight BatchNorm entries at "
+        f"{len(bn_shapes)} short-band shapes, worst rel err f32 "
+        f"{worst[torch.float32]:.3g}, bf16 {worst[torch.bfloat16]:.3g}; "
+        f"disc_conv1 at {n}x{disc_rows}x19x{UNEVEN_HW} max_abs_err f32 "
+        f"{disc_err[torch.float32]:.3g}, bf16 "
+        f"{disc_err[torch.bfloat16]:.3g}: all at phase 2's tolerances; "
+        "zero rows: the depthwise forward and dk, batch_norm_sums, apply, "
+        "grad_sums_local, dx and disc_conv1 returned their empty results "
+        "with no launch, finish_apply finished the statistics in one "
+        f"(rel err {zero_err:.3g} against its plain version)")
+
+
+def uneven_phase(smi, check_refs):
+    """Phase 14f-h through tools/dist_check.py, 2 gloo ranks on the one
+    card, one spawn.  (f) The source-only step at UNEVEN_HW x UNEVEN_HW
+    batch UNEVEN_BATCH bf16, 2 steps, over 1 x 2 ranks (bands of 272 and
+    241 rows) against one process on the card, at 14b's bounds with the
+    bf16 spread (one process in bf16 against float32, both on the card) in
+    the place of the float32 one.  (g) --eval-spatial-shard at UNEVEN_HW
+    (bands of 288 and 225 rows, the output method's stride 32), batch
+    UNEVEN_EVAL_BATCH float32, against one process: loss rtol 1e-5,
+    labels > 0.999 equal, the confusion matrix equal but for labels at
+    near-ties.  (h) The padded output step at world 2 (UNEVEN_PAD_REAL
+    real samples padded to UNEVEN_PAD_TO; rank 0 holds the real ones,
+    rank 1 padding only) at phase 10b's check (DIST_CHECK_HW float32,
+    DIST_STEPS steps) against one process's padded step on the card, at
+    10b's bounds (its CPU run gives the float32 spread); rank 1 launches
+    no BatchNorm sums (no real rows).  Then (f) timed: ms/step a rank
+    (median of 5 after 2 warm-up, host clock around synchronized steps),
+    all-reduces and halo gathers a step, peak memory a rank, against one
+    process timed alone after the ranks.  Returns {path: launches summed
+    over the ranks}."""
+    from s2r_tpu_torch.core.mesh import band_bounds, band_rows
+    from s2r_tpu_torch.tools import dist_check
+
+    _, cpu = check_refs
+    bands = {u: [b1 - b0 for b0, b1 in (band_bounds(
+        UNEVEN_HW, band_rows(UNEVEN_HW, SPATIAL, u), s)
+        for s in range(SPATIAL))] for u in (16, 32)}
+    so = dict(kind="steps", method="source_only", hw=UNEVEN_HW,
+              batch=UNEVEN_BATCH, steps=DIST_STEPS, precision="bf16",
+              spatial=SPATIAL)
+    evals = dict(kind="eval", method="output_adapt", hw=UNEVEN_HW,
+                 batch=UNEVEN_EVAL_BATCH, precision="f32", spatial=SPATIAL,
+                 eval_spatial=True)
+    pad = dict(kind="steps", method="output_adapt", hw=list(DIST_CHECK_HW),
+               batch=UNEVEN_PAD_REAL, steps=DIST_STEPS, precision="f32",
+               pad_to=UNEVEN_PAD_TO)
+    timing = dict(kind="timing", method="source_only", hw=UNEVEN_HW,
+                  batch=UNEVEN_BATCH, precision="bf16", warmup=2, timed=5,
+                  spatial=SPATIAL)
+    t0 = time.perf_counter()
+    ranks = dist_check.start({"tasks": [so, evals, pad, timing]}, SPATIAL,
+                             DEV, backend="gloo", timeout=600)
+    one = dist_check.run_tasks({"tasks": [
+        dict(so, spatial=1), dict(so, spatial=1, precision="f32"),
+        dict(evals, spatial=1, eval_spatial=False, ties=True),
+        dict(pad)]}, torch.device(DEV, 0))
+    torch.cuda.empty_cache()
+    ranks = ranks.results()
+    spawn_s = time.perf_counter() - t0
+    # one process timed alone, after the ranks
+    one_tm = dist_check.run_tasks({"tasks": [dict(timing, spatial=1)]},
+                                  torch.device(DEV, 0))[0]
+    torch.cuda.empty_cache()
+    # (f) bf16 against one process, the bf16 spread for float32's
+    leaf, worst, _, value, stats_err = against_one_process(
+        "14f", [r[0] for r in ranks], one[0], one[1], loss_spread=True,
+        spread_first=True, losses=("task_loss",))
+    want = {k: v * DIST_STEPS for k, v in step_launches(
+        "source_only", world=SPATIAL, spatial=SPATIAL).items()}
+    for r in ranks:
+        require(r[0]["kernel_launches"] == want,
+                f"14f rank launches {r[0]['kernel_launches']}, expected "
+                f"{want}")
+    got, ref = ranks[0][0], one[0]
+    log(f"[14f uneven step] source-only {UNEVEN_HW}x{UNEVEN_HW} batch "
+        f"{UNEVEN_BATCH} bf16 over 1 x {SPATIAL} ranks (bands of "
+        f"{bands[16]} rows) on one card (gloo), {DIST_STEPS} steps against "
+        "one process on the card: task_loss (ranks / one process bf16 / f32) "
+        + "; ".join(f"step {i} {got['metrics'][i]['task_loss']:.7g}/"
+                    f"{ref['metrics'][i]['task_loss']:.7g}/"
+                    f"{one[1]['metrics'][i]['task_loss']:.7g}"
+                    for i in range(DIST_STEPS))
+        + f"; G update worst leaf {leaf[worst][0]:.3g} ({worst}; bf16 "
+        f"against f32 {leaf[worst][1]:.3g}), G after the steps worst leaf "
+        f"{value:.3g}; BatchNorm running stats {stats_err:.3g}; ranks "
+        f"bit-equal; {got['gathers_per_step']:.0f} halo gathers a step; "
+        f"launches as predicted ({spawn_s:.1f} s the spawn and the "
+        f"one-process runs) ({smi})")
+    # (g) --eval-spatial-shard at 513 against one process
+    ev, one_eval = [r[1] for r in ranks], one[2]
+    loss = sum(e["loss"] for e in ev)
+    cm = sum(e["confusion"] for e in ev)
+    pred = torch.cat([e["pred"] for e in ev], dim=1)
+    differ = pred != one_eval["pred"]
+    agree = 1.0 - float(differ.double().mean())
+    flips = int(differ.sum())
+    cm_l1 = int((cm - one_eval["confusion"]).abs().sum())
+    require([e["pred"].shape[1] for e in ev] == bands[32],
+            f"14g bands {[e['pred'].shape[1] for e in ev]}")
+    require(abs(loss - one_eval["loss"]) <= 1e-5 * abs(one_eval["loss"]),
+            f"14g eval loss {loss}, one process {one_eval['loss']}")
+    require(agree > 0.999, f"14g label agreement {agree}")
+    require(not (differ & ~one_eval["ties"]).any() and cm_l1 <= 2 * flips,
+            f"14g confusion matrix off one process's by {cm_l1} counts; "
+            f"{int((differ & ~one_eval['ties']).sum())} of {flips} "
+            "differing labels are not near-ties")
+    log(f"[14g uneven eval] --eval-spatial-shard over {SPATIAL} ranks, "
+        f"{UNEVEN_HW}x{UNEVEN_HW} batch {UNEVEN_EVAL_BATCH} f32 (bands of "
+        f"{bands[32]} rows): loss {loss:.9g} against one process "
+        f"{one_eval['loss']:.9g}, labels {100 * agree:.5f}% equal ({flips} "
+        f"differ, all at near-ties), confusion matrix off by {cm_l1} "
+        f"counts, {ev[0]['gathers']} halo gathers and {ev[0]['collectives']}"
+        " all-reduces a forward")
+    # (h) the padded step at world 2 against one process's
+    leaf, worst, sign, value, stats_err = against_one_process(
+        "14h", [r[2] for r in ranks], one[3], cpu)
+    per_step = step_launches("output_adapt", world=SPATIAL)
+    for i, r in enumerate(ranks):
+        want = {k: v * DIST_STEPS for k, v in per_step.items()}
+        if i:  # padding only: no real rows to sum, nor their dx
+            want.update(batch_norm_sums=0, batch_norm_grad_sums_local=0,
+                        batch_norm_dx=0)
+        require(r[2]["kernel_launches"] == want,
+                f"14h rank {i} launches {r[2]['kernel_launches']}, "
+                f"expected {want}")
+    got, ref = ranks[0][2], one[3]
+    log(f"[14h padded step] output step at {DIST_CHECK_HW[1]}x"
+        f"{DIST_CHECK_HW[0]}, {UNEVEN_PAD_REAL} real samples padded to "
+        f"{UNEVEN_PAD_TO} over {SPATIAL} ranks (rank 1 padding only) f32, "
+        f"{DIST_STEPS} steps against one process's padded step: losses "
+        + "; ".join(f"step {i} " + ", ".join(
+            f"{k} {got['metrics'][i][k]:.7g}/{ref['metrics'][i][k]:.7g}"
+            for k in ("seg_loss", "adv_loss", "d_loss"))
+            for i in range(DIST_STEPS))
+        + f"; G update worst leaf {leaf[worst][0]:.3g} ({worst}), D sign "
+        f"agreement {100 * sign:.3f}%, BatchNorm running stats "
+        f"{stats_err:.3g}; ranks bit-equal; rank 1 launched no "
+        "batch_norm_sums, grad_sums_local or dx")
+    tm = [r[3] for r in ranks]
+    per_step = step_launches("source_only", world=SPATIAL, spatial=SPATIAL)
+    for r in tm:
+        want = {k: v * 7 for k, v in per_step.items()}
+        require(r["kernel_launches"] == want,
+                f"14f timed rank launches {r['kernel_launches']}, expected "
+                f"{want}")
+        require(r["ranks_equal"] and all(np.isfinite(v) for v in
+                                         r["losses"].values()),
+                f"14f timed: ranks differ or losses not finite "
+                f"{r['losses']}")
+    ms = [statistics.median(t["ms"]) for t in tm]
+    log(f"[14f uneven step timed] source-only {UNEVEN_HW}x{UNEVEN_HW} "
+        f"batch {UNEVEN_BATCH} bf16: " + ", ".join(
+            f"rank {i} ({rows} rows) {m:.3f} ms/step (median of 5: "
+            + ", ".join(f"{v:.3f}" for v in t["ms"]) + ")"
+            for i, (rows, m, t) in enumerate(zip(bands[16], ms, tm)))
+        + f"; one process {statistics.median(one_tm['ms']):.3f} (median "
+        "of 5: " + ", ".join(f"{v:.3f}" for v in one_tm["ms"]) + "); "
+        f"{tm[0]['collectives_per_step']:.0f} all-reduces "
+        f"({tm[0]['elements_per_step'] / 1e6:.3f}M elements) and "
+        f"{tm[0]['gathers_per_step']:.0f} halo gathers "
+        f"({tm[0]['halo_elements_per_step'] / 1e6:.3f}M elements sent) a "
+        "step; peak " + ", ".join(f"{t['peak_gib'] or 0:.3f}" for t in tm)
+        + f" GiB a rank, one process {one_tm['peak_gib'] or 0:.3f}; gloo "
+        f"moves every collective through the host ({smi})")
+    paths = {"uneven_source_only_step": {}, "uneven_eval": {},
+             "padded_step_world2": {}, "uneven_source_only_timed": {}}
+    for r in ranks:
+        for path, task in zip(paths, range(4)):
+            for k, v in r[task]["kernel_launches"].items():
+                paths[path][k] = paths[path].get(k, 0) + v
+    require(paths["uneven_eval"]["depthwise_conv3x3"] > 0,
+            "14g: the eval launched no depthwise kernel")
+    return paths
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4574,10 +4945,16 @@ def main():
         t14 = time.perf_counter()
         check_spatial_shapes(dw, bn, dc)
         torch.cuda.empty_cache()
-        spatial_launches, spatial = spatial_phase(
-            smi, dist_summary.pop("check_refs"))
+        check_refs = dist_summary.pop("check_refs")
+        spatial_launches, spatial = spatial_phase(smi, check_refs)
         driver_launches.update(spatial_launches)
-        log(f"[14] phase 14 in {time.perf_counter() - t14:.1f} s")
+        t14u = time.perf_counter()
+        check_uneven_shapes(dw, bn, dc)
+        torch.cuda.empty_cache()
+        driver_launches.update(uneven_phase(smi, check_refs))
+        torch.cuda.empty_cache()
+        log(f"[14] phase 14 in {time.perf_counter() - t14:.1f} s, its "
+            f"uneven bands and padding {time.perf_counter() - t14u:.1f} s")
         bn_entries[0]["composite"] = dict(
             bn_composite, ms_covers="one 512x1024 batch-8 bf16 train step: "
             "all four entries of 120 BatchNorm calls; library_ms: "

@@ -33,6 +33,14 @@ samples and each holds a contiguous band of their image rows; the
 pool, the 'data' group of a column (the ranks holding the same rows of
 different samples) takes the batch-axis softmax, and the world stays the
 group of the gradients, BatchNorm and the loss normalizers.
+
+The band rule (``band_rows``, ``band_bounds``): an image of H rows over S
+ranks, u the path's largest stride, is cut into bands of h =
+ceil(H / (S*u)) * u rows; rank s holds rows [s*h, min((s+1)*h, H)).
+Only the last band or bands are short, and a band may be empty, so any
+H runs on any S, as GSPMD runs it by padding the last shard.  Every
+activation at stride k holds the rows [s*h/k, ...) of its own global
+height, which follows its layer's arithmetic (ops/halo.py).
 """
 
 from __future__ import annotations
@@ -155,7 +163,7 @@ def pick_num_devices(batch_size: int, requested: Optional[int] = None,
     With ``--spatial-shard S`` > 1, S must divide it and the batch only
     the data rows, world // S; where the JAX package idles the devices a
     batch does not divide, the port raises, as its data-parallel rule
-    does (ROADMAP C.16).  A world spanning nodes raises
+    does (ROADMAP A.10).  A world spanning nodes raises
     NotImplementedError, as the JAX package's multi-host refusal does:
     the spatial arm is one node's."""
     world = make_mesh(requested).size
@@ -181,6 +189,20 @@ def pick_num_devices(batch_size: int, requested: Optional[int] = None,
     return world
 
 
+def band_rows(height: int, spatial: int, unit: int = 1) -> int:
+    """The rows of a full band of an image of `height` rows over `spatial`
+    ranks, `unit` the path's largest stride: ceil(height / (spatial *
+    unit)) * unit (the module docstring's band rule)."""
+    step = int(spatial) * int(unit)
+    return -(-int(height) // step) * int(unit)
+
+
+def band_bounds(height: int, band: int, rank: int) -> Tuple[int, int]:
+    """Rows [r0, r1) of rank `rank`'s band of `band` rows in an image of
+    `height`: short or empty past the image's end."""
+    return min(rank * band, height), min((rank + 1) * band, height)
+
+
 @dataclasses.dataclass
 class Layout:
     """The 2-D ('data', 'space') layout of `world`: `spatial` columns, rank
@@ -188,11 +210,14 @@ class Layout:
     docstring).  `space` is the mesh of this rank's data row (its rank:
     the column), `data` that of its column (its rank: the data row); at
     spatial 1, `space` is one process and `data` the world itself; at
-    spatial == world, `space` is the world and `data` one process."""
+    spatial == world, `space` is the world and `data` one process.
+    `unit` is the largest stride of the method's path, the band rule's u
+    (train/setup.py sets it from the model)."""
     world: Mesh
     space: Mesh
     data: Mesh
     spatial: int = 1
+    unit: int = 1
 
     @property
     def meshes(self) -> List[Mesh]:
@@ -215,35 +240,25 @@ class Layout:
 
     def band(self, arrays: Dict, eval_rows: bool = False) -> Dict:
         """This rank's band of rows of every [N, H, ...] tensor of `arrays`
-        (NHWC images, [N, H, W] labels; others pass): rows [s*H/S,
-        (s+1)*H/S) for rank s of the S ranks of ``rows_mesh`` (the row
-        rule of ops/halo.py).  H must divide."""
+        (NHWC images, [N, H, W] labels; others pass), by the band rule at
+        `unit` over the ranks of ``rows_mesh``, and 'height': the global
+        H, which the steps read (ops/halo.py ``row_shard``)."""
         mesh = self.rows_mesh(eval_rows)
         if mesh.size == 1:
             return arrays
-        out = {}
+        out, heights = {}, set()
         for k, v in arrays.items():
             if torch.is_tensor(v) and v.dim() >= 3:
-                if v.shape[1] % mesh.size:
-                    raise ValueError(f"{v.shape[1]} rows do not split over "
-                                     f"{mesh.size} ranks")
-                h = v.shape[1] // mesh.size
-                v = v[:, mesh.rank * h:(mesh.rank + 1) * h]
+                heights.add(int(v.shape[1]))
+                r0, r1 = band_bounds(v.shape[1], band_rows(
+                    v.shape[1], mesh.size, self.unit), mesh.rank)
+                v = v[:, r0:r1]
             out[k] = v
+        if len(heights) > 1:
+            raise ValueError(f"band: tensors of {sorted(heights)} rows")
+        if heights:
+            out["height"] = heights.pop()
         return out
-
-
-def check_rows(height: int, spatial: int, stride: int) -> None:
-    """Refuse a global image height that is not divisible by `spatial`
-    times the path's largest stride: every activation of the path must
-    split evenly over the ranks (uneven shards: ROADMAP A.8)."""
-    unit = spatial * stride
-    if spatial > 1 and height % unit:
-        smallest = -(-height // unit) * unit
-        raise ValueError(
-            f"a crop of {height} rows does not split over {spatial} ranks "
-            f"at stride {stride}: the height must be a multiple of "
-            f"{unit}; the smallest crop that works is {smallest}")
 
 
 # (world size, spatial) -> the torch.distributed groups of every row and

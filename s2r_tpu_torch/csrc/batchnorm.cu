@@ -625,12 +625,14 @@ int grad_finish(const FoldArgs& f, int64_t c, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// The forward's finish and apply in one launch.
+// The forward's finish and apply in one launch.  On no rows (an empty band
+// of a row-sharded image) one slab of no rows: its blocks finish the
+// statistics and the running update, and write no y.
 template <typename T>
 int finish_apply(const void* x, const FoldArgs& f, void* y, int64_t m, int64_t c,
                  cudaStream_t stream) {
   constexpr int V = 16 / sizeof(T);
-  const SlabPlan p = plan<T>(x, y, m, c);
+  const SlabPlan p = plan<T>(x, y, m > 0 ? m : 1, c);
   const dim3 grid(p.chunks, (unsigned)p.slabs), block(p.bx, p.by);
   if (vectorized<T>(x, y, c))
     bn_finish_apply<T, V><<<grid, block, 0, stream>>>((const T*)x, f, (T*)y, m, (int)c,

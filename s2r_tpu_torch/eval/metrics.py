@@ -127,7 +127,9 @@ def evaluate(eval_step: Callable, loader: Iterable,
     losses = []
     for batch in prefetch_to_device(loader, device):
         arrays = normalize_u8_batch(band(batch) if band else batch)
-        loss, cm, _ = eval_step(arrays["image"], arrays["label"])
+        # a band carries its image's global height (core/mesh.py Layout)
+        rows = {"height": arrays["height"]} if "height" in arrays else {}
+        loss, cm, _ = eval_step(arrays["image"], arrays["label"], **rows)
         ev.merge(cm)
         losses.append(loss)
     if mesh is not None and mesh.size > 1:

@@ -72,7 +72,7 @@ class ASPP(nn.Module):
         if rows is None:
             g = xf.mean(dim=(2, 3), keepdim=True).to(x.dtype)
         else:  # the sum over the group's bands, over the global H*W
-            area = x.shape[2] * rows.size * x.shape[3]
+            area = halo.level(x)[0] * x.shape[3]
             g = (halo.space_sum(xf.sum(dim=(2, 3), keepdim=True))
                  / area).to(x.dtype)
         with halo.replicated():

@@ -38,8 +38,9 @@ inside ops/halo.py's ``row_shard`` context takes a band of each image's
 rows and returns the same band of the logits; every layer reads the
 context (the convs' halos, BatchNorm's ring count, ASPP's pool, the
 align-corners resizes, ResNet's max pool).  ``row_stride`` is the
-largest stride of the model's path, which the global height must divide
-times the number of bands.
+largest stride of the model's path, the unit of the band rule
+(core/mesh.py ``band_rows``): any global height runs on any number of
+bands, the last short or empty.
 """
 
 from __future__ import annotations

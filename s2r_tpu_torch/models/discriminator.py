@@ -19,10 +19,12 @@ on: ``s2d_convs=1`` changes nothing here.
 
 Under row sharding (ops/halo.py) the kernel runs on the band plus 2
 rows a side with its own one-row padding, its first and last output rows
-dropped: output rows [r0/2, r1/2) read input rows r0-1 .. r1, and an
-even start keeps the stride-2 alignment (a one-row halo would shift it
-by one).  The dense convs read exactly their rows (models/layers.py
-``Conv2d``), the s2d ones as conv1 does.
+dropped: output rows [r0/2, floor(r1/2)) read input rows r0-1 .. r1, and
+an even start keeps the stride-2 alignment (a one-row halo would shift
+it by one).  The dense convs read exactly their rows (ops/halo.py
+``conv_rows``), the s2d ones as conv1 does.  Its levels (floor(H/2) at
+each conv) are its own (ops/halo.py ``own_levels``); at 65 rows over 2
+bands the last convs' second band is empty.
 """
 
 from __future__ import annotations
@@ -75,6 +77,10 @@ class FCDiscriminator(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x [N, num_classes, H, W] (the softmax map) -> logits
         [N, 1, H/32, W/32] in the compute dtype."""
+        with halo.own_levels(x):
+            return self._forward(x)
+
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
         x = x.to(dt)
         sharded = halo.current() is not None
@@ -85,6 +91,7 @@ class FCDiscriminator(nn.Module):
                             c1.bias.to(dt)).permute(0, 3, 1, 2)
         if sharded:
             y = y[:, :, 1:-1].contiguous(memory_format=torch.channels_last)
+            halo.register_strided(y, x, 4, 2, 1)
         for i, name in enumerate(NAMES[1:], start=1):
             conv = getattr(self, name)
             y = leaky_relu(y, 0.2)
@@ -94,8 +101,10 @@ class FCDiscriminator(nn.Module):
                       else conv4x4s2_via_s2d(y, w))
                      + conv.bias.to(dt).view(1, -1, 1, 1))
             elif sharded:
-                y = F.conv2d(halo.conv_input(y, 4, 2, 1), conv.weight.to(dt),
-                             conv.bias.to(dt), stride=2, padding=(0, 1))
+                y = halo.conv_rows(
+                    lambda r, c=conv: F.conv2d(r, c.weight.to(dt),
+                                               c.bias.to(dt), stride=2,
+                                               padding=(0, 1)), y, 4, 2, 1)
             else:
                 y = F.conv2d(y, conv.weight.to(dt), conv.bias.to(dt),
                              stride=2, padding=1)

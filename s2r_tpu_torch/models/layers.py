@@ -24,12 +24,14 @@ follow torch's own layers, so the reference torch key schema loads with
   batch's, through the kernels' split entries and an all-reduce.
 - ``Dropout``: elementwise, kept values scaled by 1/keep, the mask drawn
   from a caller's ``torch.Generator``; the identity in eval.
-- ``bn_real_batch(k)``: masked batch padding (s2r_tpu/models/layers.py
-  :219-244).  Inside it, train-mode BatchNorm takes its statistics, its
-  running update and its backward sums over the first k samples only
-  (the padding samples take the affine), and Dropout draws the masks of
-  the first k samples at [k, ...] and drops the rest, so a padded step
-  draws what the unpadded one draws, on any device.
+- ``bn_real_batch(k, total)``: masked batch padding
+  (s2r_tpu/models/layers.py:219-244).  Inside it, train-mode BatchNorm
+  takes its statistics, its running update and its backward sums over
+  the first k samples only (the padding samples take the affine), and
+  Dropout draws the masks of the first k samples at [k, ...] and drops
+  the rest, so a padded step draws what the unpadded one draws, on any
+  device.  Under synchronized BatchNorm `total` is the real samples over
+  the group (each rank's k may differ, and may be 0).
 - ``remat(fn, *args)``: fn(*args) under torch.utils.checkpoint, its
   activations recomputed in the backward (the JAX package's nn.remat).
   The recompute changes no value and no state: each train-mode BatchNorm
@@ -69,14 +71,16 @@ _local = threading.local()
 class bn_real_batch:
     """Context manager: train-mode BatchNorm and Dropout treat only the
     first `n` samples of a batch as real (None: all), as the JAX package's
-    does while it traces (s2r_tpu/models/layers.py:219-244)."""
+    does while it traces (s2r_tpu/models/layers.py:219-244).  `total`:
+    the real samples of every rank's batch, which synchronized BatchNorm
+    counts (None: each rank's batch holds as many as this one)."""
 
-    def __init__(self, n: Optional[int]):
-        self.n = n
+    def __init__(self, n: Optional[int], total: Optional[int] = None):
+        self.real = (n, total)
 
     def __enter__(self):
-        self._prev = getattr(_local, "real", None)
-        _local.real = self.n
+        self._prev = getattr(_local, "real", (None, None))
+        _local.real = self.real
 
     def __exit__(self, *exc):
         _local.real = self._prev
@@ -84,8 +88,13 @@ class bn_real_batch:
 
 def _real_of(x: torch.Tensor) -> Optional[int]:
     """The real samples of x's batch under bn_real_batch, None when all."""
-    k = getattr(_local, "real", None)
+    k = getattr(_local, "real", (None, None))[0]
     return None if k is None or k >= x.shape[0] else int(k)
+
+
+def _real_total() -> Optional[int]:
+    """The real samples over the ranks under bn_real_batch, or None."""
+    return getattr(_local, "real", (None, None))[1]
 
 
 class _Frame:
@@ -107,7 +116,7 @@ class _FrameScope:
     def __enter__(self):
         if _scope() is not None:
             raise RuntimeError("remat: regions do not nest")
-        self._prev = getattr(_local, "real", None)
+        self._prev = getattr(_local, "real", (None, None))
         self._prev_rows = halo.state()
         if self.recompute:
             _local.real = self.frame.real
@@ -207,8 +216,9 @@ class Conv2d(nn.Conv2d):
                      else conv3x3s2_via_s2d)
             y = s2d_rows(lower, x, w) if sharded else lower(x, w)
         else:
-            y = F.conv2d(self._rows(x), w, None, self.stride,
-                         self._padding(), self.dilation, self.groups)
+            y = self._conv(x, lambda r: F.conv2d(
+                r, w, None, self.stride, self._padding(), self.dilation,
+                self.groups))
         if fill is not None:
             ksum = self.weight.sum(dim=(1, 2, 3))  # [C], float32
             y = y + _col((fill * ksum).to(y.dtype))
@@ -216,17 +226,17 @@ class Conv2d(nn.Conv2d):
             y = y + _col(self.bias.to(y.dtype))
         return y
 
-    def _rows(self, x: torch.Tensor) -> torch.Tensor:
-        """x, or under row sharding the rows this rank's output rows read
-        (ops/halo.py ``conv_input``)."""
+    def _conv(self, x: torch.Tensor, op) -> torch.Tensor:
+        """op(x), or under row sharding op on the rows this rank's output
+        rows read (ops/halo.py ``conv_rows``)."""
         if halo.current() is None:
-            return x
-        return halo.conv_input(x, self.kernel_size[0], self.stride[0],
-                               self.padding[0], self.dilation[0])
+            return op(x)
+        return halo.conv_rows(op, x, self.kernel_size[0], self.stride[0],
+                              self.padding[0], self.dilation[0])
 
     def _padding(self):
         """The conv's padding; under row sharding none along H (the rows
-        outside the image came in with ``_rows``)."""
+        outside the image come in through ``_conv``)."""
         if halo.current() is None:
             return self.padding
         return (0, self.padding[1])
@@ -254,8 +264,9 @@ class Conv2d(nn.Conv2d):
         if not parts:
             raise ValueError("a split-concat conv needs at least one part")
         dtype = parts[0].dtype
+        # the widest part is full-size (a band may hold no rows)
         full = max((tuple(p.shape[2:]) for p in parts),
-                   key=lambda hw: hw[0] * hw[1])
+                   key=lambda hw: (hw[1], hw[0]))
         widths = [int(p.shape[1]) for p in parts]
         if sum(widths) != self.in_channels:
             raise ValueError(f"split parts of {widths} channels: the conv "
@@ -273,17 +284,22 @@ class Conv2d(nn.Conv2d):
                         "a [1,1] split part broadcasts only under a 1x1 "
                         f"kernel without padding; this conv has kernel "
                         f"{self.kernel_size} and padding {self.padding}")
+                outs.append(F.conv2d(p, w[:, off:off + c], None,
+                                     self.stride, self.padding,
+                                     self.dilation))
             elif hw != full:
                 raise ValueError(f"split part of spatial size {hw}: want "
                                  f"{full} (or [1,1] under a 1x1 kernel)")
             else:  # a full-size part: under row sharding, its rows
-                p = self._rows(p)
-            outs.append(F.conv2d(p, w[:, off:off + c], None, self.stride,
-                                 self._padding(), self.dilation))
+                outs.append(self._conv(p, lambda r, k=w[:, off:off + c]:
+                                       F.conv2d(r, k, None, self.stride,
+                                                self._padding(),
+                                                self.dilation)))
             off += c
         # the sum in float32, started from a full-size part, each other
         # part added in place (no float32 copy of it)
-        first = max(range(len(outs)), key=lambda i: outs[i][0, 0].numel())
+        first = max(range(len(outs)),
+                    key=lambda i: (outs[i].shape[3], outs[i].shape[2]))
         y = outs[first].to(acc)
         for i, part in enumerate(outs):
             if i != first:
@@ -297,16 +313,22 @@ def s2d_rows(lower, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """A space-to-depth lowering (ops/s2d.py) of a stride-2 padding-1 conv
     on row-sharded x: on the band plus 2 rows a side (an even offset, so
     the s2d pairs are the unsharded ones), the first and the last output
-    row dropped."""
-    return lower(halo.halo(x, 2), w)[:, :, 1:-1]
+    row dropped.  The global height is even (``s2d_applies``), so a short
+    band is too, and an empty one keeps no row."""
+    y = lower(halo.halo(x, 2), w)[:, :, 1:-1]
+    halo.register_strided(y, x, w.shape[2], 2, 1)
+    return y
 
 
 def s2d_applies(conv: nn.Conv2d, x: torch.Tensor) -> bool:
     """Whether `conv` on x has a space-to-depth form (ops/s2d.py): dense,
-    4x4 or 3x3, stride 2, padding 1, dilation 1, on an even H and W."""
+    4x4 or 3x3, stride 2, padding 1, dilation 1, on an even H and W (the
+    global H under row sharding)."""
+    height = (x.shape[2] if halo.current() is None
+              else halo.level(x)[0])
     return (conv.kernel_size in ((4, 4), (3, 3)) and conv.stride == (2, 2)
             and conv.padding == (1, 1) and conv.dilation == (1, 1)
-            and conv.groups == 1 and x.shape[2] % 2 == 0
+            and conv.groups == 1 and height % 2 == 0
             and x.shape[3] % 2 == 0)
 
 
@@ -332,9 +354,10 @@ class BatchNorm(nn.BatchNorm2d):
         bn_real_batch(k), over the first k samples only; in a remat
         recompute, the forward's statistics are reused and nothing is
         updated (module docstring).  Under row sharding (ops/halo.py) x
-        is a band of the global image's rows: the ring is the global
-        image's; in its ``replicated`` regions the statistics are
-        synchronized over the ranks holding other samples only."""
+        is a band of the global image's rows, of its level's global
+        height: the count and the ring are the global image's; in its
+        ``replicated`` regions the statistics are synchronized over the
+        ranks holding other samples only."""
         if not self.training:
             inv = torch.rsqrt(self.running_var + self.eps) * self.weight
             shift = self.bias - self.running_mean * inv
@@ -350,11 +373,13 @@ class BatchNorm(nn.BatchNorm2d):
             stats_in = scope.next_stats()
         elif scope is not None:
             stats_out = scope.frame.stats
+        sharded = rows.rows is not None
         y, shift, _, _ = BatchNormTrain.apply(
             x, self.weight, self.bias, self.eps, int(zero_pad_width),
             self.running_mean, self.running_var, float(self.momentum), sync,
             _real_of(x), stats_in, stats_out,
-            1 if rows.rows is None else rows.rows.size)
+            rows.rows.size if sharded else 1,
+            halo.level(x)[0] if sharded else None, _real_total())
         if stats_in is None:
             with torch.no_grad():
                 self.num_batches_tracked.add_(1)

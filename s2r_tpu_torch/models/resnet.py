@@ -45,8 +45,8 @@ def max_pool_3x3_s2(x: torch.Tensor) -> torch.Tensor:
     the rows its local output rows read, rows outside the image -inf."""
     if halo.current() is None:
         return F.max_pool2d(x, 3, 2, 1)
-    return F.max_pool2d(halo.conv_input(x, 3, 2, 1, pad=float("-inf")), 3,
-                        2, (0, 1))
+    return halo.conv_rows(lambda r: F.max_pool2d(r, 3, 2, (0, 1)), x, 3, 2,
+                          1, pad=float("-inf"))
 
 
 class Bottleneck(nn.Module):

@@ -437,8 +437,9 @@ def batch_norm_sums(x: torch.Tensor) -> torch.Tensor:
         return batch_norm_sums_plain(x)
     _check_rows(what, x)
     m, c = x.shape
-    if m == 0:
-        raise ValueError(f"{what}: no rows")
+    if m == 0:  # no rows (an empty band, a rank of padding): zero sums
+        return torch.zeros((STAT_ROWS, c), dtype=torch.float32,
+                           device=x.device)
     xp = x.data_ptr()
     ws = _workspace(xp, xp, x, STAT_ROWS)
     err = _lib()["stats_sums", x.dtype](xp, ws.data_ptr(), m, c,
@@ -461,7 +462,9 @@ def batch_norm_finish_apply(x: torch.Tensor, stats: torch.Tensor,
     SUM_XX reduced over ranks -> y = x * inv + shift in x's type, with
     inv and shift what batch_norm_stats gives over `count` positions
     (every rank's).  Rows MEAN..SHIFT of `stats` are filled in place and
-    the running statistics updated as batch_norm_stats updates them."""
+    the running statistics updated as batch_norm_stats updates them.  On
+    no rows (an empty band) the launch finishes the statistics alone,
+    one thread a channel, so every rank holds the same ones."""
     what = "batch_norm_finish_apply"
     if (running_mean is None) != (running_var is None):
         raise ValueError(f"{what}: give both running statistics or neither")
@@ -474,8 +477,6 @@ def batch_norm_finish_apply(x: torch.Tensor, stats: torch.Tensor,
     m, c = x.shape
     _check_head(what, stats, STAT_ROWS, c, dev)
     _check_vectors(what, c, dev, weight, bias, running_mean, running_var)
-    if m == 0:
-        raise ValueError(f"{what}: no rows")
     y = torch.empty_like(x)
     err = _lib()["finish_apply", x.dtype](
         x.data_ptr(), stats.data_ptr(), weight.data_ptr(), bias.data_ptr(),
@@ -497,7 +498,8 @@ def batch_norm_grad_sums_local(g: torch.Tensor, x: torch.Tensor,
     rank's cotangent of shift (float32 [C] or None) -> float32 [GRAD_ROWS,
     C] with rows SUM_G = sum g + gshift, SUM_GX = sum g*x, and this rank's
     shares DWEIGHT = rstd * (SUM_GX - mean * SUM_G) and DBIAS = SUM_G (the
-    coefficient rows are batch_norm_grad_finish's)."""
+    coefficient rows are batch_norm_grad_finish's).  On no rows the sums
+    are zero and those rows are gshift's alone, with no launch."""
     what = "batch_norm_grad_sums_local"
     if g.shape != x.shape:
         raise ValueError(f"{what}: g {tuple(g.shape)} and x "
@@ -510,7 +512,12 @@ def batch_norm_grad_sums_local(g: torch.Tensor, x: torch.Tensor,
     _check_head(what, stats, STAT_ROWS, c, dev)
     _check_vectors(what, c, dev, gshift)
     if m == 0:
-        raise ValueError(f"{what}: no rows")
+        out = torch.zeros((GRAD_ROWS, c), dtype=torch.float32,
+                          device=x.device)
+        if gshift is not None:
+            out[SUM_G] = out[DBIAS] = gshift
+            out[DWEIGHT] = stats[RSTD] * (out[SUM_GX] - stats[MEAN] * gshift)
+        return out
     gp, xp = g.data_ptr(), x.data_ptr()
     ws = _workspace(gp, xp, x, GRAD_ROWS)
     err = _lib()["grad_sums_local", x.dtype](
@@ -597,8 +604,8 @@ class BatchNormTrain(torch.autograd.Function):
     are all-reduced (float32, SUM) between batch_norm_sums and
     batch_norm_finish_apply (which writes y), and between
     batch_norm_grad_sums_local and batch_norm_grad_finish; the count is
-    every rank's (the ranks' batches have one shape), so the running
-    statistics come out equal on every rank.  dweight and dbias are this
+    every rank's (below), so the running statistics come out equal on
+    every rank.  dweight and dbias are this
     rank's shares, which the step sums over ranks with the other
     gradients.
 
@@ -610,17 +617,19 @@ class BatchNormTrain(torch.autograd.Function):
     padding samples take the affine only, y = x * inv + shift, and their
     dx is g * inv (the JAX package's masked BatchNorm,
     s2r_tpu/models/layers.py:300-349; every loss masks them, so g is zero
-    there).
+    there).  Under `sync` a rank's `real` may be 0 (its sums are then
+    zero), and `samples` gives the real samples over the ranks.
 
-    `bands` (row sharding, ops/halo.py): x is a band of h rows of each
-    sample's image of bands * h, its other rows on the other ranks of the
-    band's group (`bands` of them), and `sync` the world they belong to
-    (sync.size / bands data rows, each of k samples).  The ring is the
-    global image's, so the count is k*(bands*h + 2*pad)*(w + 2*pad) times
-    the data rows: each band has the image's left and right ring, the
-    top and bottom ring once.  With a ring (pad > 0) the count a band
-    would give times sync.size, k*(h+2*pad)*(w+2*pad)*sync.size, counts
-    the top and bottom ring on every band.
+    `bands` and `height` (row sharding, ops/halo.py): x is a band of
+    each sample's image of `height` rows (None: bands * h), its other
+    rows on the other ranks of the band's group (`bands` of them), and
+    `sync` the world they belong to (sync.size / bands data rows).  The
+    ring is the global image's, so the count is samples * (height +
+    2*pad) * (w + 2*pad): each band has the image's left and right ring,
+    the top and bottom ring once (the rows past the last band are no
+    one's, so a short or empty band changes nothing).  `samples`, the
+    real samples over the data rows, defaults to k * sync.size / bands
+    (k without sync): every rank's batch as real as this one's.
 
     `stats_in` (a recompute under remat, models/layers.py ``remat``): the
     statistics this call's forward computed on the same x, a copy of the
@@ -634,23 +643,27 @@ class BatchNormTrain(torch.autograd.Function):
     def forward(ctx, x, weight, bias, eps: float, pad: int,
                 running_mean=None, running_var=None, momentum: float = 0.1,
                 sync=None, real: Optional[int] = None, stats_in=None,
-                stats_out=None, bands: int = 1):
+                stats_out=None, bands: int = 1,
+                height: Optional[int] = None,
+                samples: Optional[int] = None):
         n, _, h, w = x.shape
         rows = channels_last_rows(x)
         k = n if real is None else int(real)
-        if not 0 < k <= n:
+        if not (0 < k <= n or (k == 0 and sync is not None)):
             raise ValueError(f"BatchNormTrain: {k} real samples of {n}")
-        if k < n and sync is not None:
-            raise NotImplementedError("BatchNormTrain: batch padding under "
-                                      "synchronized BatchNorm (ROADMAP A.9)")
         m = k * h * w
         if bands > 1 and (sync is None or sync.size % bands):
             raise ValueError(f"BatchNormTrain: rows sharded over {bands} "
                              f"ranks need a synchronizing world of a "
                              f"multiple of {bands}")
-        count = k * (bands * h + 2 * pad) * (w + 2 * pad)
-        if sync is not None:
-            count *= sync.size // bands
+        if samples is None:
+            if k < n and sync is not None:
+                raise ValueError("BatchNormTrain: a padded batch under "
+                                 "synchronized BatchNorm needs the real "
+                                 "samples over the ranks (samples)")
+            samples = k if sync is None else k * (sync.size // bands)
+        height = bands * h if height is None else int(height)
+        count = int(samples) * (height + 2 * pad) * (w + 2 * pad)
         y = None
         if stats_in is not None:
             stats = stats_in.clone()  # outputs are views of it
@@ -658,7 +671,7 @@ class BatchNormTrain(torch.autograd.Function):
             stats = batch_norm_stats(rows[:m], weight, bias, count, eps,
                                      running_mean, running_var, momentum)
         else:
-            stats = batch_norm_sums(rows)
+            stats = batch_norm_sums(rows[:m])
             sync.all_reduce_(stats[:SUM_XX + 1])
             y = batch_norm_finish_apply(rows, stats, weight, bias, count, eps,
                                         running_mean, running_var, momentum)
@@ -686,7 +699,8 @@ class BatchNormTrain(torch.autograd.Function):
             grads = batch_norm_grad_sums(g[:m], rows[:m], stats, gshift,
                                          ctx.count)
         else:
-            grads = batch_norm_grad_sums_local(g, rows, stats, gshift)
+            grads = batch_norm_grad_sums_local(g[:m], rows[:m], stats,
+                                               gshift)
             ctx.sync.all_reduce_(grads[:SUM_GX + 1])
             grads = batch_norm_grad_finish(grads, stats, ctx.count)
         dx = None
@@ -699,4 +713,4 @@ class BatchNormTrain(torch.autograd.Function):
             dx = _nchw(dx, ctx.x_like)
         dweight = grads[DWEIGHT] if ctx.needs_input_grad[1] else None
         dbias = grads[DBIAS] if ctx.needs_input_grad[2] else None
-        return (dx, dweight, dbias) + (None,) * 10
+        return (dx, dweight, dbias) + (None,) * 12

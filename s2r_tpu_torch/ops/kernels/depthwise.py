@@ -318,12 +318,12 @@ def depthwise_conv3x3(x: torch.Tensor, k: torch.Tensor,
         raise ValueError(f"depthwise_conv3x3: dilation {dilation} < 1")
     if x.device != k.device:
         raise ValueError("depthwise_conv3x3: x and k on different devices")
+    if x.numel() == 0:  # no rows (an empty band): no launch
+        return torch.empty_like(x, memory_format=torch.contiguous_format)
     if x.device.type == "cpu":
         return depthwise_conv3x3_plain(x, k, dilation)
     _check_cuda("depthwise_conv3x3", x, k)
     y = torch.empty_like(x)
-    if x.numel() == 0:
-        return y
     over_batch(x, k, y, int(dilation), _launch_dw3x3)
     return y
 
@@ -373,13 +373,14 @@ def depthwise_dk(x: torch.Tensor, g: torch.Tensor,
         raise ValueError(f"depthwise_dk: dilation {dilation} < 1")
     if x.device != g.device:
         raise ValueError("depthwise_dk: x and g on different devices")
+    n, h, w, c = x.shape
+    if x.numel() == 0:  # no rows (an empty band): no launch
+        return torch.zeros((3, 3, c), dtype=torch.promote_types(
+            x.dtype, torch.float32), device=x.device)
     if x.device.type == "cpu":
         return depthwise_dk_plain(x, g, dilation)
     _check_cuda("depthwise_dk", x, g)
-    n, h, w, c = x.shape
     dk = torch.empty((3, 3, c), dtype=torch.float32, device=x.device)
-    if x.numel() == 0:
-        return dk.zero_()
     d = int(dilation)
     xp, gp = x.data_ptr(), g.data_ptr()
     fn, plan, fields, _ = _launch_args("dk", x.dtype, n, h, w, c, d,

@@ -86,6 +86,8 @@ def disc_conv1(x: torch.Tensor, kernel: torch.Tensor,
         raise ValueError(f"disc_conv1: bias {tuple(bias.shape)} must be [{ndf}]")
     if not (x.device == kernel.device == bias.device):
         raise ValueError("disc_conv1: x, kernel and bias on different devices")
+    if n * (h // 2) * (w // 2) == 0:  # no output rows (an empty band)
+        return x.new_empty((n, h // 2, w // 2, ndf))
     if x.device.type == "cpu":
         return disc_conv1_plain(x, kernel, bias)
     if x.device.type != "cuda":
@@ -115,8 +117,6 @@ def disc_conv1(x: torch.Tensor, kernel: torch.Tensor,
                              "the kernel's shared memory")
         operand = kernel
     y = torch.empty((n, h // 2, w // 2, ndf), dtype=x.dtype, device=x.device)
-    if y.numel() == 0:
-        return y
     err = getattr(lib, _DTYPES[x.dtype])(
         x.data_ptr(), operand.data_ptr(), bias.data_ptr(), y.data_ptr(),
         n, h, c, w, *x.stride(), ndf, build.stream(x))

@@ -6,11 +6,11 @@ stays f64), with the interpolation matrices built in float64 by numpy.
 Inputs are NCHW.
 
 Under row sharding (ops/halo.py) x and the output are bands of their
-global heights: a rank takes its output rows of the global H matrix,
-gathers the input rows in their nonzero column window (align-corners
-windows cross the bands on either side; every rank gathers the widest
-window's halo, so all gather one shape) and applies the W matrix as
-before.
+global heights (their levels: say 33 -> 129 -> 513 at align-corners): a
+rank takes its output band's rows of the global H matrix, gathers the
+input rows of their nonzero column window (align-corners windows cross
+the bands on either side; the gather's plan is every rank's) and
+applies the W matrix as before.
 """
 
 from __future__ import annotations
@@ -20,6 +20,7 @@ import functools
 import numpy as np
 import torch
 
+from s2r_tpu_torch.core.mesh import band_bounds
 from s2r_tpu_torch.ops import halo
 
 
@@ -58,25 +59,25 @@ def _matrix(in_size: int, out_size: int, dtype: torch.dtype,
 
 
 @functools.lru_cache(maxsize=64)
-def _band_matrix(h: int, oh: int, size: int, rank: int, dtype: torch.dtype,
-                 device: torch.device):
-    """(above, below, M): the rows of the global (oh*size, h*size) matrix
-    that rank `rank`'s output band takes, over its input band extended by
-    `above` and `below` rows (the widest window over the ranks; the rows
-    outside the image weigh 0)."""
-    full = _interp_matrix(h * size, oh * size)
-    above = below = 0
+def _band_matrix(h_in: int, b_in: int, h_out: int, b_out: int, size: int,
+                 rank: int, dtype: torch.dtype, device: torch.device):
+    """(windows, M): every rank's window of input rows, the nonzero
+    columns of its output band's rows of the global (h_out, h_in) matrix
+    (bands of b_in and b_out rows, core/mesh.py ``band_bounds``; an empty
+    output band takes an empty window at the input's end), and this
+    rank's rows of the matrix over its window."""
+    full = _interp_matrix(h_in, h_out)
+    windows = []
     for t in range(size):
-        cols = np.nonzero(full[t * oh:(t + 1) * oh].any(axis=0))[0]
-        above = max(above, t * h - int(cols[0]))
-        below = max(below, int(cols[-1]) + 1 - (t + 1) * h)
-    lo = rank * h - above
-    m = np.zeros((oh, h + above + below))
-    for j in range(m.shape[1]):
-        if 0 <= lo + j < h * size:
-            m[:, j] = full[rank * oh:(rank + 1) * oh, lo + j]
+        o0, o1 = band_bounds(h_out, b_out, t)
+        cols = np.nonzero(full[o0:o1].any(axis=0))[0]
+        windows.append((int(cols[0]), int(cols[-1]) + 1) if len(cols)
+                       else (h_in, h_in))
+    o0, o1 = band_bounds(h_out, b_out, rank)
+    lo, hi = windows[rank]
     with torch.inference_mode(False):
-        return above, below, torch.from_numpy(m).to(device, dtype)
+        return tuple(windows), torch.from_numpy(
+            np.ascontiguousarray(full[o0:o1, lo:hi])).to(device, dtype)
 
 
 def resize_bilinear_align_corners(x: torch.Tensor, out_hw,
@@ -94,10 +95,12 @@ def resize_bilinear_align_corners(x: torch.Tensor, out_hw,
     if mesh is None:
         y = torch.matmul(_matrix(h, oh, compute, x.device), x.to(compute))
     else:
-        above, below, m = _band_matrix(h, oh, mesh.size, mesh.rank, compute,
-                                       x.device)
-        r0 = mesh.rank * h
-        xg = halo.gather_rows(x, r0 - above, r0 + h + below, mesh)
+        h_in, b_in = halo.level(x)
+        h_out, b_out = halo.level_of_width(ow, oh)
+        windows, m = _band_matrix(h_in, b_in, h_out, b_out, mesh.size,
+                                  mesh.rank, compute, x.device)
+        lo, hi = windows[mesh.rank]
+        xg = halo.gather_rows(x, lo, hi, mesh, 0.0, (h_in, b_in), windows)
         y = torch.matmul(m, xg.to(compute))
     y = torch.matmul(y, _matrix(w, ow, compute, x.device).T)
     return y.to(out_dtype)

@@ -22,7 +22,10 @@ LOCAL_RANK 0.  A spec (JSON) names the tasks each rank runs:
   take `steps` steps on seeded global batches (``global_batch``; labels
   with ignored rows spread unevenly over the samples), each rank on
   ``b[rank::W]``, or under ``spatial`` S its data row's samples and its
-  band of their rows (``remat`` and ``spatial`` are the Config's).  Results: the metrics of each step, whether every rank
+  band of their rows (``remat`` and ``spatial`` are the Config's; under
+  ``pad_to``, masked batch padding of the global batch to pad_to, each
+  data row the real samples of its contiguous shard).  Results: the
+  metrics of each step, whether every rank
   holds the same state bit for bit (``ranks_equal``, by an all-reduce of
   the maximum and the minimum), the collectives a step, and on rank 0 the
   state before the first step and after each;
@@ -71,6 +74,7 @@ from s2r_tpu_torch.core.distributed import maybe_initialize
 from s2r_tpu_torch.core.mesh import Layout, Mesh, make_mesh, state_tensors
 from s2r_tpu_torch.models.layers import set_dropout
 from s2r_tpu_torch.tools.step_conditioning import perturb_batchnorm
+from s2r_tpu_torch.train import setup
 from s2r_tpu_torch.train.setup import build_method
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
@@ -98,18 +102,22 @@ def global_batch(method: str, hw, n: int, seed: int) -> Dict[str, np.ndarray]:
     return {"src_image": src, "tgt_image": tgt, "src_label": label}
 
 
-def shard(batch: Dict[str, np.ndarray], layout: Layout
-          ) -> Dict[str, np.ndarray]:
+def shard(batch: Dict[str, np.ndarray], layout: Layout,
+          pad_to: Optional[int] = None) -> Dict:
     """This rank's share of a global batch: the loader's b[row::rows] of
     its data row (b[rank::world] without a spatial axis), and its band of
-    their rows (dim 1)."""
-    data, space = layout.data, layout.space
-    out = {}
-    for k, v in batch.items():
-        v = v[data.rank::data.size]
-        h = v.shape[1] // space.size
-        out[k] = v[:, space.rank * h:(space.rank + 1) * h]
-    return out
+    their rows (core/mesh.py ``Layout.band``, with 'height').  With
+    `pad_to`, the real samples of its shard of the padded global batch
+    (pad_to / rows a shard, JAX's layout: the pad samples on the last
+    rows), possibly none."""
+    data = layout.data
+    if pad_to:
+        per = pad_to // data.size
+        cut = slice(data.rank * per, (data.rank + 1) * per)
+    else:
+        cut = slice(data.rank, None, data.size)
+    return layout.band({k: torch.as_tensor(v[cut])
+                        for k, v in batch.items()})
 
 
 def _to_float64(state) -> None:
@@ -138,9 +146,15 @@ def _config(spec: Dict) -> Config:
 def build(spec: Dict, device, mesh: Mesh):
     """(method, state) of a steps or timing task, as the module docstring
     says."""
-    m = build_method(_config(spec), iters_per_epoch=10,
-                     method=spec["method"], device=device,
-                     n_devices=mesh.size)
+    step_pad_to = setup._step_pad_to
+    if spec.get("pad_to"):  # off a TPU the rule pads nothing: set it
+        setup._step_pad_to = lambda cfg, n: spec["pad_to"]
+    try:
+        m = build_method(_config(spec), iters_per_epoch=10,
+                         method=spec["method"], device=device,
+                         n_devices=mesh.size)
+    finally:
+        setup._step_pad_to = step_pad_to
     set_dropout(m.deeplab, False)
     set_dropout(m.aux_model, False)
     state = m.init_state()
@@ -197,7 +211,8 @@ def run_steps(spec: Dict, device, mesh: Mesh) -> Dict:
     for i in range(spec["steps"]):
         batch = global_batch(spec["method"], spec["hw"], spec["batch"],
                              spec.get("data_seed", 7) + i)
-        state, met = m.step_fn(state, shard(batch, layout))
+        state, met = m.step_fn(state, shard(batch, layout,
+                                            spec.get("pad_to")))
         metrics.append({k: float(v) for k, v in met.items()})
         if keep:
             snapshots.append(_snapshot(state))
@@ -222,8 +237,10 @@ def run_timing(spec: Dict, device, mesh: Mesh) -> Dict:
     card = torch.device(device).type == "cuda"
     sync = torch.cuda.synchronize if card else (lambda: None)
     batch = shard(global_batch(spec["method"], spec["hw"], spec["batch"],
-                               spec.get("data_seed", 7)), layout)
-    batch = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+                               spec.get("data_seed", 7)), layout,
+                  spec.get("pad_to"))
+    batch = {k: v.to(device) if torch.is_tensor(v) else v
+             for k, v in batch.items()}
     for _ in range(spec.get("warmup", 2)):
         state, met = m.step_fn(state, batch)
     sync()
@@ -276,7 +293,8 @@ def run_eval(spec: Dict, device, mesh: Mesh) -> Dict:
                  for k, v in batch.items()}
     batch = layout.band(batch, eval_rows)
     calls, gathers = layout.calls, _gathers(layout)
-    loss, cm, pred = m.eval_step(batch["image"], batch["label"])
+    loss, cm, pred = m.eval_step(batch["image"], batch["label"],
+                                 batch.get("height"))
     out = {"loss": float(loss), "confusion": cm.cpu(),
            "pred": pred.to(torch.uint8).cpu(),
            "collectives": layout.calls - calls,

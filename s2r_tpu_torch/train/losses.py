@@ -21,10 +21,13 @@ of the whole batch, and so are their gradients, which the step sums over
 the ranks.  The cross-entropy all-reduces its normalizer (the summed
 weights of the counted pixels, which carry no gradient); the focal loss
 needs the global CE on every rank for its chain-rule factor and
-all-reduces the detached CE; the plain means divide by the global count.
-Under a spatial layout (core/mesh.py Layout) a rank holds a band of its
-data row's samples' rows, every band the same size: the world still
-counts every pixel once, so the same normalizers hold.
+all-reduces the detached CE; the plain means divide by the global count
+of real elements, taken over the mesh (``real_count``: one all-reduce of
+each rank's count, never its shape times the mesh's size).  Under a
+spatial layout (core/mesh.py Layout) a rank holds a band of its data
+row's samples' rows, short or empty past the image's end, and under
+masked batch padding only its real samples: the world still counts
+every real pixel once, so the same normalizers hold.
 """
 
 from __future__ import annotations
@@ -101,44 +104,64 @@ def build_seg_loss(mode: str, weight: Optional[torch.Tensor] = None,
     raise NotImplementedError(mode)
 
 
-def _global_mean(x: torch.Tensor, mesh) -> torch.Tensor:
-    """The mean of x over every rank's copy of its shape: this rank's
-    share (x.mean() at one process)."""
+def real_count(x: torch.Tensor, mesh) -> Optional[torch.Tensor]:
+    """The elements of x over every rank of `mesh` (a float64 device
+    scalar, by one all-reduce), or None at one process."""
+    if not _sharded(mesh):
+        return None
+    return mesh.all_reduce_(torch.full((1,), float(x.numel()),
+                                       dtype=torch.float64,
+                                       device=x.device))[0]
+
+
+def _global_mean(x: torch.Tensor, mesh,
+                 count: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The mean of x over every rank's x: this rank's share (x.mean() at
+    one process).  `count`: real_count of a tensor of x's shape on every
+    rank (None: taken here)."""
     if not _sharded(mesh):
         return x.mean()
-    return x.sum() / (x.numel() * mesh.size)
+    if count is None:
+        count = real_count(x, mesh)
+    return x.sum() / count.to(x.dtype)
 
 
-def _const_label_ce(logits: torch.Tensor, label: int,
-                    mesh=None) -> torch.Tensor:
+def _const_label_ce(logits: torch.Tensor, label: int, mesh=None,
+                    count: Optional[torch.Tensor] = None) -> torch.Tensor:
     f = torch.promote_types(logits.dtype, torch.float32)
-    return -_global_mean(F.log_softmax(logits.to(f), dim=1)[:, label], mesh)
+    return -_global_mean(F.log_softmax(logits.to(f), dim=1)[:, label], mesh,
+                         count)
 
 
 def domain_loss(src_logits: torch.Tensor, tgt_logits: torch.Tensor,
-                mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
+                mesh=None, count: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """[N,2,H,W] logits of each domain -> (src CE to 0 + tgt CE to 1,
     domain accuracy by the reference's formula); this rank's shares under
-    `mesh`."""
+    `mesh` (`count`: real_count of an [N,H,W] map, when the caller has
+    it)."""
     if src_logits.shape != tgt_logits.shape:
         raise ValueError(f"domain_loss: {tuple(src_logits.shape)} != "
                          f"{tuple(tgt_logits.shape)}")
-    loss = (_const_label_ce(src_logits, 0, mesh)
-            + _const_label_ce(tgt_logits, 1, mesh))
-    n, _, h, w = src_logits.shape
-    if _sharded(mesh):
-        n *= mesh.size
+    if count is None:
+        count = real_count(src_logits[:, 0], mesh)
+    loss = (_const_label_ce(src_logits, 0, mesh, count)
+            + _const_label_ce(tgt_logits, 1, mesh, count))
     src_pred = src_logits.argmax(1)
     tgt_pred = tgt_logits.argmax(1)
-    acc = ((1 - src_pred).sum() + tgt_pred.sum()).float() / 2.0 / n / h / w
-    return loss, acc
+    hits = ((1 - src_pred).sum() + tgt_pred.sum()).float() / 2.0
+    if count is not None:
+        return loss, hits / count.float()
+    n, _, h, w = src_logits.shape
+    return loss, hits / n / h / w
 
 
-def bce_with_logits(logits: torch.Tensor, target: float,
-                    mesh=None) -> torch.Tensor:
+def bce_with_logits(logits: torch.Tensor, target: float, mesh=None,
+                    count: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean BCE-with-logits against a constant target (0.0 or 1.0); this
-    rank's share of the global mean under `mesh`."""
+    rank's share of the global mean under `mesh` (`count`: real_count of
+    the logits, when the caller has it)."""
     x = logits.to(torch.promote_types(logits.dtype, torch.float32))
     abs_x = torch.where(x >= 0, x, -x)  # jnp.abs's gradient: 1 at 0
     return _global_mean(relu(x) - x * float(target)
-                        + torch.log1p(torch.exp(-abs_x)), mesh)
+                        + torch.log1p(torch.exp(-abs_x)), mesh, count)

@@ -49,7 +49,7 @@ from s2r_tpu_torch.train.state import TrainState
 from s2r_tpu_torch.train.steps import (discriminator_params, domain_params,
                                        feature_params, make_eval_step,
                                        make_feature_adapt_step,
-                                       make_output_adapt_step,
+                                       make_output_adapt_step, path_stride,
                                        segmenter_params)
 
 
@@ -106,8 +106,10 @@ def build_method(cfg: Config, iters_per_epoch: int,
     seg_loss_fn = build_seg_loss(cfg.loss_type, class_weights, mesh=mesh)
     lr_fn = make_lr_schedule(cfg.lr_scheduler, cfg.lr, cfg.epochs,
                              iters_per_epoch, cfg.lr_step, cfg.warmup_epochs)
+    layout.unit = path_stride(deeplab, method)
     eval_step = make_eval_step(deeplab, seg_loss_fn, cfg.num_classes,
-                               layout.rows_mesh(cfg.eval_spatial_shard))
+                               layout.rows_mesh(cfg.eval_spatial_shard),
+                               layout.unit)
 
     def new_generator() -> torch.Generator:
         return torch.Generator(device=device).manual_seed(

@@ -53,15 +53,18 @@ process nothing of this runs.
 
 Spatial sharding (`layout`, core/mesh.py Layout with spatial S > 1;
 s2r_tpu/core/mesh.py:26-69): each rank steps a band of its data row's
-samples' rows.  The forwards (G's, D's or the domain classifier's) run
-inside ops/halo.py's ``row_shard`` over the 'space' group, the global
-height refused unless S times the path's largest stride divides it
-(ASPP's output stride, and 32 for the discriminator's input); the
-batch-axis softmax reduces over the 'data' group, the ranks holding
-the same rows of other samples; the losses, BatchNorm, the gradients
-and the metrics stay over the world.  The eval step runs under
-``row_shard`` over its `rows` mesh (the 'space' group, or the world
-under ``--eval-spatial-shard``).
+samples' rows, by the band rule at the path's largest stride
+(``path_stride``: ASPP's output stride, and 32 where the discriminator
+reads the maps), so any height runs on any S and the last band or bands
+are short or empty.  The batch carries the global height ('height', as
+core/mesh.py ``Layout.band`` gives it).  The forwards (G's, D's or the domain
+classifier's) run inside ops/halo.py's ``row_shard`` over the 'space'
+group; the batch-axis softmax reduces over the 'data' group, the ranks
+holding the same rows of other samples; the losses, BatchNorm, the
+gradients and the metrics stay over the world, each normalizer a count
+of real elements over it.  The eval step runs under ``row_shard`` over
+its `rows` mesh (the 'space' group, or the world under
+``--eval-spatial-shard``).
 
 Masked batch padding (`pad_to`, s2r_tpu/train/steps.py:86-130,
 :205-245): with pad_to = N > k, the batch of k samples is zero-padded to
@@ -72,8 +75,14 @@ and running update and Dropout's draw (models/layers.py
 padded back with zeros) and D's and the domain classifier's means (over
 the real rows).  The step then computes what the unpadded step computes.
 The JAX package pads on a TPU only (train/setup.py ``_step_pad_to``), so
-no driver pads here; a caller of the step factories may.  Under a mesh of
-more than one process `pad_to` raises (ROADMAP A.9).
+no driver pads here; a caller of the step factories may.  Under a mesh,
+`pad_to` is the global padded batch and each of the D ranks of the
+'data' group pads its real samples (a prefix of its shard, possibly
+none) to pad_to / D; the JAX layout puts the pad samples at the end of
+the global batch, on the last rank or ranks.  One all-gather of the
+ranks' real counts (read on the host) gives BatchNorm the real samples
+over the group; the batch-axis softmax and the losses leave the pad
+samples out over their groups.
 """
 
 from __future__ import annotations
@@ -91,12 +100,22 @@ from s2r_tpu_torch.io.convert import (deeplab_param_order,
                                       feature_param_order)
 from s2r_tpu_torch.models.layers import bn_real_batch
 from s2r_tpu_torch.ops import halo
-from s2r_tpu_torch.train.losses import bce_with_logits, domain_loss
+from s2r_tpu_torch.train.losses import (bce_with_logits, domain_loss,
+                                        real_count)
 from s2r_tpu_torch.train.optim import FusedOptimizer
 from s2r_tpu_torch.train.state import TrainState
 
 SOURCE_LABEL = 0.0  # train_adapt.py:117
 TARGET_LABEL = 1.0  # train_adapt.py:118
+D_STRIDE = 32  # the discriminator's five stride-2 convs
+
+
+def path_stride(deeplab, method: str) -> int:
+    """The largest stride of a method's path, the band rule's unit: ASPP's,
+    and D's where the discriminator reads the full-resolution maps."""
+    if method == "output_adapt":
+        return max(deeplab.row_stride, D_STRIDE)
+    return deeplab.row_stride
 
 
 class _BatchSoftmax(torch.autograd.Function):
@@ -108,7 +127,9 @@ class _BatchSoftmax(torch.autograd.Function):
     def forward(ctx, x, mesh):
         f = torch.promote_types(x.dtype, torch.float32)
         xf = x.to(f)
-        top = mesh.all_reduce_(xf.amax(0).contiguous(), op="max")
+        top = (xf.amax(0) if x.shape[0]  # a rank of padding has none
+               else xf.new_full(x.shape[1:], float("-inf")))
+        top = mesh.all_reduce_(top.contiguous(), op="max")
         e = torch.exp(xf - top)
         y = e / mesh.all_reduce_(e.sum(0))
         ctx.save_for_backward(y)
@@ -194,28 +215,38 @@ def _layout(mesh, layout) -> Layout:
     return make_layout(mesh or Mesh())
 
 
-def _rows(layout: Layout, x: torch.Tensor, stride: int):
+def _rows(layout: Layout, x: torch.Tensor, stride: int, height=None):
     """The row sharding of a forward over NCHW x, a band of its samples'
-    rows under a spatial layout (nothing without one)."""
-    space = layout.space
-    return halo.row_shard(space, x.shape[2] * space.size, stride,
-                          layout.data)
-
-
-def _check_pad(pad_to, mesh) -> None:
-    if pad_to is not None and mesh.size > 1:
-        raise NotImplementedError(
-            "pad_to: batch padding under a mesh of more than one process "
-            "is not ported (ROADMAP A.9)")
+    rows of the global `height` under a spatial layout (nothing without
+    one)."""
+    return halo.row_shard(layout.space, height, stride, layout.data,
+                          x.shape[3])
 
 
 class _Padding:
-    """The batch padding of one step: `k` real samples of `n` (k None: no
-    padding, and every method is the identity)."""
+    """The batch padding of one step on this rank: `k` real samples of `n`
+    (k None: none of this rank's samples is padding, and pad and real are
+    the identity), and `total`, the real samples over the 'data' group
+    `data` (None: no padding).  `pad_to` is the global padded batch."""
 
-    def __init__(self, pad_to, n_in: int):
-        self.k = n_in if pad_to is not None and pad_to > n_in else None
-        self.n = pad_to if self.k is not None else n_in
+    def __init__(self, pad_to, n_in: int, data, device):
+        self.k, self.n, self.total = None, n_in, None
+        if pad_to is None:
+            return
+        if pad_to % data.size:
+            raise ValueError(f"pad_to {pad_to} does not split over the "
+                             f"{data.size} ranks of the 'data' group")
+        self.n = pad_to // data.size
+        if n_in > self.n:
+            raise ValueError(f"pad_to: {n_in} samples on a rank of "
+                             f"{self.n} (pad_to {pad_to} / {data.size})")
+        self.total = n_in
+        if data.size > 1:
+            counts = data.all_gather(torch.tensor(
+                [n_in], dtype=torch.int64, device=device))
+            self.total = int(sum(int(c.sum()) for c in counts))
+        if n_in < self.n:
+            self.k = n_in
 
     def pad(self, x: torch.Tensor, fill=0) -> torch.Tensor:
         """x [k, ...] -> [n, ...], the new samples `fill`."""
@@ -245,9 +276,7 @@ def make_output_adapt_step(deeplab, discriminator, g_opt, d_opt,
     """
     layout = _layout(mesh, layout)
     mesh = layout.world
-    _check_pad(pad_to, mesh)
-    # D reads the full-resolution maps through five stride-2 convs
-    stride = max(deeplab.row_stride, 32)
+    stride = path_stride(deeplab, "output_adapt")
     if adv_softmax_mode not in ("batch", "class"):
         raise ValueError(f"adv_softmax_mode {adv_softmax_mode!r}")
     g_params, g_mult = segmenter_params(deeplab)
@@ -260,7 +289,7 @@ def make_output_adapt_step(deeplab, discriminator, g_opt, d_opt,
         dev = deeplab.device
         lr = float(lr_fn(state.step))
         src = torch.as_tensor(batch["src_image"], device=dev)
-        padding = _Padding(pad_to, src.shape[0])
+        padding = _Padding(pad_to, src.shape[0], layout.data, dev)
         pad, real = padding.pad, padding.real
         src = pad(src).permute(0, 3, 1, 2)
         tgt = pad(torch.as_tensor(batch["tgt_image"],
@@ -268,8 +297,8 @@ def make_output_adapt_step(deeplab, discriminator, g_opt, d_opt,
         label = pad(torch.as_tensor(batch["src_label"], device=dev), 255)
         deeplab.train()
         discriminator.train()
-        with _rows(layout, src, stride):
-            with bn_real_batch(padding.k):
+        with _rows(layout, src, stride, batch.get("height")):
+            with bn_real_batch(padding.k, padding.total):
                 src_logits, _ = deeplab(src, generator=state.generator)
                 tgt_logits, _ = deeplab(tgt, generator=state.generator)
             l_seg = seg_loss_fn(src_logits, label)
@@ -281,16 +310,17 @@ def make_output_adapt_step(deeplab, discriminator, g_opt, d_opt,
             for p in d_params:
                 p.requires_grad_(False)
             try:
-                l_adv = bce_with_logits(real(discriminator(tp)),
-                                        SOURCE_LABEL, mesh)
+                d_adv = real(discriminator(tp))
             finally:
                 for p in d_params:
                     p.requires_grad_(True)
+            n_d = real_count(d_adv, mesh)  # D's real outputs, every rank's
+            l_adv = bce_with_logits(d_adv, SOURCE_LABEL, mesh, n_d)
             # D's terms on detached maps (train_adapt.py:157-178)
             l_d = (bce_with_logits(real(discriminator(sp)), SOURCE_LABEL,
-                                   mesh)
+                                   mesh, n_d)
                    + bce_with_logits(real(discriminator(tp.detach())),
-                                     TARGET_LABEL, mesh))
+                                     TARGET_LABEL, mesh, n_d))
         grads = mesh.all_reduce_flat(torch.autograd.grad(
             l_seg + l_adv + l_d, g_params + d_params))
         state.opt_state = {
@@ -323,8 +353,7 @@ def make_feature_adapt_step(deeplab, domain_cls, task_opt, d_opt, d_inv_opt,
     """
     layout = _layout(mesh, layout)
     mesh = layout.world
-    _check_pad(pad_to, mesh)
-    stride = deeplab.row_stride
+    stride = path_stride(deeplab, "feature_adapt")
     g_params, _ = segmenter_params(deeplab)  # no 1x/10x groups here
     d_params = domain_params(domain_cls)
     f_params = feature_params(deeplab)
@@ -341,14 +370,15 @@ def make_feature_adapt_step(deeplab, domain_cls, task_opt, d_opt, d_inv_opt,
         dev = deeplab.device
         lr = float(lr_fn(state.step))
         src = torch.as_tensor(batch[src_key], device=dev)
-        padding = _Padding(pad_to, src.shape[0])
+        padding = _Padding(pad_to, src.shape[0], layout.data, dev)
         pad, real = padding.pad, padding.real
         src = pad(src).permute(0, 3, 1, 2)
         label = pad(torch.as_tensor(batch[lbl_key], device=dev), 255)
         gen = state.generator
         deeplab.train()
-        rows = _rows(layout, src, stride)
-        with rows, bn_real_batch(padding.k):
+        rows = _rows(layout, src, stride, batch.get("height"))
+        real_batch = bn_real_batch(padding.k, padding.total)
+        with rows, real_batch:
             src_out, src_feat = deeplab(src, generator=gen)
         task = seg_loss_fn(src_out, label)
         opt = dict(state.opt_state)
@@ -361,13 +391,14 @@ def make_feature_adapt_step(deeplab, domain_cls, task_opt, d_opt, d_inv_opt,
             tgt = pad(torch.as_tensor(batch["tgt_image"],
                                       device=dev)).permute(0, 3, 1, 2)
             domain_cls.train()
-            with rows, bn_real_batch(padding.k):
+            with rows, real_batch:
                 src_d = domain_cls(src_feat, generator=gen)
                 _, tgt_feat = deeplab(tgt, generator=gen)
                 tgt_d = domain_cls(tgt_feat, generator=gen)
             src_d, tgt_d = real(src_d), real(tgt_d)
-            d_l, d_acc = domain_loss(src_d, tgt_d, mesh)
-            d_inv_l, _ = domain_loss(tgt_d, src_d, mesh)
+            n_d = real_count(src_d[:, 0], mesh)
+            d_l, d_acc = domain_loss(src_d, tgt_d, mesh, n_d)
+            d_inv_l, _ = domain_loss(tgt_d, src_d, mesh, n_d)
             grads = mesh.all_reduce_flat(torch.autograd.grad(
                 task + d_l + d_inv_l, g_params + d_params))
             # train.py:202-204, in torch's order: task over G, d over D,
@@ -388,8 +419,9 @@ def make_feature_adapt_step(deeplab, domain_cls, task_opt, d_opt, d_inv_opt,
 
 
 def make_eval_step(deeplab, seg_loss_fn: Callable, num_classes: int,
-                   rows=None):
-    """eval_step(image, label) -> (loss, cm, pred) on `deeplab`.
+                   rows=None, unit: int = None):
+    """eval_step(image, label, height=None) -> (loss, cm, pred) on
+    `deeplab`.
 
     image NHWC float, label [N,H,W] int (tensors or arrays; moved to G's
     device).  The forward runs in eval mode (running-statistics BatchNorm,
@@ -397,22 +429,22 @@ def make_eval_step(deeplab, seg_loss_fn: Callable, num_classes: int,
     float32 scalar, cm the [C, C] int64 confusion matrix and pred the
     [N,H,W] argmax, all on the device: nothing is read back to the host.
     `rows` (a mesh of more than one process): image and label are this
-    rank's band of the batch's rows, the forward runs row-sharded over
-    it, and loss and cm are this rank's shares (the seg loss over the
-    world).
+    rank's band of the batch's rows of global `height`, by the band rule
+    at `unit` (None: the model's row stride), the forward runs
+    row-sharded over it, and
+    loss and cm are this rank's shares (the seg loss over the world).
     """
+    unit = deeplab.row_stride if unit is None else int(unit)
 
     @torch.no_grad()
-    def eval_step(image, label):
+    def eval_step(image, label, height=None):
         dev = deeplab.device
         x = torch.as_tensor(image, device=dev).permute(0, 3, 1, 2)
         label = torch.as_tensor(label, device=dev)
         was_training = deeplab.training
         deeplab.eval()
         try:
-            with halo.row_shard(rows, x.shape[2] * (rows.size if rows
-                                                    else 1),
-                                deeplab.row_stride):
+            with halo.row_shard(rows, height, unit, width=x.shape[3]):
                 logits, _ = deeplab(x)
         finally:
             deeplab.train(was_training)

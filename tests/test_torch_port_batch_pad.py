@@ -19,7 +19,7 @@ package's padded step, on the CPU.
   dropout off, from JAX's state with BatchNorm statistics, scale and bias
   perturbed, at tests/test_torch_port_train_step_f64.py's bounds.
 - ``_step_pad_to`` gives None off a TPU, and a mesh of two processes
-  refuses `pad_to` (ROADMAP A.9).
+  builds a padded step (tests/test_torch_port_uneven.py steps one).
 """
 
 import numpy as np
@@ -199,12 +199,14 @@ def test_step_pad_to_is_off_here_and_a_mesh_refuses_it():
                        device="cpu")
     from s2r_tpu_torch.train import optim as po
     from s2r_tpu_torch.train import losses as pl
+    # a mesh of two processes takes pad_to now (ROADMAP A.9 is done;
+    # tests/test_torch_port_uneven.py steps it against the JAX package)
     two = Mesh(2, 0)
-    with pytest.raises(NotImplementedError, match="A.9"):
-        make_output_adapt_step(m.deeplab, m.aux_model, po.SGD(), po.Adam(),
-                               lambda s: 1e-3, pl.cross_entropy, pad_to=8,
-                               mesh=two)
-    with pytest.raises(NotImplementedError, match="A.9"):
-        make_feature_adapt_step(m.deeplab, m.aux_model, po.SGD(), po.SGD(),
-                                po.SGD(), lambda s: 1e-3, pl.cross_entropy,
-                                pad_to=8, mesh=two)
+    assert callable(make_output_adapt_step(
+        m.deeplab, m.aux_model, po.SGD(), po.Adam(), lambda s: 1e-3,
+        pl.cross_entropy, pad_to=8, mesh=two))
+    f = S.build_method(Config(precision="f32"), 10, method="feature_adapt",
+                       device="cpu")
+    assert callable(make_feature_adapt_step(
+        f.deeplab, f.aux_model, po.SGD(), po.SGD(), po.SGD(),
+        lambda s: 1e-3, pl.cross_entropy, pad_to=8, mesh=two))

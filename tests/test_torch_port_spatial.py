@@ -23,8 +23,9 @@ same layers on the whole tensor, on the CPU, ranks simulated by threads
 - ResNet-50, Xception-65 and DRN-D-54: DeepLab's train-mode forward and
   backward over 2 bands against the whole image, float64, rel 1e-10.
 - The refusals: S not dividing the world, a batch not dividing the data
-  rows, a height not divisible by S times the stride, a world spanning
-  nodes, batch padding under a spatial layout.
+  rows, a world spanning nodes; a height not divisible by S times the
+  stride and batch padding under a spatial layout run
+  (tests/test_torch_port_uneven.py holds them).
 
 The steps at 2 x 2 over gloo processes run in
 tests/test_torch_port_distributed.py's spawn.
@@ -149,7 +150,7 @@ def _sharded(fn, x, params, spatial, world=None, extra=None):
     def rank(layout, r):
         s = layout.space.rank
         xb = _band(x, s, spatial).detach().clone().requires_grad_(True)
-        with halo.row_shard(layout.space):
+        with halo.row_shard(layout.space, x.shape[2], width=x.shape[3]):
             y = fn(xb)
         grads = torch.autograd.grad((y * _band(u, s, spatial)).sum(),
                                     [xb] + list(params),
@@ -199,7 +200,8 @@ def test_gather_rows_equals_slicing(spatial, pad):
         for above, below in cases:
             xb = _band(x, mesh.rank, spatial).clone().requires_grad_(True)
             r0 = mesh.rank * h
-            y = halo.gather_rows(xb, r0 - above, r0 + h + below, mesh, pad)
+            y = halo.gather_rows(xb, r0 - above, r0 + h + below, mesh, pad,
+                                 (h * spatial, h))
             w = torch.arange(y.numel(), dtype=F64).view(y.shape) + r
             (gx,) = torch.autograd.grad((torch.where(torch.isinf(y), 0, y)
                                          * w).sum(), xb)
@@ -290,13 +292,23 @@ def test_align_corners_resizes(h, ratio):
     """The decoder's (ASPP's output to the low-level size) and the logits'
     upsample (both x4), as bands; the output size is the band's, as the
     model gives it."""
-    _check_layer(lambda x: resize_bilinear_align_corners(
-        x, (x.shape[2] * ratio, 24)), _x(2, 3, h, 6))
+    _check_layer(_resize_to(ratio, 24), _x(2, 3, h, 6))
+
+
+def _resize_to(ratio, width):
+    """x -> its align-corners resize to `ratio` times its rows and
+    `width` columns; under row sharding the target level (ratio times
+    x's) registered first, as the model's strided ops register theirs."""
+    def fn(x):
+        if halo.current() is not None:
+            height, band = halo.level(x)
+            halo.register(width, height * ratio, band * ratio)
+        return resize_bilinear_align_corners(x, (x.shape[2] * ratio, width))
+    return fn
 
 
 def test_resize_four_bands():
-    _check_layer(lambda x: resize_bilinear_align_corners(
-        x, (x.shape[2] * 4, 12)), _x(1, 2, 8, 3), spatial=4)
+    _check_layer(_resize_to(4, 12), _x(1, 2, 8, 3), spatial=4)
 
 
 def test_resnet_max_pool():
@@ -334,7 +346,7 @@ def test_aspp_pool_over_space(train, world, spatial):
         set_batchnorm_sync(mod, layout.world)
         d, s = layout.data.rank, layout.space.rank
         xb = _band(x[d::rows], s, spatial).clone().requires_grad_(True)
-        with halo.row_shard(layout.space, columns=layout.data):
+        with halo.row_shard(layout.space, x.shape[2], 1, layout.data):
             y = mod(xb)
         grads = torch.autograd.grad(
             (y * _band(u[d::rows], s, spatial)).sum(),
@@ -458,7 +470,7 @@ def test_mobilenet_eval_step_matches_jax():
                                                       mesh=layout.world),
                               c, layout.world)
         band = slice(r * hw // 2, (r + 1) * hw // 2)
-        return step(image[:, band], label[:, band])
+        return step(image[:, band], label[:, band], hw)
 
     out = _threads(2, 2, run)
     loss = sum(float(o[0]) for o in out)
@@ -476,9 +488,12 @@ def _world_of(monkeypatch, world, rank=0):
 
 def test_refusals(monkeypatch):
     """S not dividing the world; a batch not dividing the data rows; a
-    height not divisible by S times the path's stride (naming the
-    smallest crop that works); a world spanning nodes; batch padding
-    under a spatial layout (ROADMAP A.9)."""
+    world spanning nodes.  What they refused before runs now: a height
+    not divisible by S times the path's stride (short bands), and batch
+    padding under a spatial layout (a step builds)."""
+    from s2r_tpu_torch.models.deeplab import DeepLab
+    from s2r_tpu_torch.train import losses as pl
+    from s2r_tpu_torch.train import optim as po
     from s2r_tpu_torch.train.steps import make_output_adapt_step
 
     _world_of(monkeypatch, 3)
@@ -492,16 +507,20 @@ def test_refusals(monkeypatch):
     with pytest.raises(NotImplementedError, match="spans nodes"):
         M.pick_num_devices(4, None, 2)
     monkeypatch.delenv("LOCAL_WORLD_SIZE")
-    with pytest.raises(ValueError, match="smallest crop that works is 576"):
-        halo.row_shard(Mesh(2, 0), 513, 32)
-    with pytest.raises(ValueError, match="smallest crop that works is 64"):
-        M.check_rows(48, 2, 32)
-    M.check_rows(512, 4, 32)
+    with halo.row_shard(Mesh(2, 0), 513, 32) as rows:
+        assert rows.size == 2
+        assert halo.state().levels == {None: (513, 288)}
+    # 48 rows over 2 at stride 32: bands of 32 and 16; 512 over 4: even
+    assert M.band_rows(48, 2, 32) == 32
+    assert M.band_bounds(48, 32, 1) == (32, 48)
+    assert M.band_rows(512, 4, 32) == 128
     layout = M.make_layout(Mesh(2, 0), 2)
     assert layout.space.size == 2 and layout.data.size == 1
-    with pytest.raises(NotImplementedError, match="A.9"):
-        make_output_adapt_step(None, None, None, None, None, None, pad_to=4,
-                               layout=layout)
+    model = DeepLab(device="cpu")
+    d = FCDiscriminator(num_classes=19, device="cpu")
+    assert callable(make_output_adapt_step(
+        model, d, po.SGD(), po.Adam(), lambda s: 1e-3, pl.cross_entropy,
+        pad_to=4, layout=layout))
 
 
 @pytest.mark.parametrize("backbone", ["resnet50", "xception", "drn"])

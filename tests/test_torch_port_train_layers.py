@@ -325,22 +325,20 @@ def test_unported_options_raise():
                      method="feature_adapt", device="cpu")
     assert x.deeplab.backbone_name == "xception"
     assert x.deeplab.decoder.conv1.in_channels == 128
-    # batch padding is ported (tests/test_torch_port_batch_pad.py) but
-    # under a mesh of more than one process (ROADMAP A.9)
+    # batch padding is ported (tests/test_torch_port_batch_pad.py), under
+    # a mesh of more than one process too (tests/test_torch_port_uneven.py)
     two = Mesh(2, 0)
     m = build_method(cfg, 10, method="output_adapt", device="cpu")
     assert callable(make_output_adapt_step(
         m.deeplab, m.aux_model, po.SGD(), po.Adam(), lambda s: 1e-3,
         pl.cross_entropy, pad_to=8))
-    with pytest.raises(NotImplementedError, match="A.9"):
-        make_output_adapt_step(m.deeplab, m.aux_model, po.SGD(), po.Adam(),
-                               lambda s: 1e-3, pl.cross_entropy, pad_to=8,
-                               mesh=two)
+    assert callable(make_output_adapt_step(
+        m.deeplab, m.aux_model, po.SGD(), po.Adam(), lambda s: 1e-3,
+        pl.cross_entropy, pad_to=8, mesh=two))
     f = build_method(cfg, 10, method="feature_adapt", device="cpu")
     assert callable(make_feature_adapt_step(
         f.deeplab, f.aux_model, po.SGD(), po.SGD(), po.SGD(),
         lambda s: 1e-3, pl.cross_entropy, pad_to=8))
-    with pytest.raises(NotImplementedError, match="A.9"):
-        make_feature_adapt_step(f.deeplab, f.aux_model, po.SGD(), po.SGD(),
-                                po.SGD(), lambda s: 1e-3, pl.cross_entropy,
-                                pad_to=8, mesh=two)
+    assert callable(make_feature_adapt_step(
+        f.deeplab, f.aux_model, po.SGD(), po.SGD(), po.SGD(),
+        lambda s: 1e-3, pl.cross_entropy, pad_to=8, mesh=two))
