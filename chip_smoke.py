@@ -253,8 +253,9 @@ Phases, each of which must pass:
    that records pad_stats False and serves ring-free; launches as
    predicted.
 13. Print the kernels line (each kernel's launches, and by the paths
-   that launched it, phase 11's runs under 'native' and phase 14's under
-   'spatial_*'; floats to 6 significant digits), the card's name and
+   that launched it, phase 11's runs under 'native', phase 14's under
+   'spatial_*' and 'uneven_*', phase 15's under 'idle_*' and
+   'infer_jpeg_*'; floats to 6 significant digits), the card's name and
    power limit, and as the last line {"ok": true, "device": {...}}.
 14. The spatial arms (--spatial-shard, --eval-spatial-shard; ROADMAP
    A.8), run before phase 13's line.  (a) Each kernel of the spatial
@@ -300,6 +301,28 @@ Phases, each of which must pass:
    real samples padded to 8, the second rank padding only) at 10b's
    check against one process's padded step, at 10b's bounds; the second
    rank launches no BatchNorm sums.
+15. The devices JAX idles (ROADMAP A.10) and the rest of the data path
+   (A.4), after phase 14.  (a) Three gloo ranks on the one card at 10b's
+   check (global batch 4: JAX's count 2): ranks 0-1 against 10b's one
+   process at its bounds, launches as step_launches(world=2) predicts,
+   249 all-reduces a step; rank 2 issues no collective after set-up,
+   launches nothing, allocates nothing (the allocator's peak 0 bytes)
+   and exits 0; the output step at the train cell timed on ranks 0-1
+   beside 10b's world of 2.  (b) The Trainer with --num-devices 2 in
+   that world of 3 (one epoch and its validation, 128x128 batch 4
+   float32): the initial validation against one process, best_pred the
+   same on both ranks, rank 0 alone writing the run directory.  (c) Four
+   ranks at --spatial-shard 2 and batch 3 (JAX: 1 data row x 2 bands):
+   10b's check at that batch against one process on the card and the
+   CPU, launches as predicted; ranks 2-3 silent as in (a).  (d) The host
+   library built here: every JPEG fixture
+   (s2r_tpu_torch/data/jpeg_fixtures) to the SHA-256 of PIL's decode;
+   RandomRotate, 16-bit gray and gamma-chunk gray to REST_DIGEST (PIL's
+   and libpng's results, tests/test_torch_port_data_rest.py); the
+   2048x1024 JPEG's decode timed; cli.infer over .jpg frames with phase
+   5's final state served exact and decoder-int8 at 2048x1024 batch 8,
+   labels equal to make_serving_fn on the same batch, launches as
+   predicted, ms/image.
 
 Without a CUDA device, or outside a checkout holding s2r_tpu_torch, it exits
 non-zero and prints no result.  Float32 convs run with TF32 off.  It writes
@@ -4848,6 +4871,367 @@ def uneven_phase(smi, check_refs):
     return paths
 
 
+# phase 15: the devices JAX idles (ROADMAP A.10) and the rest of the data
+# path (A.4).  A world of IDLE_WORLD ranks at 10b's global batch of 4: JAX
+# takes 2 devices, the port ranks 0-1; --spatial-shard 2 at batch 3 over 4
+# ranks (3 does not divide the 2 data rows): one data row x 2 bands, ranks
+# 2-3 idle.  (At batch 1 ASPP's pooled BatchNorm would normalize one value
+# a channel, where float32 rounding alone moves the step past 10b's
+# bounds.)
+IDLE_WORLD = 3
+IDLE_SPATIAL_WORLD, IDLE_SPATIAL_BATCH = 4, 3
+IDLE_TRAINER_HW = 128
+# the SHA-256 of rest_digest's calls; tests/test_torch_port_data_rest.py
+# holds PIL's and the JAX package's libpng decoder's outputs on the same
+# calls to it
+REST_DIGEST = ("c9fd42758381a50ed1fca7ed18b6e1af"
+               "d531f64ffa136642de13af6a0f743a5d")
+REST_ROTATE = 20  # RandomRotate's degree in rest_digest
+# gamma chunks of rest_digest's RGB labels: gAMA 45455, 100000 and
+# 220000, sRGB, cHRM with gAMA
+_CHRM = (31270, 32900, 64000, 33000, 30000, 60000, 15000, 6000)
+REST_GAMMA = ((("gAMA", (45455,)),), (("gAMA", (100000,)),),
+              (("gAMA", (220000,)),), (("sRGB", None),),
+              (("cHRM", _CHRM), ("gAMA", (45455,))))
+JPEG_COPIES = 16  # copies of the 2048x1024 JPEG fixture among the frames
+
+
+def png_bytes(samples, color, depth, chunks=()):
+    """A PNG of `samples` ([H, W] or [H, W, C], values below 2**depth, at
+    8 or 16 bits), rows unfiltered, with `chunks` ((kind, big-endian
+    uint32 fields or None for sRGB's one byte 0), ...) after IHDR."""
+    import struct
+    import zlib
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+    h, w = samples.shape[:2]
+    rows = np.ascontiguousarray(samples.astype(
+        ">u2" if depth == 16 else np.uint8)).reshape(h, -1).view(np.uint8)
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), rows], 1).tobytes()
+    extra = b"".join(chunk(k.encode(), b"\0" if v is None else
+                           struct.pack(f">{len(v)}I", *v))
+                     for k, v in chunks)
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(
+        ">IIBBBBB", w, h, depth, color, 0, 0, 0)) + extra
+        + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
+
+
+def rest_digest(rotate, decode16, gray):
+    """SHA-256 over RandomRotate(REST_ROTATE) of seeded samples
+    (rotate(sample, rng) -> {key: uint8 array}, an RGB image and a label),
+    16-bit gray and gray+alpha PNGs as raw samples and as RGB
+    (decode16(data, rgb)), and the one channel of 8-bit RGB and RGBA PNGs
+    under each of REST_GAMMA's chunks (gray(data))."""
+    import hashlib
+    import random
+
+    rs, h = np.random.RandomState(SEED), hashlib.sha256()
+    for i in range(6):
+        ih, iw = (int(v) for v in rs.randint(9, 80, 2))
+        sample = {"image": rs.randint(0, 256, (ih, iw, 3)).astype(np.uint8),
+                  "label": rs.randint(0, 19, (ih, iw)).astype(np.uint8)}
+        for v in rotate(sample, random.Random(i)).values():
+            h.update(np.ascontiguousarray(v, np.uint8).tobytes())
+    for i in range(4):
+        ih, iw = (int(v) for v in rs.randint(1, 40, 2))
+        v = rs.randint(0, 65536, (ih, iw))
+        la = np.stack([v, rs.randint(0, 65536, (ih, iw))], -1)
+        for data in (png_bytes(v, 0, 16), png_bytes(la, 4, 16)):
+            for rgb in (False, True):
+                h.update(np.ascontiguousarray(decode16(data, rgb),
+                                              np.uint8).tobytes())
+    for chunks in REST_GAMMA:
+        for color, ch in ((2, 3), (6, 4)):
+            ih, iw = (int(v) for v in rs.randint(1, 40, 2))
+            data = png_bytes(rs.randint(0, 256, (ih, iw, ch)), color, 8,
+                             chunks)
+            h.update(np.ascontiguousarray(gray(data), np.uint8).tobytes())
+    return h.hexdigest()
+
+
+def idle_phase(smi, check_refs, dist_ms):
+    """Phase 15a-c: gloo ranks on the one card, tools/dist_check.py
+    ``subworld`` specs.  (a) IDLE_WORLD ranks at 10b's check (global
+    batch 4, which 3 does not divide: JAX's count 2): ranks 0-1 against
+    10b's one-process runs at 10b's bounds, launches as
+    step_launches(world=2) predicts, 249 all-reduces a step; then the
+    output step at the train cell timed (ms/step a rank beside 10b's two
+    ranks, `dist_ms`).  (b) The Trainer with --num-devices 2 (one epoch
+    and its validation, IDLE_TRAINER_HW batch 4 float32): the initial
+    validation's confusion matrix against one process (the same pixels,
+    labels differing on at most 0.2% at float32 near-ties), best_pred
+    the same on both ranks, rank 0 alone writing the run directory.  (c)
+    IDLE_SPATIAL_WORLD ranks at --spatial-shard 2, batch 3 (JAX: one data
+    row x 2 bands): 10b's check at that batch against one process on the
+    card and the CPU, at 10b's bounds (after the first step a loss
+    within 3x its float32 spread), launches as step_launches(world=2,
+    spatial=2) predicts.  Every idle rank: no collective after set-up,
+    no kernel launch, no device memory (the allocator's peak 0), the end
+    barrier passed once a Trainer, exit 0.  Returns ({path: launches
+    summed over the ranks}, summary)."""
+    from s2r_tpu_torch.tools import dist_check
+
+    ref, cpu = check_refs
+    check = dict(kind="steps", method="output_adapt",
+                 hw=list(DIST_CHECK_HW), batch=DIST_CHECK_BATCH,
+                 steps=DIST_STEPS, precision="f32")
+    timing = dict(kind="timing", method="output_adapt", hw=list(TRAIN_HW),
+                  batch=BATCH, precision="bf16", warmup=2, timed=5)
+    sp = dict(check, batch=IDLE_SPATIAL_BATCH, spatial=SPATIAL)
+    root = tempfile.mkdtemp(prefix="s2r_idle_")
+    trainer = dict(kind="trainer", hw=IDLE_TRAINER_HW,
+                   batch=DIST_CHECK_BATCH, precision="f32", train_steps=2,
+                   run_root=os.path.join(root, "three"), num_devices=2)
+    try:
+        t0 = time.perf_counter()
+        three = dist_check.spawn(
+            {"subworld": {"batch": DIST_CHECK_BATCH},
+             "tasks": [check, trainer, timing]}, IDLE_WORLD, DEV,
+            backend="gloo", timeout=600)
+        three_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        four = dist_check.start(
+            {"subworld": {"batch": IDLE_SPATIAL_BATCH, "spatial": SPATIAL},
+             "tasks": [sp]}, IDLE_SPATIAL_WORLD, DEV, backend="gloo",
+            timeout=600)
+        one_tr = dist_check.run_tasks({"tasks": [dict(
+            trainer, run_root=os.path.join(root, "one"), num_devices=None)]},
+            torch.device(DEV, 0))[0]
+        one_sp = dist_check.run_tasks({"tasks": [dict(sp, spatial=1)]},
+                                      torch.device(DEV, 0))[0]
+        torch.cuda.empty_cache()
+        cpu_sp = dist_check.run_tasks({"tasks": [dict(sp, spatial=1)]},
+                                      "cpu")[0]
+        four = four.results()
+        four_s = time.perf_counter() - t0
+        runs = sorted(os.listdir(os.path.join(root, "three", "synthetic",
+                                              "deeplab-mobilenet")))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    zero = dict.fromkeys(ref["kernel_launches"], 0)
+    for tag, idle, fits in (("15a", three[2:], 1), ("15c", four[2:], 0)):
+        for r in idle:
+            for t in r:
+                require(t["idle"] and t["collectives"] == 0
+                        and t["peak_bytes"] == 0
+                        and t["end_barriers"] == fits
+                        and t["kernel_launches"] == zero,
+                        f"{tag} idle rank: {t}")
+    # (a) the sub-world's check and its timed step
+    active = three[:2]
+    leaf, worst, sign, value, stats_err = against_one_process(
+        "15a", [r[0] for r in active], ref, cpu)
+    per_step = step_launches("output_adapt", world=2)
+    for r in active:
+        for task, steps in ((0, DIST_STEPS), (2, 7)):
+            want = {k: v * steps for k, v in per_step.items()}
+            require(r[task]["kernel_launches"] == want,
+                    f"15a rank launches {r[task]['kernel_launches']}, "
+                    f"expected {want}")
+            require(r[task]["collectives_per_step"] == DIST_COLLECTIVES,
+                    f"15a all-reduces a step "
+                    f"{r[task]['collectives_per_step']}")
+    got = active[0][0]
+    log(f"[15a idle check] {IDLE_WORLD} gloo ranks on one card, global "
+        f"batch {DIST_CHECK_BATCH} (JAX's count 2: ranks 0-1 step, rank 2 "
+        f"idles), {DIST_CHECK_HW[1]}x{DIST_CHECK_HW[0]} f32, {DIST_STEPS} "
+        "steps against 10b's one process: losses " + "; ".join(
+            f"step {i} " + ", ".join(
+                f"{k} {got['metrics'][i][k]:.7g}/{ref['metrics'][i][k]:.7g}"
+                for k in ("seg_loss", "adv_loss", "d_loss"))
+            for i in range(DIST_STEPS))
+        + f"; G update worst leaf {leaf[worst][0]:.3g} ({worst}), G after "
+        f"the steps {value:.3g}; D sign agreement {100 * sign:.3f}%; "
+        f"BatchNorm running stats {stats_err:.3g}; ranks bit-equal; "
+        f"{DIST_COLLECTIVES} all-reduces a step; the idle rank: 0 "
+        "collectives after set-up, 0 launches, allocator peak 0 bytes, one "
+        f"end barrier ({three_s:.1f} s the spawn of all three tasks)")
+    tm = [r[2] for r in active]
+    ms = [statistics.median(t["ms"]) for t in tm]
+    log(f"[15a idle step] {TRAIN_HW[1]}x{TRAIN_HW[0]} global batch {BATCH} "
+        f"bf16 over ranks 0-1 of {IDLE_WORLD}: " + ", ".join(
+            f"rank {i} {m:.3f} ms/step (median of 5: "
+            + ", ".join(f"{v:.3f}" for v in t["ms"]) + ")"
+            for i, (m, t) in enumerate(zip(ms, tm)))
+        + f"; 10b's world of 2 {dist_ms:.3f}; peak "
+        + ", ".join(f"{t['peak_gib'] or 0:.3f}" for t in tm)
+        + f" GiB a rank; gloo through the host ({smi})")
+    # (b) the Trainer at --num-devices 2 of 3
+    trs = [r[1] for r in active]
+    cm1 = one_tr["confusion"]
+    for t in trs:
+        off = int(np.abs(t["confusion"] - cm1).sum())
+        require(int(t["confusion"].sum()) == int(cm1.sum()) > 0
+                and off <= 2 * 2e-3 * int(cm1.sum()),
+                f"15b validation confusion off one process's by {off}")
+        require(t["best_pred"] == trs[0]["best_pred"] and t["ranks_equal"]
+                and all(np.isfinite(v) for m in t["train_means"]
+                        for v in m.values()),
+                f"15b ranks differ or losses not finite: {t['train_means']}")
+    require("experiment_0" in runs, f"15b run directory {runs}")
+    log(f"[15b idle trainer] Trainer --num-devices 2 of {IDLE_WORLD} ranks, "
+        f"{IDLE_TRAINER_HW}x{IDLE_TRAINER_HW} batch {DIST_CHECK_BATCH} f32, "
+        "one epoch and its validation: initial confusion matrix off one "
+        f"process's by {int(np.abs(trs[0]['confusion'] - cm1).sum())} of "
+        f"{int(cm1.sum())} counts, best_pred {trs[0]['best_pred']:.6g} on "
+        f"both ranks (one process {one_tr['best_pred']:.6g}), losses "
+        + ", ".join(f"{k} {v:.5g}" for k, v in trs[0]["train_means"][0]
+                    .items() if k != "images_per_sec")
+        + f"; run directory {runs} written by rank 0")
+    # (c) --spatial-shard 2 at batch 1 over 4: 1 x 2 and two idle
+    leaf, worst, sign, value, stats_err = against_one_process(
+        "15c", [r[0] for r in four[:2]], one_sp, cpu_sp, loss_spread=True)
+    want = {k: v * DIST_STEPS for k, v in step_launches(
+        "output_adapt", world=2, spatial=SPATIAL).items()}
+    for r in four[:2]:
+        require(r[0]["kernel_launches"] == want,
+                f"15c rank launches {r[0]['kernel_launches']}, expected "
+                f"{want}")
+    got = four[0][0]
+    log(f"[15c idle spatial] {IDLE_SPATIAL_WORLD} gloo ranks at "
+        f"--spatial-shard {SPATIAL}, batch {IDLE_SPATIAL_BATCH} (JAX: 1 data"
+        f" x {SPATIAL} bands, ranks 2-3 idle), {DIST_CHECK_HW[1]}x"
+        f"{DIST_CHECK_HW[0]} f32, {DIST_STEPS} steps against one process "
+        "(card / CPU): losses " + "; ".join(
+            f"step {i} " + ", ".join(
+                f"{k} {got['metrics'][i][k]:.7g}/{one_sp['metrics'][i][k]:.7g}"
+                f"/{cpu_sp['metrics'][i][k]:.7g}"
+                for k in ("seg_loss", "adv_loss", "d_loss"))
+            for i in range(DIST_STEPS))
+        + f"; G update worst leaf {leaf[worst][0]:.3g} ({worst}), D sign "
+        f"agreement {100 * sign:.3f}%, BatchNorm running stats "
+        f"{stats_err:.3g}; {got['gathers_per_step']:.0f} halo gathers a "
+        f"step; idle ranks silent ({four_s:.1f} s with the references)")
+    paths = {"idle_step_check": {}, "idle_trainer": {}, "idle_step": {},
+             "idle_spatial_check": {}}
+    for ranks, tasks in ((active, ("idle_step_check", "idle_trainer",
+                                   "idle_step")),
+                         (four[:2], ("idle_spatial_check",))):
+        for r in ranks:
+            for task, path in enumerate(tasks):
+                for k, v in r[task]["kernel_launches"].items():
+                    paths[path][k] = paths[path].get(k, 0) + v
+    return paths, {"idle_ms_per_step": max(ms)}
+
+
+def host_rest_phase(counted, smi, carry):
+    """Phase 15d: the host library built on the card against PIL's and
+    libpng's results recorded here.  Every JPEG fixture
+    (s2r_tpu_torch/data/jpeg_fixtures) decodes to the SHA-256 of PIL's
+    decode in digests.json; rest_digest of RandomRotate, 16-bit gray and
+    gamma-chunk gray is REST_DIGEST; the 2048x1024 fixture's decode timed
+    (median of 10, host clock).  Then cli.infer over .jpg frames (JPEG_COPIES
+    copies of that frame and the smaller fixtures, resized on the host)
+    with phase 5's final state exported at FULL_HW batch BATCH rgb8, exact
+    and decoder-int8: labels equal to make_serving_fn on the same decoded,
+    resized batch, 14 depthwise launches a batch and 1 requant a batch in
+    int8 mode, ms/image including host IO.  Returns ({path: launches},
+    summary)."""
+    import hashlib
+
+    from s2r_tpu_torch.cli import export, infer
+    from s2r_tpu_torch.data import imaging, native
+    from s2r_tpu_torch.data.transforms import RandomRotate
+    from s2r_tpu_torch.io.serving import load_servable, make_serving_fn
+
+    fixtures = os.path.join(REPO, "s2r_tpu_torch", "data", "jpeg_fixtures")
+    with open(os.path.join(fixtures, "digests.json")) as f:
+        digests = json.load(f)
+    for name, want in sorted(digests.items()):
+        got = imaging.load_rgb(os.path.join(fixtures, name))
+        require(list(got.shape) == want["shape"] and hashlib.sha256(
+            got.tobytes()).hexdigest() == want["sha256"],
+            f"15d: {name} decodes to other bytes than PIL's")
+    big = os.path.join(fixtures, "frame_2048x1024.jpg")
+    with open(big, "rb") as f:
+        data = f.read()
+    times = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        imaging.decode_jpeg(data)
+        times.append(1e3 * (time.perf_counter() - t0))
+    decode_ms = statistics.median(times)
+    rotate = RandomRotate(REST_ROTATE)
+    rest = rest_digest(rotate, imaging.decode_png,
+                       lambda d: native.decode_png(d, 1))
+    require(rest == REST_DIGEST, f"15d rest digest {rest}")
+    log(f"[15d host] {len(digests)} JPEG fixtures decode to PIL's bytes "
+        "(digests.json); RandomRotate, 16-bit gray and gamma-chunk gray "
+        f"hash to REST_DIGEST; the 2048x1024 JPEG decodes in {decode_ms:.3f}"
+        " ms (median of 10: " + ", ".join(f"{t:.3f}" for t in times)
+        + ", host clock, one thread)")
+    os.environ.pop("S2R_PLATFORM", None)
+    root = tempfile.mkdtemp(prefix="s2r_jpeg_")
+    by_path = {}
+    summary = {"jpeg_decode_ms": decode_ms}
+    try:
+        frames = os.path.join(root, "frames")
+        os.makedirs(frames)
+        for i in range(JPEG_COPIES):
+            shutil.copyfile(big, os.path.join(frames, f"city{i:02d}.jpg"))
+        for name in digests:
+            if name != "frame_2048x1024.jpg":
+                shutil.copyfile(os.path.join(fixtures, name),
+                                os.path.join(frames, name))
+        paths = infer.list_frames(frames)
+        n_batches = -(-len(paths) // BATCH)
+        argv = ADAPT_ARGV + [
+            "--run-root", os.path.join(root, "run"), "--resume",
+            carry["adapt"]["ckpt"], "--format", "servable", "--serve-shape",
+            str(BATCH), str(FULL_HW[0]), str(FULL_HW[1]), "--serve-input",
+            "rgb8"]
+        for mode, extra in (("exact", []),
+                            ("int8", ["--serve-quant", "decoder-int8"])):
+            path = os.path.join(root, f"{mode}.s2rt")
+            export.main(argv + extra + ["--out", path])
+            res, launches, _ = drive(
+                counted, lambda a: infer.main(a, keep_predictions=True),
+                ["--servable", path, "--images", frames, "--out-dir",
+                 os.path.join(root, f"out_{mode}")])
+            want = dict.fromkeys(launches, 0)
+            want.update(depthwise_conv3x3=14 * n_batches,
+                        requant_s32_to_s8=n_batches if mode == "int8" else 0)
+            require(res["images"] == len(paths) and launches == want,
+                    f"15d infer {mode}: {res['images']} images, launches "
+                    f"{launches}, expected {want}")
+            by_path[f"infer_jpeg_{mode}"] = launches
+            serve = load_servable(path, DEV)
+            fn = make_serving_fn(serve.model, input="rgb8",
+                                 quant=serve.meta["quant"],
+                                 quant_scales=serve.meta["quant_scales"])
+            for i in range(0, len(paths), BATCH):
+                chunk = paths[i:i + BATCH]
+                batch = np.stack([infer.decode_frame(p, *FULL_HW, "rgb8")
+                                  for p in chunk])
+                if len(chunk) < BATCH:
+                    batch = np.concatenate([batch, np.repeat(
+                        batch[-1:], BATCH - len(chunk), 0)])
+                labels = fn(torch.from_numpy(batch)).cpu().numpy()
+                require(all(np.array_equal(res["predictions"][p], labels[j])
+                            for j, p in enumerate(chunk)),
+                        f"15d infer {mode}: labels differ from "
+                        "make_serving_fn on the same frames")
+            del serve, fn, res["predictions"]
+            sec = res["seconds"]
+            summary[f"infer_jpeg_{mode}_ms_per_image"] = res["ms_per_image"]
+            log(f"[15d infer jpeg {mode}] {len(paths)} .jpg frames "
+                f"({JPEG_COPIES} at 2048x1024, {len(paths) - JPEG_COPIES} "
+                f"small fixtures resized on the host) in {n_batches} batches"
+                f" of {BATCH}: {res['ms_per_image']:.3f} ms/image including "
+                f"host IO, steady-state {res['steady_ms_per_image']:.3f} "
+                f"after batch 0; per image summed over threads: decode+resize"
+                f" {1e3 * sec['decode'] / len(paths):.3f} ms, device "
+                f"{1e3 * sec['device'] / len(paths):.3f} ms, save "
+                f"{1e3 * sec['save'] / len(paths):.3f} ms; labels equal to "
+                f"make_serving_fn; launches as predicted ({smi})")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return by_path, summary
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4955,6 +5339,15 @@ def main():
         torch.cuda.empty_cache()
         log(f"[14] phase 14 in {time.perf_counter() - t14:.1f} s, its "
             f"uneven bands and padding {time.perf_counter() - t14u:.1f} s")
+        t15 = time.perf_counter()
+        idle_launches, idle = idle_phase(
+            smi, check_refs, dist_summary["dist_ms_per_step"])
+        driver_launches.update(idle_launches)
+        torch.cuda.empty_cache()
+        rest_launches, rest = host_rest_phase(counted, smi, carry)
+        driver_launches.update(rest_launches)
+        torch.cuda.empty_cache()
+        log(f"[15] phase 15 in {time.perf_counter() - t15:.1f} s")
         bn_entries[0]["composite"] = dict(
             bn_composite, ms_covers="one 512x1024 batch-8 bf16 train step: "
             "all four entries of 120 BatchNorm calls; library_ms: "
@@ -5019,7 +5412,12 @@ def main():
         f"{spatial['spatial_ms_per_step']:.3f} ms/step at the train cell, "
         f"peak {spatial['spatial_peak_gib']:.3f} GiB a rank against "
         f"{spatial['one_peak_gib']:.3f} one process at {FULL_HW[1]}x"
-        f"{FULL_HW[0]} batch {SPATIAL_PEAK_BATCH}, "
+        f"{FULL_HW[0]} batch {SPATIAL_PEAK_BATCH}; ranks 0-1 of "
+        f"{IDLE_WORLD} (one idle): {idle['idle_ms_per_step']:.3f} ms/step; "
+        f"a 2048x1024 JPEG decoded in {rest['jpeg_decode_ms']:.3f} ms, "
+        f"cli.infer over .jpg frames exact "
+        f"{rest['infer_jpeg_exact_ms_per_image']:.3f} and decoder-int8 "
+        f"{rest['infer_jpeg_int8_ms_per_image']:.3f} ms/image, "
         f"on {smi}; {time.perf_counter() - t_start:.1f} s after imports")
     print(json.dumps({"kernels": significant(kernels)}))
     print(smi)

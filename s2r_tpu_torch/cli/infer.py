@@ -16,8 +16,9 @@ Outputs are cli.test's: ``<stem>_labelId.png`` (Cityscapes labelIds) and
 padded with its last frame and the padding discarded.  ``--host-backend``
 is accepted for the JAX package's flag surface: its three values all take
 data/imaging.py, which gives the pixels of the JAX package's PIL and
-native paths alike.  The port has no JPEG decoder: ``.jpg`` frames raise
-(ROADMAP A.4).
+native paths alike.  ``.jpg`` and ``.jpeg`` frames (told from PNGs by
+their bytes) take data/imaging.py ``decode_jpeg``, Pillow's decode bit
+for bit; the kinds of JPEG it refuses raise (ROADMAP A.4).
 
 The host loop is pipelined as the JAX package's: frames are decoded and
 resized on a thread pool, the next ``--prefetch`` batches are assembled
@@ -47,18 +48,13 @@ FRAME_EXTS = (".png", ".jpg", ".jpeg")
 
 def list_frames(root: str):
     """Frame paths under `root` (recursive, each directory's files
-    sorted); raises for none, and for JPEG frames (ROADMAP A.4)."""
+    sorted); raises for none."""
     paths = []
     for d, _, files in os.walk(root):
         paths += [os.path.join(d, f) for f in sorted(files)
                   if f.lower().endswith(FRAME_EXTS)]
     if not paths:
         raise FileNotFoundError(f"no frames under {root}")
-    jpegs = [p for p in paths if not p.lower().endswith(".png")]
-    if jpegs:
-        raise NotImplementedError(
-            f"s2r_tpu_torch: {jpegs[0]}: JPEG frames are not supported by "
-            "the port's decoder (ROADMAP A.4)")
     return paths
 
 
@@ -102,7 +98,7 @@ def main(argv=None, keep_predictions: bool = False) -> Dict:
         description="sweep a directory with an s2r_tpu_torch servable")
     parser.add_argument("--servable", type=str, required=True)
     parser.add_argument("--images", type=str, required=True,
-                        help="directory (recursive) of .png frames")
+                        help="directory (recursive) of .png/.jpg frames")
     parser.add_argument("--out-dir", type=str, default="result",
                         dest="out_dir")
     parser.add_argument("--dataset", type=str, default="cityscapes",

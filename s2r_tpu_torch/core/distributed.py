@@ -59,17 +59,26 @@ def process_info() -> Tuple[int, int]:
     return dist.get_rank(), dist.get_world_size()
 
 
-def process_shares(spatial: int = 1, eval_rows: bool = False
+def process_shares(spatial: int = 1, eval_rows: bool = False,
+                   n_devices: Optional[int] = None
                    ) -> Tuple[Tuple[int, int], Tuple[int, int]]:
     """((index, count) of a train loader's share of every global batch,
-    the same of an eval loader's).  Without a spatial axis both are
-    (rank, world).  Under ``--spatial-shard S`` the S ranks of a data row
-    load the same samples, the share of their row (rank // S, world // S),
-    and each keeps its band of the rows; the eval loaders follow the JAX
-    package (s2r_tpu/parallel/feed.py:30, s2r_tpu/core/mesh.py:106-122):
-    the data row's share, or with ``--eval-spatial-shard`` the whole
-    batch, every rank keeping its band of the world's rows."""
+    the same of an eval loader's), over the step's ranks: the world, or
+    the sub-world of the first `n_devices` ranks (core/mesh.py
+    ``make_mesh``; a rank past it loads nothing).  Without a spatial axis
+    both are (rank, ranks).  Under ``--spatial-shard S`` the S ranks of a
+    data row load the same samples, the share of their row (rank // S,
+    ranks // S), and each keeps its band of the rows; the eval loaders
+    follow the JAX package (s2r_tpu/parallel/feed.py:30,
+    s2r_tpu/core/mesh.py:106-122): the data row's share, or with
+    ``--eval-spatial-shard`` the whole batch, every rank keeping its band
+    of the step's rows."""
     rank, world = process_info()
+    if n_devices is not None:
+        if rank >= n_devices:
+            raise ValueError(f"rank {rank} idles: the step takes ranks "
+                             f"0-{n_devices - 1}")
+        world = int(n_devices)
     spatial = max(1, int(spatial))
     train = (rank // spatial, max(world // spatial, 1))
     return train, ((0, 1) if eval_rows else train)

@@ -41,11 +41,23 @@ Only the last band or bands are short, and a band may be empty, so any
 H runs on any S, as GSPMD runs it by padding the last shard.  Every
 activation at stride k holds the rows [s*h/k, ...) of its own global
 height, which follows its layer's arithmetic (ops/halo.py).
+
+The devices JAX idles (``pick_num_devices``, s2r_tpu/train/trainer.py:
+40-80): where the batch does not divide the world (or ``--num-devices``
+asks for fewer), the step takes the first n ranks, as JAX takes the
+first n devices.  ``make_mesh(n)`` gives ranks 0..n-1 a ``Mesh`` over a
+group of their own (the sub-world, which ``make_layout`` lays out and
+whose ranks are their world ranks) and the others an ``IdleRank``.  An
+idle rank builds no model, loads no data and joins no collective of the
+run; torch makes it take part in every ``new_group`` (each rank of the
+world calls them in the same order) and the driver's end meets it in
+one barrier of the world (``end_of_run``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import os
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -143,50 +155,120 @@ class Mesh:
             dist.barrier(group=self.group)
 
 
-def make_mesh(num_devices: Optional[int] = None) -> Mesh:
-    """The mesh of the running process group (one process without one).
-    `num_devices`, when given, must be its size."""
+# num_devices -> (the sub-world's group, the world's group of the one
+# barrier at the end) where the step takes fewer ranks than the world, made
+# once: every rank of the world calls new_group for each, in the same order
+_SUBWORLDS: Dict[int, tuple] = {}
+# a week: an idle rank waits out the whole run at the end barrier
+_END_TIMEOUT = datetime.timedelta(days=7)
+
+
+class IdleRank:
+    """A rank that the step's sub-world (ranks 0..size-1) leaves out
+    (``make_mesh``): it builds nothing, joins no collective of the run and
+    meets the world only where torch demands it, in every ``new_group``
+    and in ``end_of_run``."""
+
+    def __init__(self, size: int, rank: int, world: int):
+        self.size, self.rank, self.world = int(size), int(rank), int(world)
+
+    def __repr__(self) -> str:
+        return (f"IdleRank(rank={self.rank} of {self.world}; the step takes "
+                f"0-{self.size - 1})")
+
+
+def _subworld(n: int) -> tuple:
+    if n not in _SUBWORLDS:
+        group = dist.new_group(list(range(n))) if n > 1 else None
+        end = dist.new_group(backend="gloo", timeout=_END_TIMEOUT)
+        _SUBWORLDS[n] = (group, end)
+    return _SUBWORLDS[n]
+
+
+def make_mesh(num_devices: Optional[int] = None):
+    """The mesh of the step's ranks (one process without a group): the
+    world, or with `num_devices` n below it the sub-world of ranks
+    0..n-1, as the JAX package takes ``devices[:n]``
+    (s2r_tpu/core/mesh.py:43-44).  Ranks n.. get an ``IdleRank``.  At n ==
+    world no group is made, so a run that takes every rank takes the
+    default group."""
     rank, world = process_info()
-    if num_devices is not None and num_devices != world:
+    n = world if num_devices is None else int(num_devices)
+    if not 1 <= n <= world:
         raise ValueError(
             f"s2r_tpu_torch: {num_devices} devices asked for, but this "
             f"process is one of {world}: data-parallel training runs one "
             f"process per device (torchrun --nproc-per-node {num_devices})")
-    return Mesh(world, rank)
+    if n == world:
+        return Mesh(world, rank)
+    group, _ = _subworld(n)
+    if rank >= n:
+        return IdleRank(n, rank, world)
+    return Mesh(n, rank, group)
+
+
+def end_of_run(num_devices: Optional[int] = None) -> None:
+    """The one barrier of the whole world at a driver's end where the
+    step's sub-world of `num_devices` ranks leaves ranks idle: every rank
+    passes it once, the idle ones having waited there since set-up.  It
+    runs over a gloo group of its own whose deadline is a week, so no
+    backend's default timeout ends an idle rank's wait, and no card is
+    touched.  Nothing without idle ranks."""
+    n = process_info()[1] if num_devices is None else int(num_devices)
+    if n in _SUBWORLDS:
+        dist.barrier(group=_SUBWORLDS[n][1])
+
+
+def _say(msg: str) -> None:
+    if process_info()[0] == 0:
+        print(msg, flush=True)
 
 
 def pick_num_devices(batch_size: int, requested: Optional[int] = None,
-                     spatial: int = 1) -> int:
-    """The process group's size, which ``--num-devices`` must equal when
-    given (s2r_tpu/train/trainer.py:40-71).  Without a spatial axis it
-    must divide the global batch (the JAX package's multi-host rule).
-    With ``--spatial-shard S`` > 1, S must divide it and the batch only
-    the data rows, world // S; where the JAX package idles the devices a
-    batch does not divide, the port raises, as its data-parallel rule
-    does (ROADMAP A.10).  A world spanning nodes raises
-    NotImplementedError, as the JAX package's multi-host refusal does:
-    the spatial arm is one node's."""
-    world = make_mesh(requested).size
+                     spatial: int = 1, log: bool = True) -> int:
+    """The ranks the step takes, by the JAX package's rule
+    (s2r_tpu/train/trainer.py:40-80), a torchrun world of W ranks on one
+    node playing JAX's one process with W devices: without a spatial axis
+    the largest d <= min(W, `requested` or W) dividing the batch; with
+    ``--spatial-shard S`` > 1, of the available min(W, requested) (which S
+    must divide), S times that rule's count of data rows.  The ranks
+    past it idle (``make_mesh``), and rank 0 says so.  A world spanning
+    nodes (``LOCAL_WORLD_SIZE`` below W) plays JAX's multi-host: the
+    batch must divide W, which is taken whatever `requested` says, and a
+    spatial axis raises NotImplementedError."""
+    world = process_info()[1]
+    local = int(os.environ.get("LOCAL_WORLD_SIZE", world))
     if spatial > 1:
-        local = int(os.environ.get("LOCAL_WORLD_SIZE", world))
         if local != world:
             raise NotImplementedError(
                 f"--spatial-shard is one node's: this world of {world} "
                 f"processes spans nodes of {local}")
-        if world % spatial:
+        avail = min(world, requested) if requested else world
+        if avail % spatial:
             raise ValueError(f"--spatial-shard {spatial} must divide the "
-                             f"device count ({world})")
-        rows = world // spatial
-        if batch_size % rows:
+                             f"device count ({avail})")
+        dp = pick_num_devices(batch_size, avail // spatial, log=False)
+        if log and dp * spatial < avail:
+            _say(f"[s2r_tpu_torch] using {dp * spatial}/{avail} devices "
+                 f"({dp} data x {spatial} spatial): batch_size {batch_size} "
+                 f"is not divisible by {avail // spatial} rows (consider "
+                 "--batch-pad auto or a divisible batch)")
+        return dp * spatial
+    if local != world:
+        if batch_size % world:
             raise ValueError(
-                f"global batch_size ({batch_size}) must be divisible by the "
-                f"data rows ({rows} = {world} processes / --spatial-shard "
-                f"{spatial})")
+                f"multi-host runs need global batch_size ({batch_size}) "
+                f"divisible by total devices ({world})")
         return world
-    if batch_size % world:
-        raise ValueError(f"global batch_size ({batch_size}) must be "
-                         f"divisible by the number of processes ({world})")
-    return world
+    limit = min(world, requested or world)
+    for d in range(limit, 0, -1):
+        if batch_size % d == 0:
+            if d < limit and log:
+                _say(f"[s2r_tpu_torch] using {d}/{limit} devices: batch_size "
+                     f"{batch_size} is not divisible by {limit} (consider "
+                     "--batch-pad auto or a divisible batch)")
+            return d
+    return 1
 
 
 def band_rows(height: int, spatial: int, unit: int = 1) -> int:
@@ -278,14 +360,20 @@ def _subgroups(world: int, spatial: int) -> Tuple[list, list]:
     return _GROUPS[key]
 
 
-def make_layout(world: Mesh, spatial: int = 1) -> Layout:
+def make_layout(world, spatial: int = 1) -> Optional[Layout]:
     """The 2-D layout of `world` at `spatial` columns (Layout).  Subgroups
     are made only where a group of more than one process is neither the
-    world nor one process, so spatial 1 and spatial == world make none."""
+    world nor one process, so spatial 1 and spatial == world make none.
+    An ``IdleRank`` makes the same subgroups of the step's sub-world, as
+    torch's new_group demands of every rank, and gets None."""
     spatial = max(1, int(spatial))
     if world.size % spatial:
         raise ValueError(f"--spatial-shard {spatial} must divide the "
                          f"device count ({world.size})")
+    if isinstance(world, IdleRank):
+        if 1 < spatial < world.size:
+            _subgroups(world.size, spatial)
+        return None
     if spatial == 1:
         return Layout(world, Mesh(), world, 1)
     row, col = divmod(world.rank, spatial)

@@ -39,6 +39,7 @@
 #include <cstring>
 #include <vector>
 
+#include "jpeg.h"
 #include "png.h"
 
 namespace {
@@ -144,9 +145,133 @@ void box_pass(const uint8_t* in, uint8_t* out, int64_t n, int64_t step,
   }
 }
 
+// Geometry.c's COORD and FLOOR.
+inline int coord(double v) { return v < 0.0 ? -1 : (int)v; }
+inline int floor_int(double v) {
+  return v < 0.0 ? (int)std::floor(v) : (int)v;
+}
+
+// Pillow's bilinear_filter8 / bilinear_filter32RGB at the source point
+// (xin, yin) of uint8 [h, w, c]; false outside the image.
+bool bilinear_at(const uint8_t* in, int64_t h, int64_t w, int64_t c,
+                 double xin, double yin, uint8_t* out) {
+  if (xin < 0.0 || xin >= w || yin < 0.0 || yin >= h) return false;
+  xin -= 0.5;
+  yin -= 0.5;
+  const int x = floor_int(xin), y = floor_int(yin);
+  const double dx = xin - x, dy = yin - y;
+  auto clip = [](int64_t v, int64_t n) {
+    return v < 0 ? 0 : v < n ? v : n - 1;
+  };
+  const int64_t x0 = clip(x, w) * c, x1 = clip(x + 1, w) * c;
+  const uint8_t* r0 = in + clip(y, h) * w * c;
+  const bool below = y + 1 >= 0 && y + 1 < h;
+  const uint8_t* r1 = in + (int64_t)(y + 1) * w * c;
+  for (int64_t b = 0; b < c; ++b) {
+    double v1 = r0[x0 + b] + (r0[x1 + b] - r0[x0 + b]) * dx;
+    if (below) {
+      const double v2 = r1[x0 + b] + (r1[x1 + b] - r1[x0 + b]) * dx;
+      v1 = v1 + (v2 - v1) * dy;
+    }
+    out[b] = (uint8_t)v1;
+  }
+  return true;
+}
+
 }  // namespace
 
 extern "C" {
+
+// Pillow's Image.transform(size, AFFINE, a, NEAREST or BILINEAR) of uint8
+// [h, w, c] into out [h, w, c], the fill 0 (fillcolor None): the output
+// pixel (x, y) reads the source at a[0..2] . (x + .5, y + .5, 1),
+// a[3..5] . (the same) (Geometry.c).  BILINEAR: ImagingGenericTransform
+// with bilinear_filter8 / bilinear_filter32RGB (doubles, truncated to
+// 8 bits).  NEAREST: ImagingScaleAffine for a matrix without shear,
+// else affine_fixed (16.16 fixed point) where the four corners fit it,
+// else the double loop of ImagingTransformAffine.
+int s2r_affine(const uint8_t* in, int64_t h, int64_t w, int64_t c,
+               const double* a, int bilinear, uint8_t* out) {
+  std::memset(out, 0, (size_t)(h * w * c));
+  if (bilinear) {
+    for (int64_t y = 0; y < h; ++y) {
+      for (int64_t x = 0; x < w; ++x) {
+        const double xi = x + 0.5, yi = y + 0.5;
+        const double xx = a[0] * xi + a[1] * yi + a[2];
+        const double yy = a[3] * xi + a[4] * yi + a[5];
+        bilinear_at(in, h, w, c, xx, yy, out + (y * w + x) * c);
+      }
+    }
+    return 0;
+  }
+  if (a[1] == 0 && a[3] == 0) {  // ImagingScaleAffine
+    std::vector<int64_t> xin((size_t)w, -1);
+    double xo = a[2] + a[0] * 0.5, yo = a[5] + a[4] * 0.5;
+    for (int64_t x = 0; x < w; ++x) {
+      const int xi = coord(xo);
+      if (xi >= 0 && xi < w) xin[x] = xi;
+      xo += a[0];
+    }
+    for (int64_t y = 0; y < h; ++y) {
+      const int yi = coord(yo);
+      if (yi >= 0 && yi < h)
+        for (int64_t x = 0; x < w; ++x)
+          if (xin[x] >= 0)
+            std::memcpy(out + (y * w + x) * c, in + (yi * w + xin[x]) * c,
+                        (size_t)c);
+      yo += a[4];
+    }
+    return 0;
+  }
+  auto fits = [&](double x, double y) {
+    return std::fabs(x * a[0] + y * a[1] + a[2]) < 32768.0 &&
+           std::fabs(x * a[3] + y * a[4] + a[5]) < 32768.0;
+  };
+  if (fits(0, 0) && fits((double)w, (double)h) && fits(0, (double)h) &&
+      fits((double)w, 0)) {  // affine_fixed
+    auto fix = [](double v) { return floor_int(v * 65536.0 + 0.5); };
+    const int a0 = fix(a[0]), a1 = fix(a[1]), a3 = fix(a[3]), a4 = fix(a[4]);
+    int a2 = fix(a[2] + a[1] * 0.5 + a[0] * 0.5);
+    int a5 = fix(a[5] + a[4] * 0.5 + a[3] * 0.5);
+    for (int64_t y = 0; y < h; ++y) {
+      int xx = a2, yy = a5;
+      for (int64_t x = 0; x < w; ++x) {
+        const int xi = xx >> 16;
+        if (xi >= 0 && xi < w) {
+          const int yi = yy >> 16;
+          if (yi >= 0 && yi < h)
+            std::memcpy(out + (y * w + x) * c, in + (yi * w + xi) * c,
+                        (size_t)c);
+        }
+        xx += a0;
+        yy += a3;
+      }
+      a2 += a1;
+      a5 += a4;
+    }
+    return 0;
+  }
+  double xo = a[2] + a[1] * 0.5 + a[0] * 0.5;
+  double yo = a[5] + a[4] * 0.5 + a[3] * 0.5;
+  for (int64_t y = 0; y < h; ++y) {
+    double xx = xo, yy = yo;
+    for (int64_t x = 0; x < w; ++x) {
+      const int xi = coord(xx);
+      if (xi >= 0 && xi < w) {
+        const int yi = coord(yy);
+        if (yi >= 0 && yi < h)
+          std::memcpy(out + (y * w + x) * c, in + (yi * w + xi) * c,
+                      (size_t)c);
+      }
+      xx += a[0];
+      yy += a[3];
+    }
+    xo += a[1];
+    yo += a[4];
+  }
+  return 0;
+}
+
 
 // The header of a PNG file's bytes: hdr[0..4] = width, height, bit depth,
 // color type, interlace.  Returns 0 or a png.h error code.
@@ -171,9 +296,29 @@ int s2r_png_read(const uint8_t* data, int64_t len, int mode, uint8_t* out,
   int err = png::read(data, (size_t)len, hd, &raw);
   if (err) return err;
   if (!png::mode_ok(mode, hd.color, hd.depth)) return png::kErrUnsupported;
-  if (out_len != hd.h * hd.w * png::out_channels(mode, hd.color))
+  if (out_len != hd.h * hd.w * png::out_channels(mode, hd.color, hd.depth))
     return png::kErrLength;
   return png::decode(raw.data(), (int64_t)raw.size(), hd, mode, out);
+}
+
+// The header of a JPEG file's bytes: hdr[0..3] = width, height,
+// components, progressive.  Returns 0 or a jpeg.h error code.
+int s2r_jpeg_header(const uint8_t* data, int64_t len, int64_t* hdr) {
+  jpeg::Frame f;
+  const int err = jpeg::parse(data, (size_t)len, f, true);
+  if (err) return err;
+  hdr[0] = f.w;
+  hdr[1] = f.h;
+  hdr[2] = f.ncomp;
+  hdr[3] = f.progressive;
+  return 0;
+}
+
+// Decode a JPEG file's bytes into out (out_len = h x w x 3 bytes), as
+// Image.open(p).convert("RGB").  Returns 0 or a jpeg.h error code.
+int s2r_jpeg_read(const uint8_t* data, int64_t len, uint8_t* out,
+                  int64_t out_len) {
+  return jpeg::decode_rgb(data, (size_t)len, out, out_len);
 }
 
 // Pillow's BILINEAR resample of uint8 [ih, iw, c] to [oh, ow, c] from the

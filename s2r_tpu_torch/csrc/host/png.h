@@ -4,13 +4,17 @@
 // the card's machine nor the port needs libpng or PIL.
 //
 // Modes of the output:
-// - kRaw: np.asarray(Image.open(p)): palette indices stay indices, gray at
-//   1/2/4 bits is Pillow's "1" (0/1), "L;2" (x85) and "L;4" (x17), other
-//   files their samples ([h, w, channels]).  At 16 bits only RGB and RGBA,
-//   as their high bytes (Pillow's "RGB;16B", "RGBA;16B").
+// - kRaw: np.asarray(Image.open(p), np.uint8): palette indices stay
+//   indices, gray at 1/2/4 bits is Pillow's "1" (0/1), "L;2" (x85) and
+//   "L;4" (x17), other files their samples ([h, w, channels]).  At 16 bits
+//   RGB and RGBA give their high bytes (Pillow's "RGB;16B", "RGBA;16B"),
+//   gray its low bytes (Pillow's "I;16", cast to uint8), and gray+alpha
+//   Pillow's RGBA ("LA;16B": the gray's high byte thrice, the alpha's).
 // - kRgb: Image.open(p).convert("RGB"), which is also what libpng gives
 //   with palette_to_rgb, expand_gray_1_2_4_to_8, strip_alpha, gray_to_rgb
 //   and strip_16 (the high byte of each 16-bit sample).
+// - kPilRgb: kRgb but for 16-bit gray, which Pillow opens as "I;16" and
+//   converts to min(v, 255) (the PIL route's convert("RGB")).
 // - kGray: libpng's one channel as the JAX package's native pipeline asks
 //   for it (strip_16, expand_gray_1_2_4_to_8, strip_alpha, rgb_to_gray with
 //   red 0.299 and green 0.114 as it passes them: integer coefficients 9797
@@ -18,7 +22,14 @@
 //   as libpng computes them when the file has no gAMA or sRGB chunk), except
 //   that a palette file gives its indices, as np.asarray(Image.open(p))
 //   does: libpng's palette_to_rgb would give the luma of the palette colours
-//   (ROADMAP C.12).
+//   (ROADMAP C.12).  Where an 8-bit RGB(A) file's gamma (a gAMA chunk, or
+//   an sRGB chunk's 45455, before PLTE and IDAT) is more than 5% from 1,
+//   libpng converts in linear light: each sample of a pixel whose samples
+//   differ through a table to gamma 1, the sum rounded, back through a
+//   table to the file's gamma (png_do_rgb_to_gray, png_build_gamma_table:
+//   tables of floor(255 * pow(i / 255, g) + .5) for the reciprocal gammas
+//   libpng rounds in 1e-5 units); a 16-bit one would take libpng's 16-bit
+//   tables, which the reader refuses.
 //
 // Each function returns 0 or one of the codes of kErr* below.
 
@@ -26,16 +37,18 @@
 
 #include <zlib.h>
 
+#include <cmath>
 #include <cstdint>
 #include <cstdlib>
 #include <cstring>
 #include <exception>
+#include <memory>
 #include <vector>
 
 namespace {
 namespace png {
 
-enum Mode { kRaw = 0, kRgb = 1, kGray = 2 };
+enum Mode { kRaw = 0, kRgb = 1, kGray = 2, kPilRgb = 3 };
 
 enum Err {
   kErrUnsupported = 1,  // a color type or depth the mode does not take
@@ -57,8 +70,53 @@ constexpr int64_t kMaxInflate = 1100;
 struct Header {
   int64_t w = 0, h = 0;
   int depth = 0, color = 0, interlace = 0;
+  int64_t gamma = 0;     // the file's gamma in 1e-5 (gAMA, sRGB), 0: none
   uint8_t palette[768];  // the PLTE entries, then black (Pillow's fill)
 };
+
+// libpng's gamma arithmetic (png.c), in 1e-5 units: significance at 5%,
+// the rounded reciprocals, and the 8-bit correction table.
+constexpr int64_t kFp1 = 100000, kGammaThreshold = 5000;
+inline bool gamma_significant(int64_t g) {
+  return g < kFp1 - kGammaThreshold || g > kFp1 + kGammaThreshold;
+}
+inline int64_t reciprocal(int64_t a) {
+  const double r = std::floor(1E10 / (double)a + .5);
+  return r <= 2147483647. && r >= -2147483648. ? (int64_t)r : 0;
+}
+inline int64_t reciprocal2(int64_t a, int64_t b) {
+  double r = 1E15 / (double)a;
+  r /= (double)b;
+  r = std::floor(r + .5);
+  return r <= 2147483647. && r >= -2147483648. ? (int64_t)r : 0;
+}
+inline void gamma_table8(int64_t g, uint8_t* table) {
+  for (int i = 0; i < 256; ++i) {
+    table[i] = (uint8_t)i;
+    if (gamma_significant(g) && i > 0 && i < 255)
+      table[i] = (uint8_t)std::floor(
+          255 * std::pow(i / 255., (double)g * .00001) + .5);
+  }
+}
+
+// The tables of an 8-bit rgb_to_gray with gamma: to linear light, back,
+// and for pixels whose samples are equal.
+struct GrayGamma {
+  uint8_t to_1[256], from_1[256], same[256];
+  explicit GrayGamma(int64_t file_gamma) {
+    const int64_t screen = reciprocal(file_gamma);
+    gamma_table8(reciprocal2(file_gamma, screen), same);
+    gamma_table8(screen, to_1);
+    gamma_table8(reciprocal(screen), from_1);
+  }
+};
+
+// Whether kGray of a file with this header takes libpng's gamma path.
+inline bool gray_gamma(const Header& hd) {
+  return (hd.color == 2 || hd.color == 6) && hd.gamma != 0 &&
+         (gamma_significant(hd.gamma) ||
+          gamma_significant(reciprocal(hd.gamma)));
+}
 
 inline int channels_of(int color) {
   switch (color) {
@@ -82,19 +140,24 @@ inline bool depth_ok(int color, int depth) {
   }
 }
 
+// Channels of kRaw's output: Pillow gives 16-bit gray+alpha as RGBA.
+inline int raw_channels(int color, int depth) {
+  return color == 4 && depth == 16 ? 4 : channels_of(color);
+}
+
 // Channels of a mode's output for a file of `color`.
-inline int out_channels(int mode, int color) {
-  if (mode == kRgb) return 3;
+inline int out_channels(int mode, int color, int depth) {
+  if (mode == kRgb || mode == kPilRgb) return 3;
   if (mode == kGray) return 1;
-  return channels_of(color);
+  return raw_channels(color, depth);
 }
 
 // Whether `mode` takes files of this color type and depth.
 inline bool mode_ok(int mode, int color, int depth) {
   if (!depth_ok(color, depth)) return false;
-  if (mode == kRaw && depth == 16) return color == 2 || color == 6;
-  return mode == kRaw || mode == kRgb || mode == kGray;
+  return mode == kRaw || mode == kRgb || mode == kGray || mode == kPilRgb;
 }
+
 
 inline uint32_t be32(const uint8_t* p) {
   return (uint32_t)p[0] << 24 | (uint32_t)p[1] << 16 | (uint32_t)p[2] << 8 |
@@ -134,7 +197,9 @@ inline int read(const uint8_t* data, size_t len, Header& hd,
   static const uint8_t kSig[8] = {0x89, 'P', 'N', 'G', '\r', '\n', 0x1a, '\n'};
   if (len < 8 || std::memcmp(data, kSig, 8) != 0) return kErrSignature;
   std::memset(hd.palette, 0, sizeof(hd.palette));
-  bool have_ihdr = false, have_idat = false;
+  bool have_ihdr = false, have_idat = false, have_plte = false;
+  bool have_gama = false, have_srgb = false;
+  hd.gamma = 0;
   z_stream zs;
   std::memset(&zs, 0, sizeof(zs));
   int64_t want = 0;
@@ -175,6 +240,20 @@ inline int read(const uint8_t* data, size_t len, Header& hd,
       zs.avail_out = (uInt)(want + 1);
     } else if (std::memcmp(kind, "PLTE", 4) == 0) {
       std::memcpy(hd.palette, body, n < 768 ? n : 768);
+      have_plte = true;
+    } else if (std::memcmp(kind, "gAMA", 4) == 0) {
+      // libpng takes the first in range before PLTE and IDAT; sRGB's wins
+      const int64_t g = n == 4 ? be32(body) : 0;
+      if (!have_plte && !have_idat && !have_gama && !have_srgb && g >= 16 &&
+          g <= 625000000) {
+        hd.gamma = g;
+        have_gama = true;
+      }
+    } else if (std::memcmp(kind, "sRGB", 4) == 0) {
+      if (!have_plte && !have_idat && !have_srgb && n == 1) {
+        hd.gamma = 45455;  // PNG_GAMMA_sRGB_INVERSE
+        have_srgb = true;
+      }
     } else if (std::memcmp(kind, "IDAT", 4) == 0 && raw != nullptr) {
       if (!have_ihdr) { err = kErrHeader; break; }
       have_idat = true;
@@ -277,8 +356,9 @@ inline uint32_t sample(const uint8_t* row, int64_t x, int ch, int s,
 // Expand one unfiltered row of w pixels into out (w pixels of the mode's
 // channels).
 inline void expand_row(const uint8_t* row, int64_t w, const Header& hd,
-                       int mode, uint8_t* out) {
+                       int mode, const GrayGamma* gg, uint8_t* out) {
   const int color = hd.color, depth = hd.depth, ch = channels_of(color);
+  if (mode == kPilRgb && !(depth == 16 && color == 0)) mode = kRgb;
   const int shift = depth == 16 ? 8 : 0;  // 16 bits: the high byte
   if (mode == kRaw && depth == 8) {  // the samples as they are
     std::memcpy(out, row, (size_t)(w * ch));
@@ -289,6 +369,18 @@ inline void expand_row(const uint8_t* row, int64_t w, const Header& hd,
       const uint32_t v = sample(row, x, 1, 0, depth);
       if (mode == kRgb) std::memcpy(out + 3 * x, hd.palette + 3 * v, 3);
       else out[x] = (uint8_t)v;
+    } else if ((mode == kRaw || mode == kPilRgb) && depth == 16 &&
+               color == 0) {
+      const uint32_t v = sample(row, x, 1, 0, depth);  // Pillow's "I;16"
+      if (mode == kPilRgb)
+        out[3 * x] = out[3 * x + 1] = out[3 * x + 2] =
+            (uint8_t)(v < 255 ? v : 255);
+      else
+        out[x] = (uint8_t)v;  // the low byte
+    } else if (mode == kRaw && depth == 16 && color == 4) {  // "LA;16B"
+      out[4 * x] = out[4 * x + 1] = out[4 * x + 2] =
+          (uint8_t)(sample(row, x, 2, 0, depth) >> 8);
+      out[4 * x + 3] = (uint8_t)(sample(row, x, 2, 1, depth) >> 8);
     } else if (color == 0 || color == 4) {
       uint32_t v = sample(row, x, ch, 0, depth);
       v = depth < 8 ? v * gray_scale(depth, mode == kRaw) : v >> shift;
@@ -303,6 +395,12 @@ inline void expand_row(const uint8_t* row, int64_t w, const Header& hd,
         if (depth == 16) {
           v = ((kRedCoeff * r + kGreenCoeff * g + kBlueCoeff * b + 16384) >>
                15) >> 8;
+        } else if (gg != nullptr) {  // in linear light
+          v = (r == g && r == b)
+                  ? gg->same[r]
+                  : gg->from_1[(kRedCoeff * gg->to_1[r] +
+                                kGreenCoeff * gg->to_1[g] +
+                                kBlueCoeff * gg->to_1[b] + 16384) >> 15];
         } else {
           v = (r == g && r == b) ? r
               : (kRedCoeff * r + kGreenCoeff * g + kBlueCoeff * b) >> 15;
@@ -318,14 +416,19 @@ inline void expand_row(const uint8_t* row, int64_t w, const Header& hd,
 }
 
 // Decode the inflated stream `raw` of a file with header `hd` into out,
-// h x w pixels of out_channels(mode, color) samples.
+// h x w pixels of out_channels(mode, color, depth) samples.
 inline int decode(const uint8_t* raw, int64_t len, const Header& hd, int mode,
                   uint8_t* out) {
   if (!mode_ok(mode, hd.color, hd.depth)) return kErrUnsupported;
   if (len != stream_bytes(hd)) return kErrLength;
   const int bits = channels_of(hd.color) * hd.depth;
   const int64_t bpp = bits >= 8 ? bits / 8 : 1;
-  const int oc = out_channels(mode, hd.color);
+  const int oc = out_channels(mode, hd.color, hd.depth);
+  const bool linear = mode == kGray && gray_gamma(hd);
+  if (linear && hd.depth == 16) return kErrUnsupported;  // 16-bit tables
+  std::unique_ptr<GrayGamma> tables;
+  if (linear) tables.reset(new GrayGamma(hd.gamma));
+  const GrayGamma* gg = tables.get();
   const int npass = hd.interlace ? 7 : 1;
   const int64_t max_row = rowbytes(hd.w, bits);
   std::vector<uint8_t> rows, pixels;
@@ -350,9 +453,9 @@ inline int decode(const uint8_t* raw, int64_t len, const Header& hd, int mode,
       if (!unfilter(src[0], cur, prev, rb, bpp)) return kErrFilter;
       const int64_t y = ps[1] + r * ps[3];
       if (!hd.interlace) {
-        expand_row(cur, pw, hd, mode, out + y * hd.w * oc);
+        expand_row(cur, pw, hd, mode, gg, out + y * hd.w * oc);
       } else {
-        expand_row(cur, pw, hd, mode, pixels.data());
+        expand_row(cur, pw, hd, mode, gg, pixels.data());
         uint8_t* orow = out + y * hd.w * oc;
         for (int64_t i = 0; i < pw; ++i)
           std::memcpy(orow + (ps[0] + i * ps[2]) * oc, &pixels[i * oc],
@@ -372,7 +475,8 @@ inline int decode_file(const uint8_t* data, size_t len, int mode, Header& hd,
   if (err) return err;
   if (!mode_ok(mode, hd.color, hd.depth)) return kErrUnsupported;
   try {
-    out.resize((size_t)(hd.h * hd.w * out_channels(mode, hd.color)));
+    out.resize((size_t)(hd.h * hd.w * out_channels(mode, hd.color,
+                                                    hd.depth)));
   } catch (const std::exception&) {
     return kErrAlloc;
   }

@@ -4,19 +4,22 @@ The JAX package's data path takes these from PIL (s2r_tpu/data/
 transforms.py, datasets.py, hostcrop.py); the card's machine has no PIL, so
 the port computes the same bytes itself:
 
-- ``load_rgb(path)`` is ``Image.open(path).convert("RGB")`` and
+- ``load_rgb(path)`` is ``Image.open(path).convert("RGB")`` of a PNG or a
+  JPEG (told apart by the first bytes; ``decode_jpeg``: csrc/host/
+  jpeg.h, libjpeg-turbo's default decode as Pillow runs it) and
   ``load_raw(path)`` is ``np.asarray(Image.open(path), np.uint8)``: palette
   indices of a P-mode label, the values of an L-mode one, [H, W, 4] of an
   RGBA one.  The file is read, inflated (zlib) and unfiltered in C++
   (``csrc/host/png.h``, shared with the native pipeline), which releases
   the GIL, so the loader's threads decode in parallel.  Adam7 files decode
-  at every depth and color type; 16-bit files decode where Pillow gives
-  their high bytes (RGB and RGBA, and gray+alpha to RGB), and the other
-  16-bit cases raise (ROADMAP A.4).
+  at every depth and color type, 16-bit ones as Pillow gives them: the
+  high bytes of RGB, RGBA and gray+alpha (which Pillow opens as RGBA),
+  and of gray ("I;16") the low byte as samples and min(v, 255) as RGB.
 - ``resize_bilinear`` (with ``box=``), ``resize_nearest`` and
   ``gaussian_blur`` give Pillow's BILINEAR, NEAREST and GaussianBlur
   results bit for bit; ``flip_lr``, ``expand`` and ``crop`` its transpose,
-  ImageOps.expand on the right and bottom, and crop.
+  ImageOps.expand on the right and bottom, and crop; ``rotate`` its
+  rotate with NEAREST or BILINEAR.
 
 Arrays are uint8 [H, W] or [H, W, C] and sizes are PIL's (width, height).
 The C++ library is built with g++ at first use (ops/kernels/build.py); a
@@ -27,6 +30,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -46,8 +50,12 @@ def _lib() -> ctypes.CDLL:
     lib.s2r_resize_bilinear.argtypes = [p, i64, i64, i64, p, i64, i64,
                                         f32, f32, f32, f32]
     lib.s2r_gaussian_blur.argtypes = [p, i64, i64, i64, f32, p]
+    lib.s2r_affine.argtypes = [p, i64, i64, i64, p, i32, p]
+    lib.s2r_jpeg_header.argtypes = [p, i64, p]
+    lib.s2r_jpeg_read.argtypes = [p, i64, p, i64]
     for fn in (lib.s2r_png_header, lib.s2r_png_read,
-               lib.s2r_resize_bilinear, lib.s2r_gaussian_blur):
+               lib.s2r_resize_bilinear, lib.s2r_gaussian_blur,
+               lib.s2r_jpeg_header, lib.s2r_jpeg_read, lib.s2r_affine):
         fn.restype = ctypes.c_int
     return lib
 
@@ -73,19 +81,11 @@ PNG_ERRORS = {1: f"a color type or bit depth that {_UNSUPPORTED}",
               7: "an image stream zlib cannot inflate",
               8: "cannot be read",
               9: "too large to decode in memory"}
-RAW, RGB = 0, 1  # png.h's modes
+RAW, RGB = 0, 3  # png.h's modes kRaw and kPilRgb
 
 
 def png_error(name: str, code: int) -> ValueError:
     return ValueError(f"{name}: {PNG_ERRORS.get(code, f'error {code}')}")
-
-
-def _pil_bytes(depth: int, color: int, rgb: bool) -> bool:
-    """Whether Pillow gives the high bytes of a 16-bit file (mode RGB or
-    RGBA from "RGB;16B", "RGBA;16B", and gray+alpha converted to RGB); it
-    gives 16-bit gray as "I;16" and gray+alpha as RGBA, which the decoder
-    does not reproduce."""
-    return depth != 16 or color in (2, 6) or (color == 4 and rgb)
 
 
 def decode_png(data: bytes, rgb: bool, name: str = "<png>") -> np.ndarray:
@@ -98,9 +98,11 @@ def decode_png(data: bytes, rgb: bool, name: str = "<png>") -> np.ndarray:
         raise png_error(name, err)
     w, h, depth, color, _ = (int(v) for v in hdr)
     channels = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}.get(color)
-    if channels is None or not _pil_bytes(depth, color, rgb):
-        raise ValueError(f"{name}: a {depth}-bit PNG of color type {color} "
-                         f"{_UNSUPPORTED}{'' if rgb else ' as raw samples'}")
+    if channels is None:
+        raise ValueError(f"{name}: a PNG of color type {color} "
+                         f"{_UNSUPPORTED}")
+    if color == 4 and depth == 16:  # Pillow's "LA;16B" opens as RGBA
+        channels = 4
     shape = (h, w, 3) if rgb else ((h, w) if channels == 1
                                    else (h, w, channels))
     out = np.empty(shape, np.uint8)
@@ -111,14 +113,52 @@ def decode_png(data: bytes, rgb: bool, name: str = "<png>") -> np.ndarray:
     return out
 
 
+# ----------------------------------------------------------------- JPEG ---
+
+# The error codes of csrc/host/jpeg.h.
+JPEG_ERRORS = {1: "a kind of JPEG (arithmetic coding, lossless, "
+                  "hierarchical, 12-bit, CMYK/YCCK, a DNL marker, no "
+                  "Huffman tables, or progressive coefficients libjpeg "
+                  f"would smooth) that {_UNSUPPORTED}",
+               2: "broken or truncated JPEG data",
+               4: "not a JPEG file",
+               5: "a broken JPEG marker segment",
+               6: "a JPEG without a frame, a scan, or a table a scan needs",
+               9: "too large to decode in memory"}
+JPEG_SIGNATURE = b"\xff\xd8\xff"
+
+
+def decode_jpeg(data: bytes, name: str = "<jpeg>") -> np.ndarray:
+    """JPEG bytes -> uint8 [H, W, 3], ``Image.open(f).convert("RGB")``."""
+    src = np.frombuffer(data, np.uint8)
+    hdr = np.zeros(4, np.int64)
+    err = _lib().s2r_jpeg_header(_ptr(src), src.size, _ptr(hdr))
+    if err:
+        raise ValueError(f"{name}: {JPEG_ERRORS.get(err, f'error {err}')}")
+    out = np.empty((int(hdr[1]), int(hdr[0]), 3), np.uint8)
+    err = _lib().s2r_jpeg_read(_ptr(src), src.size, _ptr(out), out.size)
+    if err:
+        raise ValueError(f"{name}: {JPEG_ERRORS.get(err, f'error {err}')}")
+    return out
+
+
 def _read(path: str) -> bytes:
     with open(path, "rb") as f:
         return f.read()
 
 
+def decode_rgb(data: bytes, name: str = "<image>") -> np.ndarray:
+    """PNG or JPEG bytes, told apart by their first bytes as PIL's
+    Image.open tells them (not by a name's suffix) -> uint8 [H, W, 3]."""
+    if data[:3] == JPEG_SIGNATURE:
+        return decode_jpeg(data, name)
+    return decode_png(data, True, name)
+
+
 def load_rgb(path: str) -> np.ndarray:
-    """``Image.open(path).convert("RGB")`` as uint8 [H, W, 3]."""
-    return decode_png(_read(path), True, path)
+    """``Image.open(path).convert("RGB")`` as uint8 [H, W, 3], of a PNG or
+    a JPEG file."""
+    return decode_rgb(_read(path), path)
 
 
 def load_raw(path: str) -> np.ndarray:
@@ -192,6 +232,37 @@ def gaussian_blur(img: np.ndarray, radius: float) -> np.ndarray:
 
 
 # ------------------------------------------------------------- geometry ---
+
+def rotate(img: np.ndarray, angle: float, bilinear: bool) -> np.ndarray:
+    """``Image.rotate(angle, BILINEAR if bilinear else NEAREST)`` of an L
+    or RGB image (no expand, the center, fill 0): Pillow's shortcuts for
+    0, 180, and 90/270 on a square, else its affine matrix, computed here
+    as Image.rotate computes it, through csrc/host/imaging.cpp
+    ``s2r_affine``."""
+    h, w = img.shape[:2]
+    angle = angle % 360.0
+    if angle == 0:
+        return img.copy()
+    if angle == 180:
+        return np.ascontiguousarray(img[::-1, ::-1])
+    if angle in (90, 270) and w == h:  # ROTATE_90 is counter-clockwise
+        return np.ascontiguousarray(np.rot90(img, 1 if angle == 90 else 3))
+    cx, cy = w / 2, h / 2
+    rad = -math.radians(angle)
+    m = [round(math.cos(rad), 15), round(math.sin(rad), 15), 0.0,
+         round(-math.sin(rad), 15), round(math.cos(rad), 15), 0.0]
+    m[2], m[5] = (m[0] * -cx + m[1] * -cy + m[2],
+                  m[3] * -cx + m[4] * -cy + m[5])
+    m[2] += cx
+    m[5] += cy
+    src = np.ascontiguousarray(img)
+    out = np.empty_like(src)
+    a = np.asarray(m, np.float64)
+    c = img.shape[2] if img.ndim == 3 else 1
+    _check(_lib().s2r_affine(_ptr(src), h, w, c, _ptr(a), int(bilinear),
+                             _ptr(out)), "rotate")
+    return out
+
 
 def flip_lr(img: np.ndarray) -> np.ndarray:
     """``transpose(Image.FLIP_LEFT_RIGHT)``."""

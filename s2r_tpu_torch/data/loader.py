@@ -14,7 +14,10 @@
   the world does not divide is dropped on every rank (s2r_tpu/data/
   loader.py:46-66,87-91).  A tuple of ints hashes the same in every process
   (PYTHONHASHSEED salts only str and bytes), so the batches are
-  bit-identical to JAX's.  Under ``--spatial-shard`` the share is the
+  bit-identical to JAX's.  Where the step takes the first n ranks of the
+  world (core/mesh.py ``pick_num_devices``), the shares are theirs: n
+  ranks split every batch and the others load nothing.  Under
+  ``--spatial-shard`` the share is the
   rank's data row's, and under ``--eval-spatial-shard`` the eval loaders
   load whole batches (core/distributed.py ``process_shares``); the
   Trainer keeps each rank's band of the rows.
@@ -160,13 +163,17 @@ def _native_loaders(cfg: Config, seed: int, train_set, val_set, test_set,
     return train, val, test, train_set.NUM_CLASSES
 
 
-def make_data_loader(cfg: Config, seed: Optional[int] = None):
+def make_data_loader(cfg: Config, seed: Optional[int] = None,
+                     n_devices: Optional[int] = None):
     """(train, val, test, nclass), as s2r_tpu/data/loader.py:121-176 makes
-    them (dataloders/__init__.py:4-28, plus the synthetic dataset)."""
+    them (dataloders/__init__.py:4-28, plus the synthetic dataset), each
+    loading this rank's share over the step's ranks: the world, or the
+    first `n_devices` (core/distributed.py ``process_shares``)."""
     seed = cfg.seed if seed is None else seed
     check_ported(cfg)
     train_share, eval_share = process_shares(cfg.spatial_shard,
-                                             cfg.eval_spatial_shard)
+                                             cfg.eval_spatial_shard,
+                                             n_devices)
     kw = dict(num_workers=cfg.workers, seed=seed)
     cache = dict(staged=cfg.device_aug, cache=cfg.data_cache,
                  cache_bytes=int(cfg.data_cache_gb * 1e9))

@@ -17,8 +17,10 @@ uint8 and the device finishes them (data/device_aug.py
 bytes cross to the card.  The draws from the per-sample ``random.Random``
 are the JAX module's, in its order: the flip gate, the short edge, the crop
 corner, the blur gate, then one radius for each image key in the sample's
-key order.  RandomRotate, which no composition uses, is not ported
-(ROADMAP A.4).
+key order.  RandomRotate, which no composition uses, draws one angle a
+sample; its masks take 0 in the corners the rotation uncovers, a class
+and not the ignore index, as the JAX transform (no fillcolor) does
+(ROADMAP C.17).
 """
 
 from __future__ import annotations
@@ -59,6 +61,20 @@ class RandomHorizontalFlip:
         if rng.random() < 0.5:
             sample = {k: imaging.flip_lr(v) for k, v in sample.items()}
         return sample
+
+
+class RandomRotate:
+    """Joint rotation by U(-degree, degree) (custom_transforms.py:74-89):
+    masks NEAREST, images BILINEAR, Pillow's rotate bit for bit
+    (data/imaging.py ``rotate``)."""
+
+    def __init__(self, degree: float):
+        self.degree = degree
+
+    def __call__(self, sample, rng):
+        deg = rng.uniform(-self.degree, self.degree)
+        return {k: imaging.rotate(v, deg, not _is_mask(k))
+                for k, v in sample.items()}
 
 
 class RandomGaussianBlur:

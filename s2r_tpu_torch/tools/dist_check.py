@@ -33,7 +33,8 @@ LOCAL_RANK 0.  A spec (JSON) names the tasks each rank runs:
   BatchNorm entry's launches and the collectives a step (all-reduces
   over every group, and the halo all-gathers with the elements a rank
   sent), and peak device memory;
-- ``ping``: one all-reduce of a one-element tensor;
+- ``ping``: one all-reduce of a one-element tensor, and one broadcast
+  of each rank's number (rank 0's arrives everywhere);
 - ``eval``: the method's eval step on a seeded global batch
   (``eval_batch``), BatchNorm statistics perturbed, each rank on its
   share (under ``eval_spatial``, ``--eval-spatial-shard``: the whole
@@ -45,7 +46,19 @@ LOCAL_RANK 0.  A spec (JSON) names the tasks each rank runs:
   synthetic``: the validation confusion matrix of the initial state, then
   ``fit`` for one epoch of `train_steps` steps (rank 0 alone writes the
   run directory); ``spatial`` and ``eval_spatial`` set
-  ``--spatial-shard`` and ``--eval-spatial-shard``.
+  ``--spatial-shard`` and ``--eval-spatial-shard``, ``num_devices``
+  ``--num-devices`` (default: the mesh's size).
+
+A spec with ``subworld`` ({"batch", "num_devices", "spatial"}) runs the
+tasks on the ranks the JAX package's rule takes of the W (core/mesh.py
+``pick_num_devices``), ranks 0..n-1, and idles the others: an idle rank
+runs no task (a ``trainer`` task builds its Trainer, which goes idle,
+and calls ``fit``), makes the groups every rank must make, and reports
+``{"idle": True, "collectives": the collectives it issued after set-up,
+"end_barriers": the end-of-run barriers it passed, "peak_bytes": its
+peak device memory, "kernel_launches": the kernels it launched}``.
+Every rank counts its collectives after set-up
+(``collectives_after_setup`` beside its results).
 
 ``run_tasks`` runs the same tasks in this process at W = 1: the
 reference.  chip_smoke.py phase 10b and tests/test_torch_port_distributed.py
@@ -70,6 +83,7 @@ import torch
 import torch.distributed as dist
 
 from s2r_tpu_torch.config import Config
+from s2r_tpu_torch.core import mesh as mesh_mod
 from s2r_tpu_torch.core.distributed import maybe_initialize
 from s2r_tpu_torch.core.mesh import Layout, Mesh, make_mesh, state_tensors
 from s2r_tpu_torch.models.layers import set_dropout
@@ -310,18 +324,24 @@ def run_eval(spec: Dict, device, mesh: Mesh) -> Dict:
     return out
 
 
-def run_trainer(spec: Dict, device, mesh: Mesh) -> Dict:
+def run_trainer(spec: Dict, device, mesh) -> Dict:
+    """The trainer task (the module docstring); on an idle rank the idle
+    Trainer's ``fit``, and None."""
     from s2r_tpu_torch.train.trainer import Trainer
 
     cfg = Config(dataset="synthetic", precision=spec.get("precision", "f32"),
                  crop_size=spec["hw"], base_size=spec["hw"],
                  batch_size=spec["batch"], epochs=1, workers=1,
                  run_root=spec["run_root"], async_save=False,
-                 num_devices=mesh.size if mesh.size > 1 else None,
+                 num_devices=spec.get("num_devices", mesh.size
+                                      if mesh.size > 1 else None),
                  spatial_shard=spec.get("spatial", 1),
                  eval_spatial_shard=spec.get("eval_spatial", False),
                  device_aug=spec.get("device_aug", False))
     trainer = Trainer(cfg, method="output_adapt", device=device)
+    if trainer.idle:
+        trainer.fit()
+        return None
     if spec.get("train_steps"):  # a shorter epoch of the synthetic set
         trainer.train_loader.dataset.length = spec["train_steps"] * \
             cfg.batch_size
@@ -339,9 +359,12 @@ def run_trainer(spec: Dict, device, mesh: Mesh) -> Dict:
 
 
 def run_ping(spec: Dict, device, mesh: Mesh) -> Dict:
-    """One all-reduce of a one-element tensor: the sum of the ranks."""
+    """One all-reduce of a one-element tensor: the sum of the ranks; one
+    broadcast of each rank's number plus one: rank 0's, 1."""
     t = torch.ones(1, device=device)
-    return {"sum": float(mesh.all_reduce_(t)[0])}
+    b = torch.full((1,), float(mesh.rank + 1), device=device)
+    mesh.broadcast_([b])
+    return {"sum": float(mesh.all_reduce_(t)[0]), "broadcast": float(b[0])}
 
 
 TASKS = {"steps": run_steps, "timing": run_timing, "trainer": run_trainer,
@@ -450,6 +473,57 @@ def spawn(spec: Dict, world: int, device: str = "cpu",
                  one_card).results()
 
 
+# torch.distributed's collectives, each counted by count_collectives
+COLLECTIVES = ("all_reduce", "all_gather", "all_gather_into_tensor",
+               "all_gather_object", "all_to_all", "all_to_all_single",
+               "barrier", "broadcast", "broadcast_object_list", "gather",
+               "irecv", "isend", "monitored_barrier", "recv", "reduce",
+               "reduce_scatter", "reduce_scatter_tensor", "scatter", "send")
+
+
+def count_collectives() -> Dict[str, int]:
+    """Count every collective this process issues from now on, by name
+    ('end' for core/mesh.py ``end_of_run``'s barriers): torch.distributed's
+    functions wrapped in place (the port calls them through the module)."""
+    counts: Dict[str, int] = {}
+    end_groups = [g for _, g in mesh_mod._SUBWORLDS.values()]
+
+    def wrap(name, fn):
+        def counted(*a, **k):
+            key = "end" if name == "barrier" and any(
+                k.get("group") is g for g in end_groups) else name
+            counts[key] = counts.get(key, 0) + 1
+            return fn(*a, **k)
+        return counted
+
+    for name in COLLECTIVES:
+        if hasattr(dist, name):
+            setattr(dist, name, wrap(name, getattr(dist, name)))
+    return counts
+
+
+def _idle(spec: Dict, mesh: mesh_mod.IdleRank, device, counts) -> List[Dict]:
+    """An idle rank's part in each task: the groups every rank makes; a
+    trainer task's Trainer, idle, and its ``fit`` (one end barrier)."""
+    out = []
+    for task in spec["tasks"]:
+        if task["kind"] == "trainer":
+            run_trainer(task, device, mesh)
+        else:
+            mesh_mod.make_layout(mesh, task.get("spatial", 1))
+        out.append({"idle": True})
+    card = torch.device(device).type == "cuda"
+    report = {"idle": True,
+              "collectives": sum(v for k, v in counts.items()
+                                 if k != "end"),
+              "end_barriers": counts.get("end", 0),
+              "peak_bytes": torch.cuda.max_memory_reserved() if card
+              else 0,
+              "kernel_launches": {fn.__name__: fn.launches
+                                  for fn in kernel_wrappers()}}
+    return [dict(o, **report) for o in out]
+
+
 def _child(spec_path: str, out_dir: str) -> None:
     with open(spec_path) as f:
         spec = json.load(f)
@@ -458,13 +532,24 @@ def _child(spec_path: str, out_dir: str) -> None:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     maybe_initialize(spec.get("backend"))
-    mesh = make_mesh()
+    sub = spec.get("subworld")
+    n = None if sub is None else mesh_mod.pick_num_devices(
+        sub["batch"], sub.get("num_devices"), sub.get("spatial", 1))
+    mesh = make_mesh(n)
+    counts = count_collectives()  # set-up (the sub-world's group) is done
     device = ("cpu" if spec["device"] == "cpu"
               else torch.device("cuda", torch.cuda.current_device()))
     try:
-        results = run_tasks(spec, device, mesh)
+        if isinstance(mesh, mesh_mod.IdleRank):
+            results = _idle(spec, mesh, device, counts)
+        else:
+            results = run_tasks(spec, device, mesh)
+            for r in results:
+                r["collectives_after_setup"] = dict(counts)
         torch.save(results, os.path.join(out_dir, f"rank{mesh.rank}.pt"))
-        mesh.barrier()
+        if not isinstance(mesh, mesh_mod.IdleRank):
+            mesh.barrier()
+        mesh_mod.end_of_run(n)
     finally:
         dist.destroy_process_group()
 

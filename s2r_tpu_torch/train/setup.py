@@ -13,10 +13,13 @@ method, on any backbone of ``cfg.backbone`` (models/deeplab.py):
 With no method given it is inferred from ``cfg.dataset`` as the JAX
 package does: 'gtav' is source-only, any other dataset feature_adapt.  A
 Config setting the port lacks raises (config.check_ported).  `n_devices`
-must be the process group's size (core/mesh.py); ``--spatial-shard S``
-lays the group out as data rows x S columns (core/mesh.py
-``make_layout``) and ``--eval-spatial-shard`` splits the eval step's rows
-over the whole group (train/steps.py, spatial sharding).  Batch padding
+is the step's ranks (core/mesh.py ``pick_num_devices``): the process
+group, or its first n ranks, whose sub-world then carries every
+collective, the layout and the dropout seeds (a rank past it raises
+here: it builds nothing); ``--spatial-shard S`` lays them out as data
+rows x S columns (core/mesh.py ``make_layout``) and
+``--eval-spatial-shard`` splits the eval step's rows over all of them
+(train/steps.py, spatial sharding).  Batch padding
 (``--batch-pad``) keeps the JAX package's rule (``_step_pad_to``): it
 pays only on a TPU, so both values give None here and the steps get no
 ``pad_to``; the steps pad when a caller gives them one.  ``--remat`` and
@@ -35,8 +38,8 @@ import torch
 
 from s2r_tpu_torch.config import Config, check_ported
 from s2r_tpu_torch.core.device import resolve_device
-from s2r_tpu_torch.core.mesh import (Layout, Mesh, make_layout, make_mesh,
-                                     rank_seed)
+from s2r_tpu_torch.core.mesh import (IdleRank, Layout, Mesh, make_layout,
+                                     make_mesh, rank_seed)
 from s2r_tpu_torch.models.deeplab import DeepLab
 from s2r_tpu_torch.models.discriminator import FCDiscriminator
 from s2r_tpu_torch.models.domain import DomainClassifier
@@ -90,6 +93,8 @@ def build_method(cfg: Config, iters_per_epoch: int,
         method = "source_only" if cfg.dataset == "gtav" else "feature_adapt"
     check_ported(cfg, method)
     mesh = make_mesh(n_devices)
+    if isinstance(mesh, IdleRank):
+        raise ValueError(f"build_method: {mesh}")
     layout = make_layout(mesh, cfg.spatial_shard)
     pad_to = _step_pad_to(cfg, mesh.size)
     device = resolve_device(device)

@@ -33,6 +33,14 @@ the experiment directory, the summaries and the checkpoints; the others
 write nothing, and train-image logging is skipped.  A barrier precedes
 ``--resume auto``'s search and ends ``fit``.
 
+The devices JAX idles (s2r_tpu/train/trainer.py:40-80, core/mesh.py
+``pick_num_devices``): where the step takes the first n ranks of a
+larger world, everything above runs over their sub-world, and a rank
+past it is idle (``idle``): it builds no model, loads no data, takes no
+step or validation, writes nothing and joins no collective; ``fit``
+waits in the world's one barrier at the end (core/mesh.py
+``end_of_run``), which the step's ranks pass when they are done.
+
 Spatial sharding (``--spatial-shard S``, ``--eval-spatial-shard``;
 s2r_tpu/train/trainer.py:40-64, :122-129, :330-343): the world is laid
 out as data rows x S (core/mesh.py ``Layout``).  The S ranks of a data
@@ -55,7 +63,8 @@ import torch
 
 from s2r_tpu_torch.config import Config, check_ported
 from s2r_tpu_torch.core.device import resolve_device
-from s2r_tpu_torch.core.mesh import (pick_num_devices, rank_seed,
+from s2r_tpu_torch.core.mesh import (IdleRank, end_of_run, make_layout,
+                                     make_mesh, pick_num_devices, rank_seed,
                                      state_tensors)
 from s2r_tpu_torch.data import device_aug as DA
 from s2r_tpu_torch.data.loader import make_data_loader
@@ -119,10 +128,16 @@ class Trainer:
         check_ported(cfg, method)
         self.cfg = cfg
         self.device = resolve_device(device)
-        n_devices = pick_num_devices(cfg.batch_size, cfg.num_devices,
-                                     cfg.spatial_shard)
+        self.n_devices = pick_num_devices(cfg.batch_size, cfg.num_devices,
+                                          cfg.spatial_shard)
+        mesh = make_mesh(self.n_devices)
+        self.idle = isinstance(mesh, IdleRank)
+        if self.idle:  # the sub-world's groups are every rank's to make
+            make_layout(mesh, cfg.spatial_shard)
+            self.mesh, self.is_main = mesh, False
+            return
         self.train_loader, self.val_loader, self.test_loader, self.nclass = \
-            make_data_loader(cfg)
+            make_data_loader(cfg, n_devices=self.n_devices)
         weights = None
         if cfg.use_balanced_weights:
             weights = torch.as_tensor(load_or_compute_weights(
@@ -130,7 +145,7 @@ class Trainer:
         self.method: Method = build_method(cfg, len(self.train_loader),
                                            weights, method,
                                            device=self.device,
-                                           n_devices=n_devices)
+                                           n_devices=self.n_devices)
         self.mesh = self.method.mesh
         self.layout = self.method.layout
         # rank 0 alone owns the experiment directory, summaries and
@@ -280,6 +295,11 @@ class Trainer:
     # ------------------------------------------------------------------
     def fit(self):
         cfg = self.cfg
+        if self.idle:
+            print(f"[s2r_tpu_torch] {self.mesh}: idle until the run ends",
+                  flush=True)
+            end_of_run(self.n_devices)
+            return
         print(f"Starting Epoch: {self.start_epoch}")
         print(f"Total Epoches: {cfg.epochs}")
         epoch = self.start_epoch
@@ -303,4 +323,5 @@ class Trainer:
             self.saver.wait()
             self.writer.close()
         self.mesh.barrier()
+        end_of_run(self.n_devices)
 

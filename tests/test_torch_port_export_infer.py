@@ -15,7 +15,8 @@ cli/infer.py), on the CPU at 64x64 with full-width weights.
   labelId PNGs equal to JAX cli.infer's on >= 99.9% of pixels (labels
   differ only at float near-ties, ROADMAP C.3) and byte-equal to what
   _save_prediction writes for the port's in-process make_serving_fn on the
-  same decoded, resized frames; JPEG frames raise (ROADMAP A.4).
+  same decoded, resized frames; the JPEG kinds the decoder leaves out
+  raise (ROADMAP A.4).
 - Marked slow, as tests/test_serving.py's is: the port serves
   run/synthetic/conv-reval/model_best.ckpt (a JAX checkpoint) with the
   JAX package's mIoU and labels.
@@ -239,14 +240,19 @@ def test_infer_matches_jax_and_in_process(seeded, tmp_path):
 
 
 def test_infer_refuses_jpeg(seeded, tmp_path):
+    """JPEG frames decode now (tests/test_torch_port_jpeg.py); the kinds
+    the decoder leaves out, here a CMYK frame, raise naming ROADMAP A.4."""
     from s2r_tpu_torch.cli import infer
 
     frames = tmp_path / "frames"
     os.makedirs(frames)
-    Image.fromarray(_frames(1)[0]).save(str(frames / "a.jpg"))
-    with pytest.raises(NotImplementedError, match="A.4"):
-        infer.main(["--servable", str(tmp_path / "none"), "--images",
-                    str(frames)])
+    Image.fromarray(_frames(1)[0]).convert("CMYK").save(
+        str(frames / "a.jpg"))
+    servable = str(tmp_path / "m.s2rt")
+    _export(seeded[3], servable, "--serve-input", "rgb8")
+    with pytest.raises(ValueError, match="A.4"):
+        infer.main(["--servable", servable, "--images", str(frames),
+                    "--out-dir", str(tmp_path / "out")])
 
 
 @pytest.mark.slow

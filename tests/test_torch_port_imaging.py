@@ -9,9 +9,10 @@ exact (``assert_array_equal``):
 - decode of hand-written PNGs with each filter type (None, Sub, Up,
   Average, Paeth, and all five cycled row by row) at 1x1, 1x7 and 37x53,
   gray and palette at 1/2/4/8 bits, RGB, gray+alpha and RGBA;
-- 16-bit gray and 16-bit gray+alpha as raw samples raise, naming the
-  file and ROADMAP A.4, and an Adam7 file decodes as PIL decodes it
-  (test_torch_port_native_decode.py holds the rest of Adam7 and 16 bits);
+- 16-bit gray and 16-bit gray+alpha as raw samples decode as PIL decodes
+  them, a 16-bit palette file raises naming the file and ROADMAP A.4, and
+  an Adam7 file decodes as PIL decodes it (test_torch_port_native_decode.py
+  holds the rest of Adam7 and 16 bits);
 - BILINEAR against ``Image.resize``: up and down, odd sizes, every short
   edge RandomScaleCrop draws at base 32, 48 and 64 from 40x60 and 64x48
   frames, and ``box=`` windows formed as hostcrop forms them;
@@ -157,22 +158,32 @@ def test_decode_hand_written(hw, filters):
 
 def test_unsupported_pngs_raise(tmp_path):
     """16-bit gray (Pillow's "I;16") and 16-bit gray+alpha as raw samples
-    (Pillow opens it as RGBA) still raise, naming the file and ROADMAP
-    A.4; an Adam7 file, which raised before, decodes as PIL decodes it
-    (tests/test_torch_port_native_decode.py covers every kind, and the
-    16-bit cases that decode)."""
+    (Pillow opens it as RGBA), which raised before, decode as PIL decodes
+    them; a depth no PNG of its color type may have (a 16-bit palette)
+    still raises, naming the file and ROADMAP A.4; an Adam7 file decodes
+    as PIL decodes it (tests/test_torch_port_native_decode.py covers every
+    kind, tests/test_torch_port_data_rest.py the 16-bit gray cases)."""
     rs = np.random.RandomState(0)
-    cases = {"deep.png": (_hand_png(rs.randint(0, 65536, (5, 6)), 0, 16,
-                                    (0,)), (imaging.load_rgb,
-                                            imaging.load_raw)),
-             "deep_la.png": (_hand_png(rs.randint(0, 65536, (5, 6, 2)), 4,
-                                       16, (0,)), (imaging.load_raw,))}
-    for name, (data, loads) in cases.items():
+    deep = _hand_png(rs.randint(0, 65536, (5, 6)), 0, 16, (0,))
+    cases = {"deep.png": deep,
+             "deep_la.png": _hand_png(rs.randint(0, 65536, (5, 6, 2)), 4,
+                                      16, (0,))}
+    for name, data in cases.items():
         path = tmp_path / name
         path.write_bytes(data)
-        for load in loads:
-            with pytest.raises(ValueError, match=f"{name}.*A.4"):
-                load(str(path))
+        im = Image.open(str(path))
+        np.testing.assert_array_equal(imaging.load_raw(str(path)),
+                                      np.asarray(im, np.uint8))
+        np.testing.assert_array_equal(imaging.load_rgb(str(path)),
+                                      np.asarray(im.convert("RGB")))
+    bad = bytearray(deep)  # IHDR's color type 0 -> 3, its CRC redone
+    bad[25] = 3
+    bad[29:33] = struct.pack(">I", zlib.crc32(bytes(bad[12:29])) & 0xFFFFFFFF)
+    path = tmp_path / "deep_palette.png"
+    path.write_bytes(bytes(bad))
+    for load in (imaging.load_rgb, imaging.load_raw):
+        with pytest.raises(ValueError, match="deep_palette.png.*A.4"):
+            load(str(path))
     path = tmp_path / "adam7.png"
     path.write_bytes(_hand_png(rs.randint(0, 256, (5, 6)), 0, 8, (0,),
                                interlace=1))
